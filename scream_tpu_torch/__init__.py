@@ -1,0 +1,23 @@
+"""SCREAM-TPU's registration path in PyTorch, with hand-written Hopper kernels.
+
+The PyTorch/CUDA port of :mod:`scream_tpu`. It mirrors that package's layout
+and names (``scream_tpu_torch/geometry/icp.py`` is the port of
+``scream_tpu/geometry/icp.py``), imports ``torch`` and never ``jax``, and
+keeps its own copies of what it needs from the JAX package.
+
+Each Pallas kernel of the JAX package on a ported path becomes a CUDA C++
+kernel for ``sm_90a`` under ``csrc/``, built at first use with ``nvcc`` and
+loaded with ``ctypes`` (``ops/_build.py``). Each kernel wrapper launches its
+kernel for CUDA tensors and takes its plain PyTorch version only for CPU
+tensors.
+
+The geometry is fp32 end to end: TF32 is off for matmuls and cuDNN, as the
+JAX package forces "highest" matmul precision.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

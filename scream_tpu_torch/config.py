@@ -1,0 +1,70 @@
+"""Model and evaluation configuration (port of ``scream_tpu/config.py``).
+
+Same fields and defaults as the JAX dataclasses: d_model 256, 8 heads,
+6 shared self-attention stem layers + 6 cross blocks, ffn_mult 4, bf16
+compute with fp32 params, fp32 LayerNorm
+(reference ``models/pointnet.py:8-36``). ``EvalConfig`` carries the
+fields :func:`scream_tpu_torch.pipeline.register.register_batch` reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (the JAX config names dtypes
+    by string; the port keeps the strings so configs compare equal)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r}")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """PointTransformer architecture; defaults mirror the reference model."""
+
+    d_model: int = 256
+    num_heads: int = 8
+    self_layers: int = 6
+    cross_layers: int = 6
+    ffn_mult: int = 4
+    # bf16 compute / fp32 params replaces the reference's AMP (train_kitti.py:52).
+    dtype: str = "bfloat16"
+    # LayerNorm computation dtype.
+    norm_dtype: str = "float32"
+    separate_stems: bool = False  # True for the DEM (OpenGF) variant
+    remat: bool = False  # rematerialize attention blocks during training
+    # Fused block-tail kernel. The port has no tail kernel yet: the fused
+    # attention kernels subsume the tail wherever they apply.
+    fused_block_tail: Optional[bool] = None
+    # Fused attention-block kernels (ops/attn_cuda.py). None = auto: on
+    # CUDA tensors whenever ``ops.attn_cuda.fusable_block`` holds; False
+    # forces the plain body.
+    fused_attention: Optional[bool] = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def norm_compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.norm_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation knobs read by ``register_batch``
+    (reference ``evaluate_3d_match.py:174-195``)."""
+
+    dis_thresh: float = 0.1  # NN threshold (0.2 for zero-match)
+    corr: str = "tgt"  # "src_pred" for zero-match
+    icp_thresh: float = 0.1  # 1.0 for KITTI
+    icp_max_iter: int = 30  # 1000 for KITTI (evaluate_kitti.py:69)
+    # The GT-derived src_center hint fed to the model: 3DMatch passes t
+    # (evaluate_3d_match.py:84), KITTI passes -R^T t (evaluate_kitti.py:39).
+    center_mode: str = "trans"  # "neg_rt" for KITTI

@@ -1,0 +1,393 @@
+// Fused linear-attention block for Hopper (sm_90a): two kernels, stats and apply.
+//
+// Replaces the TPU kernels scream_tpu/ops/attn_pallas.py:_stats_kernel and
+// scream_tpu/ops/attn_pallas.py:_apply_kernel (both called from
+// attention_block). Same function, bf16 operands with fp32 accumulation:
+//
+//   stats:  [k|v] = x_kv @ [Wk|Wv] (rounded to bf16), K' = (elu(k)+1)*mask,
+//           V = v*mask, then per (batch, head): KV = K'^T V (fp32, hd x hd)
+//           and K_sum = sum_rows K' (fp32).
+//   apply:  q = x @ Wq (bf16), Q' = (elu(q)+1)*mask, att = Q' KV per head
+//           (fp32 KV), z = 1/(Q'.K_sum + eps) per head (fp32),
+//           msg = bf16(att*z), then LN2(x + relu(LN1(msg @ Wm + x) @ W1) @ W2)
+//           with fp32 LayerNorm statistics, var = max(0, E[x^2] - mu^2).
+//
+// What bounds it on the H100: at the main path's shape (16 x 4096 rows,
+// d = 256, hidden 1024) the apply kernel does ~86 GFLOP per call against
+// ~67 MB of activations in and out, ~1,300 FLOP per byte, so it is bound by
+// tensor-core operations, not by HBM. The stats kernel does ~17 GFLOP over a
+// 33 MB input and is bound the same way. What the design does about it:
+//   * The projections, the FFN and the merge run on the tensor cores
+//     (WMMA bf16 16x16x16 fragments, fp32 accumulators), not on CUDA cores.
+//   * Nothing intermediate goes to device memory: projected K/V, Q, the
+//     message and the rows x 1024 FFN hidden stay in shared memory; the
+//     hidden is produced and consumed in 128-column chunks whose second
+//     product accumulates in registers.
+//   * Each warp owns whole column groups of every product, so each weight
+//     fragment is read from L2 once per block.
+//   * The TPU kernel builds the full d x d KV and zeroes the cross-head
+//     blocks; here one block per (batch, head) builds only its 32 x 32
+//     diagonal block, looping over the sequence: 128 blocks at B = 16, no
+//     atomics, deterministic. The TPU's bf16 hi/lo split of KV is a Mosaic
+//     workaround; the apply kernel reads the fp32 KV directly.
+// This is the first, simple version (WMMA, no TMA/wgmma pipeline).
+//
+// Layout contract (checked by the Python wrapper, ops/attn_cuda.py):
+// d_model 256, head_dim 32 (8 heads), hidden a multiple of 128, all
+// tensors contiguous, bf16 activations and weights ((in, out) row-major),
+// fp32 masks, LayerNorm params and statistics.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int D = 256;        // model width: 8 warps x 32 columns
+constexpr int HD = 32;        // head dim: one warp lane per head column
+constexpr int NT = 256;       // threads per block (8 warps)
+constexpr int TS = 64;        // stats: sequence rows per tile
+constexpr int TA = 64;        // apply: query rows per block
+constexpr int HC = 128;       // apply: FFN hidden columns per chunk
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// elu(x) + 1 as where(x > 0, x + 1, exp(x)), in fp32 (attn_pallas._elu1).
+__device__ __forceinline__ float elu1(float v) {
+  return v > 0.f ? v + 1.f : expf(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One warp's share of C (+)= A @ B: RF row fragments x CF column fragments.
+// A: shared memory, row-major, lda (points at the warp's first row and k=0).
+// B: global memory (L2-resident weights), row-major, ldb (points at k=0 and
+// the warp's first column). K is a multiple of 16.
+template <int RF, int CF>
+__device__ __forceinline__ void warp_mma(FragC (&acc)[RF][CF], const bf16* A,
+                                         int lda, const bf16* B, int ldb,
+                                         int K) {
+  for (int k = 0; k < K; k += 16) {
+    FragB fb[CF];
+#pragma unroll
+    for (int j = 0; j < CF; ++j)
+      wmma::load_matrix_sync(fb[j], B + (size_t)k * ldb + j * 16, ldb);
+#pragma unroll
+    for (int i = 0; i < RF; ++i) {
+      FragA fa;
+      wmma::load_matrix_sync(fa, A + (size_t)i * 16 * lda + k, lda);
+#pragma unroll
+      for (int j = 0; j < CF; ++j) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
+    }
+  }
+}
+
+template <int RF, int CF>
+__device__ __forceinline__ void warp_zero(FragC (&acc)[RF][CF]) {
+#pragma unroll
+  for (int i = 0; i < RF; ++i)
+#pragma unroll
+    for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+}
+
+template <int RF, int CF>
+__device__ __forceinline__ void warp_store(FragC (&acc)[RF][CF], float* C,
+                                           int ldc) {
+#pragma unroll
+  for (int i = 0; i < RF; ++i)
+#pragma unroll
+    for (int j = 0; j < CF; ++j)
+      wmma::store_matrix_sync(C + (size_t)i * 16 * ldc + j * 16, acc[i][j], ldc,
+                              wmma::mem_row_major);
+}
+
+// Copy `rows` x D bf16 rows from global (row r0 on) into shared memory,
+// zero-filling rows at or beyond `limit`.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int rows, int limit) {
+  const int per_row = D / 8;  // uint4 = 8 bf16
+  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    const int r = i / per_row, c = i % per_row;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < limit)
+      v = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D)[c];
+    reinterpret_cast<uint4*>(dst)[i] = v;
+  }
+}
+
+// Stats: grid (H, B), one block per (head, batch), looping over S.
+constexpr size_t STATS_SMEM =
+    (size_t)TS * D * 2 + (size_t)TS * 2 * HD * 4 + (size_t)TS * 2 * HD * 2;
+
+__global__ void __launch_bounds__(NT)
+attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
+                  const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                  float* __restrict__ kv, float* __restrict__ ksum, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);                          // TS x D
+  float* st = reinterpret_cast<float*>(smem + (size_t)TS * D * 2);   // TS x 2HD
+  bf16* kvb = reinterpret_cast<bf16*>(smem + (size_t)TS * D * 2 +
+                                      (size_t)TS * 2 * HD * 4);      // TS x 2HD
+
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* xb = x + (size_t)b * S * D;
+  const float* mb = mask + (size_t)b * S;
+
+  // Projection ownership: column fragment cf of [k_h | v_h] (0,1: k; 2,3: v)
+  // and rows (warp >> 2) * 32 .. + 32 of the tile.
+  const int cf = warp & 3, rg = warp >> 2;
+  const bf16* wcol = (cf < 2 ? wk + h * HD + cf * 16 : wv + h * HD + (cf - 2) * 16);
+
+  FragC kvacc;  // warps 0..3: KV sub-block (warp >> 1, warp & 1)
+  wmma::fill_fragment(kvacc, 0.f);
+  float ks = 0.f;  // warp 4: K_sum column `lane`
+
+  for (int s0 = 0; s0 < S; s0 += TS) {
+    load_rows(xs, xb, s0, TS, S);
+    __syncthreads();
+
+    FragC pacc[2][1];
+    warp_zero(pacc);
+    warp_mma(pacc, xs + (size_t)rg * 32 * D, D, wcol, D, D);
+    warp_store(pacc, st + (size_t)rg * 32 * (2 * HD) + cf * 16, 2 * HD);
+    __syncthreads();
+
+    // Round to bf16 (the projection's output dtype), feature map on k, mask.
+    for (int i = threadIdx.x; i < TS * 2 * HD; i += NT) {
+      const int r = i / (2 * HD), c = i % (2 * HD);
+      const float m = (s0 + r < S) ? mb[s0 + r] : 0.f;
+      float v = round_bf16(st[i]);
+      if (c < HD) v = round_bf16(elu1(v));
+      kvb[i] = __float2bfloat16(v * m);
+    }
+    __syncthreads();
+
+    if (warp < 4) {
+      const int bi = warp >> 1, bj = warp & 1;
+#pragma unroll
+      for (int k = 0; k < TS; k += 16) {
+        FragAT fa;  // K'^T: column-major view of the K' rows
+        FragB fb;
+        wmma::load_matrix_sync(fa, kvb + k * (2 * HD) + bi * 16, 2 * HD);
+        wmma::load_matrix_sync(fb, kvb + k * (2 * HD) + HD + bj * 16, 2 * HD);
+        wmma::mma_sync(kvacc, fa, fb, kvacc);
+      }
+    } else if (warp == 4) {
+      for (int r = 0; r < TS; ++r) ks += __bfloat162float(kvb[r * (2 * HD) + lane]);
+    }
+    __syncthreads();
+  }
+
+  if (warp < 4) {
+    const int bi = warp >> 1, bj = warp & 1;
+    float* out = kv + ((size_t)(b * H + h) * HD + bi * 16) * HD + bj * 16;
+    wmma::store_matrix_sync(out, kvacc, HD, wmma::mem_row_major);
+  } else if (warp == 4) {
+    ksum[(size_t)b * H * HD + h * HD + lane] = ks;
+  }
+}
+
+// Apply: grid (ceil(L / TA), B), one block per TA query rows.
+constexpr size_t APPLY_SMEM = (size_t)TA * D * 2      // xs: block input
+                              + (size_t)TA * D * 2    // as: Q' / msg / LN1 out
+                              + (size_t)TA * D * 4    // st: fp32 staging
+                              + (size_t)TA * HC * 2   // hs: FFN hidden chunk
+                              + (size_t)(D / HD) * HD * HD * 4  // KV
+                              + (size_t)D * 4         // K_sum
+                              + (size_t)TA * 4;       // row mask
+
+// LayerNorm of one row held by one warp (lane owns columns lane + 32 k),
+// flax math: fp32 stats, var = max(0, E[x^2] - mu^2), rsqrt(var+eps)*g.
+__device__ __forceinline__ void ln_row(float (&v)[D / 32], const float* g,
+                                       const float* bta, float eps, int lane) {
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < D / 32; ++k) { s += v[k]; s2 += v[k] * v[k]; }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / D;
+  const float var = fmaxf(0.f, s2 / D - mu * mu);
+  const float r = rsqrtf(var + eps);
+#pragma unroll
+  for (int k = 0; k < D / 32; ++k) {
+    const int c = lane + 32 * k;
+    v[k] = (v[k] - mu) * (r * g[c]) + bta[c];
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
+                  const bf16* __restrict__ wq, const float* __restrict__ kv,
+                  const float* __restrict__ ksum, const bf16* __restrict__ wm,
+                  const float* __restrict__ g1, const float* __restrict__ b1,
+                  const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                  const float* __restrict__ g2, const float* __restrict__ b2,
+                  bf16* __restrict__ out, int L, int hid, float attn_eps,
+                  float ln_eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* p = smem;
+  bf16* xs = reinterpret_cast<bf16*>(p);  p += (size_t)TA * D * 2;
+  bf16* as = reinterpret_cast<bf16*>(p);  p += (size_t)TA * D * 2;
+  float* st = reinterpret_cast<float*>(p); p += (size_t)TA * D * 4;
+  bf16* hs = reinterpret_cast<bf16*>(p);  p += (size_t)TA * HC * 2;
+  float* kvs = reinterpret_cast<float*>(p); p += (size_t)(D / HD) * HD * HD * 4;
+  float* kss = reinterpret_cast<float*>(p); p += (size_t)D * 4;
+  float* ms = reinterpret_cast<float*>(p);
+
+  const int b = blockIdx.y, r0 = blockIdx.x * TA;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H = D / HD;
+
+  load_rows(xs, x + (size_t)b * L * D, r0, TA, L);
+  for (int i = tid; i < H * HD * HD; i += NT) kvs[i] = kv[(size_t)b * H * HD * HD + i];
+  for (int i = tid; i < D; i += NT) kss[i] = ksum[(size_t)b * D + i];
+  for (int i = tid; i < TA; i += NT) ms[i] = (r0 + i < L) ? mask[(size_t)b * L + r0 + i] : 0.f;
+  __syncthreads();
+
+  // q = x @ Wq; warp owns columns warp*32 .. +32 over all TA rows.
+  {
+    FragC acc[TA / 16][2];
+    warp_zero(acc);
+    warp_mma(acc, xs, D, wq + warp * 32, D, D);
+    warp_store(acc, st + warp * 32, D);
+  }
+  __syncthreads();
+  for (int i = tid; i < TA * D; i += NT) {
+    const float q = round_bf16(st[i]);
+    as[i] = __float2bfloat16(round_bf16(elu1(q)) * ms[i / D]);
+  }
+  __syncthreads();
+
+  // Per-head contraction and normalizer. Warp w is head w; lane owns one
+  // column of that head: thread tid owns column tid.
+  {
+    float kvc[HD];
+#pragma unroll
+    for (int j = 0; j < HD; ++j) kvc[j] = kvs[warp * HD * HD + j * HD + lane];
+    const float ksc = kss[tid];
+    for (int r = 0; r < TA; ++r) {
+      const bf16* qrow = as + (size_t)r * D + warp * HD;
+      float att = 0.f;
+#pragma unroll
+      for (int j = 0; j < HD; ++j) att += __bfloat162float(qrow[j]) * kvc[j];
+      const float z = warp_sum(__bfloat162float(as[(size_t)r * D + tid]) * ksc);
+      __syncwarp();
+      as[(size_t)r * D + tid] = __float2bfloat16(att * (1.f / (z + attn_eps)));
+    }
+  }
+  __syncthreads();
+
+  // Merge, + x, LN1 -> as (bf16).
+  {
+    FragC acc[TA / 16][2];
+    warp_zero(acc);
+    warp_mma(acc, as, D, wm + warp * 32, D, D);
+    warp_store(acc, st + warp * 32, D);
+  }
+  __syncthreads();
+  for (int r = warp; r < TA; r += NT / 32) {
+    float v[D / 32];
+#pragma unroll
+    for (int k = 0; k < D / 32; ++k) {
+      const int c = lane + 32 * k;
+      v[k] = round_bf16(round_bf16(st[(size_t)r * D + c]) +
+                        __bfloat162float(xs[(size_t)r * D + c]));
+    }
+    ln_row(v, g1, b1, ln_eps, lane);
+#pragma unroll
+    for (int k = 0; k < D / 32; ++k)
+      as[(size_t)r * D + lane + 32 * k] = __float2bfloat16(v[k]);
+  }
+  __syncthreads();
+
+  // FFN in hidden chunks: f += relu(bf16(y @ W1[:, chunk])) @ W2[chunk, :].
+  FragC facc[TA / 16][2];
+  warp_zero(facc);
+  for (int h0 = 0; h0 < hid; h0 += HC) {
+    {
+      FragC hacc[TA / 16][1];
+      warp_zero(hacc);
+      warp_mma(hacc, as, D, w1 + h0 + warp * 16, hid, D);
+      warp_store(hacc, st + warp * 16, HC);
+    }
+    __syncthreads();
+    for (int i = tid; i < TA * HC; i += NT)
+      hs[i] = __float2bfloat16(fmaxf(round_bf16(st[i]), 0.f));
+    __syncthreads();
+    warp_mma(facc, hs, HC, w2 + (size_t)h0 * D + warp * 32, D, HC);
+    __syncthreads();
+  }
+  warp_store(facc, st + warp * 32, D);
+  __syncthreads();
+
+  // + x, LN2 -> out.
+  for (int r = warp; r < TA; r += NT / 32) {
+    float v[D / 32];
+#pragma unroll
+    for (int k = 0; k < D / 32; ++k) {
+      const int c = lane + 32 * k;
+      v[k] = round_bf16(__bfloat162float(xs[(size_t)r * D + c]) +
+                        round_bf16(st[(size_t)r * D + c]));
+    }
+    ln_row(v, g2, b2, ln_eps, lane);
+    if (r0 + r < L) {
+      bf16* orow = out + ((size_t)b * L + r0 + r) * D;
+#pragma unroll
+      for (int k = 0; k < D / 32; ++k) orow[lane + 32 * k] = __float2bfloat16(v[k]);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// KV: (B, H, 32, 32) fp32, ksum: (B, 256) fp32.
+int scream_attn_stats(const void* x, const void* mask, const void* wk,
+                      const void* wv, void* kv, void* ksum, int B, int S,
+                      void* stream) {
+  cudaFuncSetAttribute(attn_stats_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)STATS_SMEM);
+  dim3 grid(D / HD, B);
+  attn_stats_kernel<<<grid, NT, STATS_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)mask, (const bf16*)wk, (const bf16*)wv,
+      (float*)kv, (float*)ksum, S);
+  return (int)cudaGetLastError();
+}
+
+int scream_attn_apply(const void* x, const void* mask, const void* wq,
+                      const void* kv, const void* ksum, const void* wm,
+                      const void* g1, const void* b1, const void* w1,
+                      const void* w2, const void* g2, const void* b2, void* out,
+                      int B, int L, int hid, float attn_eps, float ln_eps,
+                      void* stream) {
+  cudaFuncSetAttribute(attn_apply_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)APPLY_SMEM);
+  dim3 grid((L + TA - 1) / TA, B);
+  attn_apply_kernel<<<grid, NT, APPLY_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)mask, (const bf16*)wq, (const float*)kv,
+      (const float*)ksum, (const bf16*)wm, (const float*)g1, (const float*)b1,
+      (const bf16*)w1, (const bf16*)w2, (const float*)g2, (const float*)b2,
+      (bf16*)out, L, hid, attn_eps, ln_eps);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

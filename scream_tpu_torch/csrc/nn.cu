@@ -1,0 +1,234 @@
+// Nearest-neighbour search for Hopper (sm_90a): exact and threshold-bounded.
+//
+// nn_exact replaces scream_tpu/ops/nn_pallas.py:_nn_kernel
+// (nearest_neighbor_pallas, the pose solve's NN): for every src point, the
+// minimum over dst of d2 = (|d|^2 + |s|^2) - 2 (d . s) and the first dst
+// index attaining it; masked dst rows were moved to FAR = 2e17 by the
+// wrapper, so they never win.
+//
+// nn_bounded replaces scream_tpu/ops/nn_pallas.py:_nn_bounded_batched_fine_kernel
+// (_bounded_batched, the batched ICP's NN). Contract: exact for every src
+// point whose true NN lies within the threshold; a (128-point src sub-slab,
+// 256-row dst tile) pair whose bounding boxes are farther apart than the
+// threshold (gap^2 > thresh^2, strict) is skipped, a dead lane skips every
+// tile, and a point with no live tile keeps (3e38, (0, 0, 0)). The winner's
+// xyz is written by the kernel, never gathered after it.
+//
+// Both use the distance expression of the TPU kernels, evaluated in this
+// order with round-to-nearest intrinsics so nvcc contracts nothing into
+// FMAs: d_sq = (dx*dx + dy*dy) + dz*dz, cross = (dx*sx + dy*sy) + dz*sz,
+// d2 = (d_sq + s_sq) - 2*cross. The plain PyTorch versions
+// (ops/nn_cuda.py) compute the same expression elementwise, so kernel and
+// plain agree bit for bit, and ties break to the lowest index as argmin does
+// (a sequential scan over dst with strict <).
+//
+// What bounds them on the H100: with K = 3 the distance is ~10 fp32
+// operations per (src, dst) pair against 12 bytes per point, so both are
+// bound by fp32 CUDA-core operations (TF32 tensor cores would change
+// distances and ties). The exact NN does 16 x 4096 x 4096 pairs at the main
+// path's shape; the bounded NN does only the pairs of live tiles. The design:
+// one thread owns one src point and keeps its running (min, index or xyz) in
+// registers; dst streams through shared memory in order, with |d|^2
+// computed once per staged row; the bounded kernel's box test is uniform
+// across its block, so a pruned tile costs one 6-float read and no
+// shared-memory traffic. The dst tile boxes come from a small kernel in the
+// same call, so a call is two launches. This is the first, simple version.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int EX_THREADS = 256;   // exact: src points per block
+constexpr int EX_TILE = 1024;     // exact: dst rows staged per step
+constexpr int BD_THREADS = 128;   // bounded: src sub-slab (one point each)
+constexpr int BD_TILE = 256;      // bounded: dst rows per tile (box granularity)
+constexpr float NO_HIT = 3.0e38f;
+constexpr float FAR_HALF = 1.0e17f;  // half the wrapper's FAR = 2e17
+
+__device__ __forceinline__ float sq3(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+__device__ __forceinline__ float dist2(float dsq, float ssq, float dx, float dy,
+                                       float dz, float sx, float sy, float sz) {
+  const float cross =
+      __fadd_rn(__fadd_rn(__fmul_rn(dx, sx), __fmul_rn(dy, sy)), __fmul_rn(dz, sz));
+  return __fsub_rn(__fadd_rn(dsq, ssq), __fmul_rn(2.0f, cross));
+}
+
+__global__ void __launch_bounds__(EX_THREADS)
+nn_exact_kernel(const float* __restrict__ src, const float* __restrict__ dst,
+                float* __restrict__ min_out, int64_t* __restrict__ idx_out,
+                int N, int M) {
+  __shared__ float tx[EX_TILE], ty[EX_TILE], tz[EX_TILE], tq[EX_TILE];
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * EX_THREADS + threadIdx.x;
+  const bool valid = i < N;
+  const float* sp = src + ((size_t)b * N + (valid ? i : 0)) * 3;
+  const float sx = sp[0], sy = sp[1], sz = sp[2];
+  const float ssq = sq3(sx, sy, sz);
+  const float* db = dst + (size_t)b * M * 3;
+
+  float best = INFINITY;
+  int64_t best_i = 0;
+  for (int m0 = 0; m0 < M; m0 += EX_TILE) {
+    const int cnt = min(EX_TILE, M - m0);
+    for (int j = threadIdx.x; j < cnt; j += EX_THREADS) {
+      const float* dp = db + (size_t)(m0 + j) * 3;
+      const float x = dp[0], y = dp[1], z = dp[2];
+      tx[j] = x; ty[j] = y; tz[j] = z;
+      tq[j] = sq3(x, y, z);
+    }
+    __syncthreads();
+    for (int j = 0; j < cnt; ++j) {
+      const float d2 = dist2(tq[j], ssq, tx[j], ty[j], tz[j], sx, sy, sz);
+      if (d2 < best) { best = d2; best_i = m0 + j; }
+    }
+    __syncthreads();
+  }
+  if (valid) {
+    min_out[(size_t)b * N + i] = fmaxf(best, 0.f);
+    idx_out[(size_t)b * N + i] = best_i;
+  }
+}
+
+// Min or max of v over a block of NWARPS warps; every thread gets the result.
+template <int NWARPS>
+__device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : fminf(v, w);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int k = 1; k < NWARPS; ++k) v = is_max ? fmaxf(v, red[k]) : fminf(v, red[k]);
+  return v;
+}
+
+// Per-tile boxes of dst for the bounded kernel: grid (mt, B), one thread per
+// row. Rows at FAR (masked) and rows past M are left out, so an all-masked
+// tile gets the empty box (+inf, -inf), which never passes the gap test.
+__global__ void __launch_bounds__(BD_TILE)
+tile_boxes_kernel(const float* __restrict__ dst, float* __restrict__ boxes,
+                  int M, int mt) {
+  __shared__ float red[BD_TILE / 32];
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int j = t * BD_TILE + threadIdx.x;
+  float x = 0.f, y = 0.f, z = 0.f;
+  bool valid = false;
+  if (j < M) {
+    const float* dp = dst + ((size_t)b * M + j) * 3;
+    x = dp[0]; y = dp[1]; z = dp[2];
+    valid = x < FAR_HALF;
+  }
+  float out[6];
+  out[0] = block_reduce<BD_TILE / 32>(valid ? x : INFINITY, false, red);
+  out[1] = block_reduce<BD_TILE / 32>(valid ? y : INFINITY, false, red);
+  out[2] = block_reduce<BD_TILE / 32>(valid ? z : INFINITY, false, red);
+  out[3] = block_reduce<BD_TILE / 32>(valid ? x : -INFINITY, true, red);
+  out[4] = block_reduce<BD_TILE / 32>(valid ? y : -INFINITY, true, red);
+  out[5] = block_reduce<BD_TILE / 32>(valid ? z : -INFINITY, true, red);
+  if (threadIdx.x < 6) boxes[((size_t)b * mt + t) * 6 + threadIdx.x] = out[threadIdx.x];
+}
+
+// boxes: (B, mt, 6) fp32 per dst tile (tile_boxes_kernel): lo xyz, hi xyz.
+__global__ void __launch_bounds__(BD_THREADS)
+nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
+                  const float* __restrict__ boxes,
+                  const uint8_t* __restrict__ dead, float thresh_sq,
+                  float* __restrict__ min_out, float* __restrict__ xyz_out,
+                  int N, int M, int mt) {
+  __shared__ float tx[BD_TILE], ty[BD_TILE], tz[BD_TILE], tq[BD_TILE];
+  __shared__ float red[BD_THREADS / 32];
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * BD_THREADS + threadIdx.x;
+  const bool valid = i < N;
+  const float* sp = src + ((size_t)b * N + (valid ? i : 0)) * 3;
+  const float sx = sp[0], sy = sp[1], sz = sp[2];
+
+  float best = NO_HIT, bx = 0.f, by = 0.f, bz = 0.f;
+  if (!dead[b]) {  // uniform across the block
+    const float ssq = sq3(sx, sy, sz);
+    // The sub-slab's box over its in-range points.
+    const float lox = block_reduce<BD_THREADS / 32>(valid ? sx : INFINITY, false, red);
+    const float loy = block_reduce<BD_THREADS / 32>(valid ? sy : INFINITY, false, red);
+    const float loz = block_reduce<BD_THREADS / 32>(valid ? sz : INFINITY, false, red);
+    const float hix = block_reduce<BD_THREADS / 32>(valid ? sx : -INFINITY, true, red);
+    const float hiy = block_reduce<BD_THREADS / 32>(valid ? sy : -INFINITY, true, red);
+    const float hiz = block_reduce<BD_THREADS / 32>(valid ? sz : -INFINITY, true, red);
+    const float* db = dst + (size_t)b * M * 3;
+    const float* bb = boxes + (size_t)b * mt * 6;
+    for (int t = 0; t < mt; ++t) {
+      const float* bt = bb + (size_t)t * 6;
+      const float gx = fmaxf(fmaxf(lox - bt[3], bt[0] - hix), 0.f);
+      const float gy = fmaxf(fmaxf(loy - bt[4], bt[1] - hiy), 0.f);
+      const float gz = fmaxf(fmaxf(loz - bt[5], bt[2] - hiz), 0.f);
+      const float gap2 = sq3(gx, gy, gz);
+      if (!(gap2 <= thresh_sq)) continue;  // prune: gap^2 > thresh^2 (or NaN box)
+      const int m0 = t * BD_TILE;
+      const int cnt = min(BD_TILE, M - m0);
+      for (int j = threadIdx.x; j < cnt; j += BD_THREADS) {
+        const float* dp = db + (size_t)(m0 + j) * 3;
+        const float x = dp[0], y = dp[1], z = dp[2];
+        tx[j] = x; ty[j] = y; tz[j] = z;
+        tq[j] = sq3(x, y, z);
+      }
+      __syncthreads();
+      int win = -1;
+      for (int j = 0; j < cnt; ++j) {
+        const float d2 = dist2(tq[j], ssq, tx[j], ty[j], tz[j], sx, sy, sz);
+        if (d2 < best) { best = d2; win = j; }
+      }
+      if (win >= 0) { bx = tx[win]; by = ty[win]; bz = tz[win]; }
+      __syncthreads();
+    }
+  }
+  if (valid) {
+    const size_t o = (size_t)b * N + i;
+    min_out[o] = fmaxf(best, 0.f);
+    xyz_out[o * 3 + 0] = bx;
+    xyz_out[o * 3 + 1] = by;
+    xyz_out[o * 3 + 2] = bz;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// src (B, N, 3), dst (B, M, 3) fp32 with masked rows at FAR ->
+// min_d2 (B, N) fp32 clamped at 0, idx (B, N) int64.
+int scream_nn_exact(const void* src, const void* dst, void* min_d2, void* idx,
+                    int B, int N, int M, void* stream) {
+  dim3 grid((N + EX_THREADS - 1) / EX_THREADS, B);
+  nn_exact_kernel<<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)src, (const float*)dst, (float*)min_d2, (int64_t*)idx, N, M);
+  return (int)cudaGetLastError();
+}
+
+// src (B, N, 3), dst (B, M, 3) fp32 with masked rows at FAR, dead (B,)
+// uint8, boxes: scratch (B, ceil(M/256), 6) fp32 -> min_d2 (B, N), xyz (B, N, 3).
+// Two launches on the stream: the tile boxes, then the search.
+int scream_nn_bounded(const void* src, const void* dst, const void* dead,
+                      float thresh_sq, void* boxes, void* min_d2, void* xyz,
+                      int B, int N, int M, void* stream) {
+  const int mt = (M + BD_TILE - 1) / BD_TILE;
+  tile_boxes_kernel<<<dim3(mt, B), BD_TILE, 0, (cudaStream_t)stream>>>(
+      (const float*)dst, (float*)boxes, M, mt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BD_THREADS - 1) / BD_THREADS, B);
+  nn_bounded_kernel<<<grid, BD_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)src, (const float*)dst, (const float*)boxes,
+      (const uint8_t*)dead, thresh_sq, (float*)min_d2, (float*)xyz, N, M, mt);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

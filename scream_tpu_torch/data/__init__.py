@@ -1,0 +1,9 @@
+"""Host-side data: synthetic pairs, padded batching and the pair loader."""
+
+from scream_tpu_torch.data.batching import collate_pairs, pad_cloud
+from scream_tpu_torch.data.datasets import SyntheticPairDataset
+from scream_tpu_torch.data.loader import PairLoader
+from scream_tpu_torch.data.synthetic import make_pair, make_scene
+
+__all__ = ["collate_pairs", "pad_cloud", "SyntheticPairDataset", "PairLoader",
+           "make_pair", "make_scene"]

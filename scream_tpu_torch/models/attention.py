@@ -1,0 +1,170 @@
+"""Linear attention blocks and the continuous sinusoidal position embedding
+(port of ``scream_tpu/models/attention.py``).
+
+* :func:`linear_attention`: the O(N) elu+1 attention (reference
+  ``models/transformer.py:11-44``), with the KV contraction and the
+  normalizer accumulated in fp32 under bf16 compute.
+* :class:`AttentionBlock`: projections -> linear attention -> merge -> FFN,
+  with the reference's double q-residual (``models/transformer.py:74-90``).
+  On CUDA tensors, when ``v is k`` and the shape passes
+  ``ops.attn_cuda.fusable_block``, the whole block runs as the two fused
+  kernels; otherwise as the plain body.
+* :func:`sinusoidal_pe`: the continuous n-dim coordinate embedding
+  (``models/transformer.py:135-179``).
+
+Everything is batched ``(B, N, D)`` with boolean validity masks. Weights
+keep flax's ``(in, out)`` layout, so ``y = x @ W``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scream_tpu_torch.ops import attn_cuda
+from scream_tpu_torch.ops.ffn import tail_plain
+
+
+def sinusoidal_pe(
+    xyz: torch.Tensor,
+    d_model: int,
+    n_dim: int = 3,
+    temperature: float = 10000.0,
+    scale: float = 2.0 * math.pi,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Continuous sinusoidal PE ``(..., n_dim)`` -> ``(..., d_model)``:
+    ``num_pos_feats = d_model // n_dim // 2 * 2`` channels per input dim with
+    frequencies ``temperature**(2*(i//2)/num_pos_feats)``, even channels
+    sin, odd channels cos, remainder zero-padded."""
+    num_pos_feats = d_model // n_dim // 2 * 2
+    padding = d_model - num_pos_feats * n_dim
+
+    i = torch.arange(num_pos_feats, dtype=torch.float32, device=xyz.device)
+    dim_t = torch.pow(torch.tensor(temperature, dtype=torch.float32, device=xyz.device),
+                      2.0 * torch.floor(i / 2.0) / num_pos_feats)
+
+    pos = xyz.float() * scale
+    pos_divided = pos[..., None] / dim_t  # (..., n_dim, num_pos_feats)
+    pos_sin = torch.sin(pos_divided[..., 0::2])
+    pos_cos = torch.cos(pos_divided[..., 1::2])
+    pe = torch.stack([pos_sin, pos_cos], dim=-1).reshape(*xyz.shape[:-1], -1)
+    if padding:
+        pe = F.pad(pe, (0, padding))
+    return pe.to(dtype)
+
+
+def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
+    """O(N) linear attention with the elu+1 feature map.
+
+    ``q`` ``(B, L, H, D)``, ``k``/``v`` ``(B, S, H, D)``, masks ``(B, L)`` /
+    ``(B, S)``. ``KV = K^T V`` then ``out = Q KV / (Q . sum(K))``, both
+    contractions accumulated in fp32.
+    """
+    Q = F.elu(q) + 1.0
+    K = F.elu(k) + 1.0
+    if q_mask is not None:
+        Q = Q * q_mask[:, :, None, None].to(Q.dtype)
+    if kv_mask is not None:
+        K = K * kv_mask[:, :, None, None].to(K.dtype)
+        v = v * kv_mask[:, :, None, None].to(v.dtype)
+
+    Kf = K.float()
+    KV = torch.einsum("bshd,bshv->bhdv", Kf, v.float())
+    K_sum = Kf.sum(1)  # (B, H, D)
+    Qf = Q.float()
+    Z = 1.0 / (torch.einsum("blhd,bhd->blh", Qf, K_sum) + eps)
+    out = torch.einsum("blhd,bhdv->blhv", Qf, KV) * Z[..., None]
+    return out.to(q.dtype)
+
+
+class _Proj(nn.Module):
+    """Bias-free ``(in, out)`` projection weight, xavier-uniform init (the
+    layout of flax's ``{name: {"kernel": W}}``)."""
+
+    def __init__(self, d_in: int, d_out: int, generator=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out))
+        nn.init.xavier_uniform_(self.kernel, generator=generator)
+
+
+class _Norm(nn.Module):
+    """LayerNorm scale/bias (fp32, ones/zeros)."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+
+class AttentionBlock(nn.Module):
+    """MHA block: q/k/v projections -> linear attention -> merge -> FFN.
+
+    Both LayerNorms add the block *input* q (the reference's wiring,
+    ``models/transformer.py:74-90``); LayerNorm epsilon 1e-5. Parameters:
+    ``q_proj, k_proj, v_proj, merge, ffn_in, ffn_out`` (``.kernel``,
+    ``(in, out)``) and ``norm1, norm2`` (``.scale, .bias``).
+
+    ``fused_attn``: None = the fused kernels on CUDA tensors when ``v is k``
+    and ``ops.attn_cuda.fusable_block`` holds; True = always the fused path
+    when ``v is k`` (plain versions of its kernels on CPU tensors); False =
+    always the plain body.
+    """
+
+    def __init__(self, d_model: int, num_heads: int = 8, ffn_mult: int = 4,
+                 dtype: torch.dtype = torch.float32,
+                 norm_dtype: torch.dtype = torch.float32,
+                 fused_attn: Optional[bool] = None, generator=None):
+        super().__init__()
+        self.d_model, self.num_heads, self.ffn_mult = d_model, num_heads, ffn_mult
+        self.dtype, self.norm_dtype, self.fused_attn = dtype, norm_dtype, fused_attn
+        hid = d_model * ffn_mult
+        self.q_proj = _Proj(d_model, d_model, generator)
+        self.k_proj = _Proj(d_model, d_model, generator)
+        self.v_proj = _Proj(d_model, d_model, generator)
+        self.merge = _Proj(d_model, d_model, generator)
+        self.norm1 = _Norm(d_model)
+        self.ffn_in = _Proj(d_model, hid, generator)
+        self.ffn_out = _Proj(hid, d_model, generator)
+        self.norm2 = _Norm(d_model)
+
+    def _use_fused(self, q, k, v) -> bool:
+        if v is not k or q.shape[-1] != self.d_model or k.shape[-1] != self.d_model:
+            return False
+        if self.fused_attn is not None:
+            return self.fused_attn
+        return q.is_cuda and attn_cuda.fusable_block(
+            self.d_model, self.d_model * self.ffn_mult, self.num_heads, self.dtype)
+
+    def forward(self, q, k, v, q_mask=None, kv_mask=None):
+        B, L, S = q.shape[0], q.shape[1], k.shape[1]
+        hd = self.d_model // self.num_heads
+        Wq, Wk, Wv = self.q_proj.kernel, self.k_proj.kernel, self.v_proj.kernel
+        tail = (self.merge.kernel, self.norm1.scale, self.norm1.bias,
+                self.ffn_in.kernel, self.ffn_out.kernel, self.norm2.scale,
+                self.norm2.bias)
+        if self._use_fused(q, k, v):
+            return attn_cuda.attention_block_fused(
+                q, k, q_mask, kv_mask, Wq, Wk, Wv, *tail,
+                num_heads=self.num_heads, dtype=self.dtype,
+                norm_dtype=self.norm_dtype)
+
+        cd = self.dtype
+        mm = lambda x, W: x.to(cd) @ W.to(cd)
+        if k is q and v is q:
+            query, key, value = mm(q, torch.cat([Wq, Wk, Wv], 1)).chunk(3, -1)
+        elif v is k:
+            query = mm(q, Wq)
+            key, value = mm(k, torch.cat([Wk, Wv], 1)).chunk(2, -1)
+        else:
+            query, key, value = mm(q, Wq), mm(k, Wk), mm(v, Wv)
+        message = linear_attention(
+            query.reshape(B, L, self.num_heads, hd),
+            key.reshape(B, S, self.num_heads, hd),
+            value.reshape(B, S, self.num_heads, hd), q_mask, kv_mask)
+        return tail_plain(message.reshape(B, L, self.d_model), q, *tail,
+                          cd=cd, nd=self.norm_dtype, eps=1e-5)

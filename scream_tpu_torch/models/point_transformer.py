@@ -1,0 +1,132 @@
+"""The registration transformer (port of ``PointTransformer`` in
+``scream_tpu/models/point_transformer.py``; reference ``models/pointnet.py``).
+
+It predicts where the source cloud sits in the target frame (``src_pred``):
+sinusoidal PE + a Dense embedding of centred coordinates, LayerNorm, 6
+*shared* self-attention stem layers applied to both clouds, 6 cross blocks
+(self on src, then cross src<-tgt), and a 3-layer coordinate head. Compute
+runs in ``ModelConfig.dtype`` (bf16 by default) over fp32 parameters.
+
+Parameter names follow the flax tree (``trunk.stem_0.q_proj.kernel``, ...)
+with flax's ``(in, out)`` kernel layout, so
+``utils.convert.params_from_jax`` maps a JAX checkpoint one to one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from scream_tpu_torch.config import ModelConfig
+from scream_tpu_torch.models.attention import AttentionBlock, sinusoidal_pe
+from scream_tpu_torch.ops.ffn import _ln
+from scream_tpu_torch.utils.device import resolve_device
+
+
+class _Dense(nn.Module):
+    """``(in, out)`` kernel + bias, flax ``nn.Dense``'s layout and default
+    init (lecun-normal kernel, zero bias)."""
+
+    def __init__(self, d_in: int, d_out: int, generator=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+        std = math.sqrt(1.0 / d_in) / 0.87962566103423978  # truncated at 2 sigma
+        nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
+    def forward(self, x, dtype):
+        """Inputs, kernel and bias promoted to ``dtype``, as flax's Dense."""
+        return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+
+class _Trunk(nn.Module):
+    """Shared encoder trunk: embed -> stems -> cross blocks -> coord head."""
+
+    def __init__(self, cfg: ModelConfig, generator=None):
+        super().__init__()
+        if cfg.separate_stems:
+            raise NotImplementedError("separate stems (DEMTransformer) are not ported yet")
+        self.cfg = cfg
+        d = cfg.d_model
+        self.embedding = _Dense(3, d, generator)
+        self.pre_norm = nn.Module()
+        self.pre_norm.scale = nn.Parameter(torch.ones(d))
+        self.pre_norm.bias = nn.Parameter(torch.zeros(d))
+        block = lambda: AttentionBlock(
+            d, cfg.num_heads, cfg.ffn_mult, dtype=cfg.compute_dtype,
+            norm_dtype=cfg.norm_compute_dtype, fused_attn=cfg.fused_attention,
+            generator=generator)
+        for i in range(cfg.self_layers):
+            self.add_module(f"stem_{i}", block())
+        for i in range(cfg.cross_layers):
+            self.add_module(f"cross_self_{i}", block())
+            self.add_module(f"cross_attn_{i}", block())
+        self.head_0 = _Dense(d, d, generator)
+        self.head_1 = _Dense(d, d, generator)
+        self.head_out = _Dense(d, 3, generator)
+
+    def forward(self, src, tgt, src_mask, tgt_mask, src_center):
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        d = cfg.d_model
+
+        # PE on raw coords + embedding on centred src coords
+        # (reference models/pointnet.py:43-46).
+        src_feats = sinusoidal_pe(src, d, dtype=dt) + self.embedding(src - src_center, dt)
+        tgt_feats = sinusoidal_pe(tgt, d, dtype=dt) + self.embedding(tgt, dt)
+        norm = lambda x: _ln(x, self.pre_norm.scale, self.pre_norm.bias, 1e-5,
+                             torch.float32).to(dt)
+        src_feats, tgt_feats = norm(src_feats), norm(tgt_feats)
+
+        # Shared self-attention stems (reference :18-20, :50-52).
+        for i in range(cfg.self_layers):
+            blk = getattr(self, f"stem_{i}")
+            tgt_feats = blk(tgt_feats, tgt_feats, tgt_feats, tgt_mask, tgt_mask)
+            src_feats = blk(src_feats, src_feats, src_feats, src_mask, src_mask)
+
+        # Cross stage: alternate (self on src, cross src<-tgt) (reference :53-57).
+        for i in range(cfg.cross_layers):
+            src_feats = getattr(self, f"cross_self_{i}")(
+                src_feats, src_feats, src_feats, src_mask, src_mask)
+            src_feats = getattr(self, f"cross_attn_{i}")(
+                src_feats, tgt_feats, tgt_feats, src_mask, tgt_mask)
+
+        # Coordinate head (reference :27-33); fp32 output for the pose solve.
+        h = torch.relu(self.head_0(src_feats, dt))
+        h = torch.relu(self.head_1(h, dt))
+        return self.head_out(h, torch.float32)
+
+
+class PointTransformer(nn.Module):
+    """Registration model: ``(src, tgt) -> src_pred`` in the target frame.
+
+    Call with ``(B, N, 3)`` / ``(B, M, 3)`` clouds and boolean masks.
+    ``src_center`` defaults to the masked src centroid; the protocols pass
+    the GT-derived hint as the reference does. Parameters are drawn from
+    ``generator`` (seed 0 if None) on the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(), *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.trunk = _Trunk(cfg, generator)
+        self.to(dev)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None, src_center=None):
+        if src_mask is None:
+            src_mask = torch.ones(src.shape[:2], dtype=torch.bool, device=src.device)
+        if tgt_mask is None:
+            tgt_mask = torch.ones(tgt.shape[:2], dtype=torch.bool, device=tgt.device)
+        if src_center is None:
+            m = src_mask[..., None].to(src.dtype)
+            src_center = (src * m).sum(1, keepdim=True) / torch.clamp_min(
+                m.sum(1, keepdim=True), 1.0)
+        return self.trunk(src, tgt, src_mask, tgt_mask, src_center)

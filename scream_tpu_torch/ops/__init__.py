@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+* ``attn_cuda``: the fused attention block (stats + apply kernels).
+* ``nn_cuda``: exact NN (pose solve) and batched bounded NN (ICP).
+* ``ffn``: the plain block tail the unfused attention body uses.
+
+Each kernel wrapper counts its launches in a plain integer attribute
+(``wrapper.launches``); :func:`reset_launch_counts` zeroes them all.
+"""
+
+from scream_tpu_torch.ops import attn_cuda, nn_cuda
+
+WRAPPERS = (attn_cuda.attn_stats, attn_cuda.attn_apply,
+            nn_cuda.nn_exact, nn_cuda.nn_bounded)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in WRAPPERS}

@@ -1,0 +1,153 @@
+"""Build the port's CUDA kernels with ``nvcc``, load them with ``ctypes``,
+and the checks every kernel wrapper makes around a launch.
+
+All sources under ``scream_tpu_torch/csrc/*.cu`` compile in ONE ``nvcc`` call
+into one shared library with a plain C interface (no PyTorch headers), which
+takes seconds where PyTorch's extension builder takes minutes. The library
+lands under ``build/`` next to the package (git-ignored), named by a hash of
+the sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+
+The build happens at first use (:func:`kernels`), never at import: the CPU
+tests import every module on hosts without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "scream_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the last nvcc run in this process
+build_log = ""  # nvcc's output of that run (ptxas register/smem report)
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else
+    ``/usr/local/cuda/bin/nvcc``; raises if none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA toolkit is needed to build the scream_tpu_torch kernels")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libscream_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if this exact tree has no library yet."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def _declare(lib) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "scream_attn_stats": [P, P, P, P, P, P, I, I, P],
+        "scream_attn_apply": [P] * 13 + [I, I, I, F, F, P],
+        "scream_nn_exact": [P, P, P, P, I, I, I, P],
+        "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+
+
+def kernels():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error at launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def route(x) -> bool:
+    """True to launch the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def check_tensor(t, name, dtype, shape, align: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` whose data starts on an ``align``-byte boundary."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")

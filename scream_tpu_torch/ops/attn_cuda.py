@@ -1,0 +1,240 @@
+"""Fused attention block: projections + linear attention + block tail in two
+hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py``.
+
+* :func:`attn_stats` (kernel ``attn_stats_kernel``, replaces the TPU's
+  ``_stats_kernel``): per (batch, head), ``K'^T V`` and ``K_sum`` over the
+  key/value rows, where ``[k|v] = x_kv @ [Wk|Wv]`` rounds to the compute
+  dtype, ``K' = (elu(k)+1) * mask`` and ``V = v * mask``.
+* :func:`attn_apply` (kernel ``attn_apply_kernel``, replaces ``_apply_kernel``):
+  per row tile, ``q = x @ Wq``, ``Q' = (elu(q)+1) * mask``, the per-head
+  contraction with the fp32 KV, the fp32 normalizer ``1/(Q'.K_sum + eps)``,
+  then ``LN2(x + FFN(LN1(msg @ Wm + x)))``.
+
+Each wrapper launches its kernel for CUDA tensors (raising on what the
+kernel does not take) and runs its plain PyTorch version, defined beside it,
+only for CPU tensors. The stats are kept per head, ``(B, H, hd, hd)``: the
+TPU kernel's full ``d x d`` KV has zeros outside those diagonal blocks.
+
+The backward of :func:`attention_block_fused` recomputes the plain unfused
+block (:func:`block_plain`) and differentiates it, as the JAX package's
+``custom_vjp`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from scream_tpu_torch.ops import _build
+from scream_tpu_torch.ops.ffn import tail_plain
+
+# What the CUDA kernels take: d_model 256 split into 32-wide heads (one warp
+# per head), a hidden width in 128-column chunks, bf16 compute.
+KERNEL_D = 256
+KERNEL_HEAD_DIM = 32
+KERNEL_HID_CHUNK = 128
+# VMEM budget of the JAX package's auto-enable rule (attn_pallas.fusable_block).
+_VMEM_BUDGET = 10 * 1024 * 1024
+_TILE_R = 256
+
+
+def fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether the fused kernels apply: the JAX package's rule (aligned
+    dims, clean head split, working set inside its budget) and the shapes
+    the CUDA kernels are written for."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vmem = (3 * d * d + 2 * d * hid) * itemsize + _TILE_R * hid * 4 \
+        + 10 * _TILE_R * d * 4
+    jax_rule = (d % 128 == 0 and hid % 128 == 0 and d % num_heads == 0
+                and vmem < _VMEM_BUDGET)
+    return (jax_rule and d == KERNEL_D and d // num_heads == KERNEL_HEAD_DIM
+            and hid % KERNEL_HID_CHUNK == 0 and dtype == torch.bfloat16)
+
+
+def _elu1(x):
+    """``elu(x) + 1`` as ``where(x > 0, x + 1, exp(x))`` in fp32, returned in
+    ``x``'s dtype (``attn_pallas._elu1``)."""
+    xf = x.float()
+    return torch.where(xf > 0, xf + 1.0, torch.exp(xf)).to(x.dtype)
+
+
+def block_plain(xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2, *,
+                num_heads, cd, nd, attn_eps, ln_eps):
+    """The unfused block, the literal AttentionBlock composition: separate
+    projections, head split, ``linear_attention``, then the plain tail
+    (``attn_pallas._block_xla``). The backward of the fused block."""
+    from scream_tpu_torch.models.attention import linear_attention
+
+    B, L = xq.shape[0], xq.shape[1]
+    S = xkv.shape[1]
+    hd = Wq.shape[1] // num_heads
+    mm = lambda x, W: x.to(cd) @ W.to(cd)
+    q = mm(xq, Wq).reshape(B, L, num_heads, hd)
+    k = mm(xkv, Wk).reshape(B, S, num_heads, hd)
+    v = mm(xkv, Wv).reshape(B, S, num_heads, hd)
+    message = linear_attention(q, k, v, qm, km, eps=attn_eps)
+    return tail_plain(message.reshape(B, L, Wq.shape[1]), xq, Wm, g1, b1,
+                      W1, W2, g2, b2, cd=cd, nd=nd, eps=ln_eps)
+
+
+def attn_stats_plain(x, mask, Wk, Wv, *, num_heads):
+    """Plain version of the stats kernel. ``x`` ``(B, S, d)`` in the compute
+    dtype, ``mask`` ``(B, S)`` fp32, ``Wk``/``Wv`` ``(d, d)`` in the compute
+    dtype -> ``KV`` ``(B, H, hd, hd)`` fp32 and ``K_sum`` ``(B, d)`` fp32."""
+    B, S, d = x.shape
+    hd = d // num_heads
+    mc = mask.to(x.dtype)[..., None]
+    k = x @ Wk
+    v = x @ Wv
+    kp = (_elu1(k) * mc).reshape(B, S, num_heads, hd).float()
+    vm = (v * mc).reshape(B, S, num_heads, hd).float()
+    KV = torch.einsum("bshd,bshv->bhdv", kp, vm)
+    return KV, kp.sum(1).reshape(B, d)
+
+
+def attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
+                     attn_eps, ln_eps, norm_dtype):
+    """Plain version of the apply kernel: ``x`` ``(B, L, d)`` in the compute
+    dtype (query source and both residuals), ``mask`` ``(B, L)`` fp32, the
+    stats of :func:`attn_stats_plain`, weights in the compute dtype, LayerNorm
+    params fp32 -> ``(B, L, d)`` in the compute dtype."""
+    B, L, d = x.shape
+    H, hd = KV.shape[1], KV.shape[2]
+    cd = x.dtype
+    qp = _elu1(x @ Wq) * mask.to(cd)[..., None]
+    qh = qp.float().reshape(B, L, H, hd)
+    att = torch.einsum("blhd,bhdv->blhv", qh, KV)
+    z = (qh * ksum.reshape(B, 1, H, hd)).sum(-1)
+    msg = (att * (1.0 / (z + attn_eps))[..., None]).reshape(B, L, d).to(cd)
+    return tail_plain(msg, x, Wm, g1, b1, W1, W2, g2, b2, cd=cd,
+                      nd=norm_dtype, eps=ln_eps)
+
+
+def _check(t, name, dtype, shape):
+    # 32-byte alignment: the WMMA fragment loads need it.
+    _build.check_tensor(t, name, dtype, shape, align=32)
+
+
+def attn_stats(x, mask, Wk, Wv, *, num_heads):
+    """Linear-attention statistics of the key/value source (kernel 1)."""
+    if not _build.route(x):
+        return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)
+    B, S, d = x.shape
+    if d != KERNEL_D or d // num_heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"attn_stats kernel takes d={KERNEL_D} with head dim "
+                         f"{KERNEL_HEAD_DIM}, got d={d}, heads={num_heads}")
+    bf = torch.bfloat16
+    _check(x, "x", bf, (B, S, d))
+    _check(mask, "mask", torch.float32, (B, S))
+    _check(Wk, "Wk", bf, (d, d))
+    _check(Wv, "Wv", bf, (d, d))
+    hd = d // num_heads
+    KV = torch.empty((B, num_heads, hd, hd), device=x.device, dtype=torch.float32)
+    ksum = torch.empty((B, d), device=x.device, dtype=torch.float32)
+    err = _build.kernels().scream_attn_stats(
+        x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
+        KV.data_ptr(), ksum.data_ptr(), B, S, _build.stream_ptr(x))
+    _build.check(err, "attn_stats")
+    attn_stats.launches += 1
+    return KV, ksum
+
+
+attn_stats.launches = 0
+
+
+def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
+               attn_eps, ln_eps, norm_dtype):
+    """Query projection, attention, merge, LayerNorms and FFN (kernel 2)."""
+    if not _build.route(x):
+        return attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2,
+                                b2, attn_eps=attn_eps, ln_eps=ln_eps,
+                                norm_dtype=norm_dtype)
+    B, L, d = x.shape
+    hid = W1.shape[1]
+    H = KV.shape[1]
+    if d != KERNEL_D or KV.shape[2] != KERNEL_HEAD_DIM or hid % KERNEL_HID_CHUNK:
+        raise ValueError(f"attn_apply kernel takes d={KERNEL_D}, head dim "
+                         f"{KERNEL_HEAD_DIM}, hidden a multiple of "
+                         f"{KERNEL_HID_CHUNK}; got d={d}, KV {tuple(KV.shape)}, "
+                         f"hidden {hid}")
+    if norm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attn_apply kernel: norm dtype {norm_dtype} unsupported")
+    bf, f32 = torch.bfloat16, torch.float32
+    _check(x, "x", bf, (B, L, d))
+    _check(mask, "mask", f32, (B, L))
+    _check(KV, "KV", f32, (B, H, d // H, d // H))
+    _check(ksum, "ksum", f32, (B, d))
+    _check(Wq, "Wq", bf, (d, d))
+    _check(Wm, "Wm", bf, (d, d))
+    _check(W1, "W1", bf, (d, hid))
+    _check(W2, "W2", bf, (hid, d))
+    for name, p in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2)):
+        _check(p, name, f32, (d,))
+    out = torch.empty((B, L, d), device=x.device, dtype=bf)
+    err = _build.kernels().scream_attn_apply(
+        x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(),
+        ksum.data_ptr(), Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+        W1.data_ptr(), W2.data_ptr(), g2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), B, L, hid, float(attn_eps), float(ln_eps),
+        _build.stream_ptr(x))
+    _build.check(err, "attn_apply")
+    attn_apply.launches += 1
+    return out
+
+
+attn_apply.launches = 0
+
+
+def _fused_forward(xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2,
+                   kw):
+    cd = kw["cd"]
+    c = lambda t: t.to(cd).contiguous()
+    p = lambda t: t.float().contiguous()
+    KV, ksum = attn_stats(c(xkv), p(km), c(Wk), c(Wv),
+                          num_heads=kw["num_heads"])
+    return attn_apply(c(xq), p(qm), KV, ksum, c(Wq), c(Wm), p(g1), p(b1),
+                      c(W1), c(W2), p(g2), p(b2), attn_eps=kw["attn_eps"],
+                      ln_eps=kw["ln_eps"], norm_dtype=kw["nd"])
+
+
+class _FusedBlock(torch.autograd.Function):
+    """Kernels forward; the backward recomputes :func:`block_plain` from the
+    saved inputs and differentiates it (rematerialization, as the JAX
+    package's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2,
+                kw):
+        ctx.kw = kw
+        ctx.save_for_backward(xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2,
+                              g2, b2)
+        return _fused_forward(xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2,
+                              g2, b2, kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) if t.is_floating_point() else t
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = block_plain(*inputs, **ctx.kw)
+            got = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)))
+        return tuple(next(got) if t.requires_grad else None for t in inputs) \
+            + (None,)
+
+
+def attention_block_fused(xq, xkv, q_mask, kv_mask, Wq, Wk, Wv, Wm, g1, b1,
+                          W1, W2, g2, b2, *, num_heads, dtype, norm_dtype,
+                          attn_eps: float = 1e-6, ln_eps: float = 1e-5):
+    """``LN2(x + FFN(LN1(attn(x_q, x_kv) @ Wm + x)))`` through the two kernels
+    (their plain versions for CPU tensors). ``xq`` is the query source and
+    both residuals; ``xkv`` the key/value source; masks are ``(B, L)`` /
+    ``(B, S)`` bool. Returns ``(B, L, d)`` in ``dtype``."""
+    if q_mask is None:
+        q_mask = torch.ones(xq.shape[:2], dtype=torch.bool, device=xq.device)
+    if kv_mask is None:
+        kv_mask = torch.ones(xkv.shape[:2], dtype=torch.bool, device=xkv.device)
+    kw = dict(num_heads=num_heads, cd=dtype, nd=norm_dtype,
+              attn_eps=float(attn_eps), ln_eps=float(ln_eps))
+    return _FusedBlock.apply(xq, xkv, q_mask, kv_mask, Wq, Wk, Wv, Wm, g1, b1,
+                             W1, W2, g2, b2, kw)

@@ -1,0 +1,185 @@
+"""Nearest-neighbour search: two hand-written kernels (``csrc/nn.cu``), port
+of ``scream_tpu/ops/nn_pallas.py``.
+
+* :func:`nn_exact` (replaces ``_nn_kernel``/``nearest_neighbor_pallas``):
+  the pose solve's exact NN, per src point the min squared distance and the
+  first dst index attaining it.
+* :func:`nn_bounded` (replaces ``_nn_bounded_batched_fine_kernel``, reached
+  through ``_bounded_batched``): the batched ICP's threshold-bounded NN,
+  per src point the min squared distance and the winner's xyz, exact for
+  every point whose true NN lies within the threshold. Tiles whose boxes
+  are farther apart than the threshold and lanes flagged ``dead`` are
+  skipped; a point with no live tile keeps ``(3e38, (0, 0, 0))``.
+
+Both take dst with masked rows already moved to ``FAR`` (:func:`mask_far`).
+The bounded call builds its dst tile boxes in a small kernel of its own
+(plain version: :func:`tile_boxes`).
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version only for CPU tensors. The plain versions evaluate the
+kernels' distance expression elementwise in the same order, so the two agree
+bit for bit; the plain bounded NN is the exact NN (which meets the bounded
+contract), with dead lanes at the no-hit sentinel as in the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from scream_tpu_torch.ops import _build
+
+# Far-away coordinate for masked dst points: (2e17)^2 = 4e34 stays finite in
+# f32 and dominates any real distance.
+FAR = 2.0e17
+# Min distance of a point that met no live tile of the bounded kernel.
+NO_HIT = 3.0e38
+BOUNDED_TILE = 256  # dst rows per box-tested tile (csrc/nn.cu BD_TILE)
+_PLAIN_CHUNK = 1024  # src rows per step of the plain versions' distance block
+
+
+def mask_far(dst: torch.Tensor, dst_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 contiguous dst with masked rows at ``FAR``."""
+    dst = dst.float()
+    if dst_mask is not None:
+        dst = torch.where(dst_mask[..., None], dst, torch.full_like(dst, FAR))
+    return dst.contiguous()
+
+
+def _sq3(p):
+    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) + p[..., 2] * p[..., 2]
+
+
+def _dist2(src, dst, d_sq):
+    """``(d_sq + s_sq) - 2 (d . s)`` for ``(B, n, 3)`` x ``(B, M, 3)``,
+    elementwise in the kernels' order (no matmul, no FMA)."""
+    s = src[:, :, None, :]
+    d = dst[:, None, :, :]
+    cross = (d[..., 0] * s[..., 0] + d[..., 1] * s[..., 1]) + d[..., 2] * s[..., 2]
+    return (d_sq[:, None, :] + _sq3(src)[:, :, None]) - 2.0 * cross
+
+
+def _exact_plain(src, dst):
+    d_sq = _sq3(dst)
+    mins, idxs = [], []
+    for n0 in range(0, src.shape[1], _PLAIN_CHUNK):
+        m, i = _dist2(src[:, n0:n0 + _PLAIN_CHUNK], dst, d_sq).min(-1)
+        mins.append(m)
+        idxs.append(i)
+    return torch.cat(mins, 1), torch.cat(idxs, 1)
+
+
+def nn_exact_plain(src, dst):
+    """Plain version of the exact NN: ``(B, N, 3)``, ``(B, M, 3)`` fp32 ->
+    min squared distance ``(B, N)`` clamped at 0 and index ``(B, N)`` int64
+    (first index attaining the min, as ``argmin``)."""
+    m, i = _exact_plain(src, dst)
+    return torch.clamp_min(m, 0.0), i
+
+
+def nn_bounded_plain(src, dst, thresh_sq: float, dead):
+    """Plain version of the bounded NN: the exact NN (exact everywhere, so
+    within the threshold too) with its winner's xyz; dead lanes at
+    ``(NO_HIT, 0)``."""
+    m, i = _exact_plain(src, dst)
+    xyz = torch.gather(dst, 1, i[..., None].expand(-1, -1, 3))
+    d2 = torch.clamp_min(m, 0.0)
+    if dead is not None:
+        d2 = torch.where(dead[:, None], torch.full_like(d2, NO_HIT), d2)
+        xyz = torch.where(dead[:, None, None], torch.zeros_like(xyz), xyz)
+    return d2, xyz
+
+
+def nn_exact(src, dst):
+    """Exact NN (kernel 3). ``dst`` has masked rows at ``FAR``."""
+    if not _build.route(src):
+        return nn_exact_plain(src, dst)
+    B, N, _ = src.shape
+    M = dst.shape[1]
+    _build.check_tensor(src, "src", torch.float32, (B, N, 3))
+    _build.check_tensor(dst, "dst", torch.float32, (B, M, 3))
+    min_d2 = torch.empty((B, N), device=src.device, dtype=torch.float32)
+    idx = torch.empty((B, N), device=src.device, dtype=torch.int64)
+    err = _build.kernels().scream_nn_exact(
+        src.data_ptr(), dst.data_ptr(), min_d2.data_ptr(), idx.data_ptr(),
+        B, N, M, _build.stream_ptr(src))
+    _build.check(err, "nn_exact")
+    nn_exact.launches += 1
+    return min_d2, idx
+
+
+nn_exact.launches = 0
+
+
+def tile_boxes(dst):
+    """Plain version of the kernel's tile boxes: ``(B, ceil(M/256), 6)``
+    (lo xyz, hi xyz) over each 256-row tile's valid rows
+    (``ops/nn_pallas._tile_boxes``). FAR rows are left out, so an all-masked
+    tile gets the empty box (+inf, -inf)."""
+    B, M, _ = dst.shape
+    mt = -(-M // BOUNDED_TILE)
+    t = F.pad(dst, (0, 0, 0, mt * BOUNDED_TILE - M), value=FAR)
+    t = t.reshape(B, mt, BOUNDED_TILE, 3)
+    valid = t[..., :1] < FAR / 2.0
+    inf = torch.tensor(float("inf"), device=dst.device)
+    lo = torch.where(valid, t, inf).amin(2)
+    hi = torch.where(valid, t, -inf).amax(2)
+    return torch.cat([lo, hi], -1).contiguous()
+
+
+def nn_bounded(src, dst, thresh_sq: float, dead=None):
+    """Batched threshold-bounded NN (kernel 4): ``(min_d2 (B, N), xyz
+    (B, N, 3))``. ``dst`` has masked rows at ``FAR``; ``thresh_sq`` is a
+    Python float; ``dead`` an optional ``(B,)`` bool lane flag."""
+    if not _build.route(src):
+        return nn_bounded_plain(src, dst, thresh_sq, dead)
+    B, N, _ = src.shape
+    M = dst.shape[1]
+    _build.check_tensor(src, "src", torch.float32, (B, N, 3))
+    _build.check_tensor(dst, "dst", torch.float32, (B, M, 3))
+    if dead is None:
+        dead = torch.zeros((B,), dtype=torch.bool, device=src.device)
+    dead_u8 = dead.to(torch.uint8).contiguous()
+    _build.check_tensor(dead_u8, "dead", torch.uint8, (B,))
+    boxes = torch.empty((B, -(-M // BOUNDED_TILE), 6), device=src.device,
+                        dtype=torch.float32)
+    min_d2 = torch.empty((B, N), device=src.device, dtype=torch.float32)
+    xyz = torch.empty((B, N, 3), device=src.device, dtype=torch.float32)
+    err = _build.kernels().scream_nn_bounded(
+        src.data_ptr(), dst.data_ptr(), dead_u8.data_ptr(), float(thresh_sq),
+        boxes.data_ptr(), min_d2.data_ptr(), xyz.data_ptr(), B, N, M,
+        _build.stream_ptr(src))
+    _build.check(err, "nn_bounded")
+    nn_bounded.launches += 1
+    return min_d2, xyz
+
+
+nn_bounded.launches = 0
+
+
+def nearest_neighbor_full(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    dst_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``(distance, index, winner_xyz)``: the exact NN kernel, then
+    one gather of the winners from the unmasked dst
+    (``ops/nn_pallas.nearest_neighbor_full``)."""
+    d, idx = nn_exact(src.float().contiguous(), mask_far(dst, dst_mask))
+    coords = torch.gather(dst.float(), 1, idx[..., None].expand(-1, -1, 3))
+    return d, idx, coords
+
+
+def nearest_neighbor_bounded(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    thresh_sq: float,
+    dst_mask: Optional[torch.Tensor] = None,
+    dead: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched threshold-bounded NN ``(min_sq_dist, winner_xyz)``, exact for
+    every src point whose true NN lies within ``thresh_sq``
+    (``ops/nn_pallas.nearest_neighbor_bounded``)."""
+    return nn_bounded(src.float().contiguous(), mask_far(dst, dst_mask),
+                      thresh_sq, dead)

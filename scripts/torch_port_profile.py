@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's ``register_batch``, on one GPU.
+
+Usage, from the repository root on a machine with an NVIDIA GPU:
+
+    python3 scripts/torch_port_profile.py [--icp-subsample 1024]
+
+At the bench shape (16 pairs x 4,096 points, full-width model from a seeded
+random init, 30 ICP iterations) it prints, for one batch after a warm-up:
+
+* the stage times by CUDA events: forward, pose solve, ICP + metrics;
+* the device time of every kernel name under ``torch.profiler`` (summed over
+  the batch, largest first) and the device's busy share of the wall time.
+
+It writes the profiler table to ``chiprun_out/torch_port_profile.txt``.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+B, CAP, N_SRC, N_TGT = 16, 4096, 3840, 4032
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--icp-subsample", type=int, default=None)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
+    from scream_tpu_torch.geometry.icp import icp_refine_if_better
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.pipeline import register as reg
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_port_profile: needs a CUDA GPU")
+    ds = SyntheticPairDataset(length=3 * B, n_src=N_SRC, n_tgt=N_TGT, seed=1)
+    batches = list(PairLoader(ds, batch_size=B, src_capacity=CAP, num_workers=8))
+    model = PointTransformer(ModelConfig(), device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(icp_subsample=args.icp_subsample, device="cuda")
+    reg.register_batch(model, batches[0], **kw).transform.cpu()  # warm-up
+
+    # Stage times by CUDA events on the second batch.
+    b = reg.to_device(batches[1], "cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        ev[0].record()
+        center = reg.gt_center_hint(b["rot"], b["trans"])
+        pred = model(b["src"], b["tgt"], b["src_mask"], b["tgt_mask"], center)
+        ev[1].record()
+        sol = reg.solve_pose(b["src"], pred.float(), b["tgt"], b["src_mask"],
+                             b["tgt_mask"], b["scale"], b["center"])
+        ev[2].record()
+        gt_T = reg.denormalized_gt(b["rot"], b["trans"], b["scale"], b["center"])
+        inv_s = (1.0 / b["scale"])[:, None, None]
+        src_dn = b["src"] * inv_s + b["center"][:, None, :]
+        tgt_dn = b["tgt"] * inv_s + b["center"][:, None, :]
+        sm = b["src_mask"]
+        if args.icp_subsample:
+            idx = torch.as_tensor(reg.spread_subsample_indices(CAP, args.icp_subsample),
+                                  device="cuda").long()
+            src_dn, sm = src_dn[:, idx], sm[:, idx]
+        icp_refine_if_better(src_dn, tgt_dn, sol.transform, gt_T, 0.1,
+                             src_mask=sm, tgt_mask=b["tgt_mask"])
+        ev[3].record()
+    torch.cuda.synchronize()
+    stages = dict(forward=ev[0].elapsed_time(ev[1]), solve=ev[1].elapsed_time(ev[2]),
+                  icp=ev[2].elapsed_time(ev[3]))
+    print(f"device: {torch.cuda.get_device_name(0)} | icp_subsample={args.icp_subsample}")
+    print("stages (ms, CUDA events): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+
+    # Kernel breakdown of one whole register_batch on the third batch.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        reg.register_batch(model, batches[2], **kw).transform.cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernels only: an operator row's "self" device time repeats the time of
+    # kernels launched under it (the ctypes launches sit under _FusedBlock).
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"register_batch wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches")
+    for ms, count, name in rows[:15]:
+        print(f"  {ms:9.3f} ms  {count:5d} x  {name[:90]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "torch_port_profile.txt"), "a") as f:
+        f.write(f"icp_subsample={args.icp_subsample}\n")
+        f.write(prof.key_averages().table(row_limit=40))
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,181 @@
+"""The port's distance and nearest-neighbour search against the JAX package
+on the CPU: the plain pairwise functions, and the two NN kernels' wrappers
+(which run their plain versions for CPU tensors) against the Pallas kernels
+in interpret mode.
+
+Bars: exact NN gives identical indices on inputs without near-ties and
+equal winner coordinates; bounded NN gives equal coordinates for every point
+whose true NN lies within the threshold. Distances agree within 1e-6
+relative to the terms of the expansion, ``|s|^2 + |d|^2``: the JAX side forms
+``d . s`` as a matmul (another summation order, FMAs on the CPU), and the
+cancellation in ``|d|^2 + |s|^2 - 2 d.s`` leaves an fp32 rounding error of a
+few ulp of those terms. Against its own plain version the CUDA kernel is held
+to 1e-6 absolute (bit-identical arithmetic) on the card, by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scream_tpu.geometry import pairwise as jpw
+from scream_tpu.ops import nn_pallas as jnn
+from scream_tpu_torch.geometry import pairwise as tpw
+from scream_tpu_torch.ops import nn_cuda
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+def assert_dist_close(got, want, src, winner_xyz):
+    """Distances within 1e-6 relative to |s|^2 + |d|^2 of the winning pair."""
+    terms = (np.asarray(src, np.float64) ** 2).sum(-1) \
+        + (np.asarray(winner_xyz, np.float64) ** 2).sum(-1)
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (err <= 1e-6 * terms).all(), float((err / terms).max())
+
+
+def _clouds(rng, B, N, M, scale=1.0):
+    src = (rng.standard_normal((B, N, 3)) * scale).astype(np.float32)
+    dst = (rng.standard_normal((B, M, 3)) * scale).astype(np.float32)
+    return src, dst
+
+
+class TestPairwise:
+    def test_square_distance(self, rng):
+        src, dst = _clouds(rng, 2, 50, 70)
+        want = jpw.square_distance(jnp.asarray(src), jnp.asarray(dst))
+        got = tpw.square_distance(t(src), t(dst))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-6)
+
+    def test_masked_square_distance(self, rng):
+        src, dst = _clouds(rng, 2, 30, 40)
+        sm, dm = rng.random((2, 30)) > 0.3, rng.random((2, 40)) > 0.3
+        want = jpw.masked_square_distance(jnp.asarray(src), jnp.asarray(dst),
+                                          jnp.asarray(sm), jnp.asarray(dm))
+        got = tpw.masked_square_distance(t(src), t(dst), t(sm), t(dm))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-6)
+
+    @pytest.mark.parametrize("chunk", [16, 2048])
+    def test_nearest_neighbor(self, rng, chunk):
+        src, dst = _clouds(rng, 2, 45, 60)
+        dm = rng.random((2, 60)) > 0.2
+        wd, wi = jpw.nearest_neighbor(jnp.asarray(src), jnp.asarray(dst),
+                                      jnp.asarray(dm), chunk=chunk)
+        gd, gi = tpw.nearest_neighbor(t(src), t(dst), t(dm), chunk=chunk)
+        np.testing.assert_array_equal(gi.numpy(), wi)
+        np.testing.assert_allclose(gd.numpy(), wd, atol=1e-5)
+
+
+class TestExactNN:
+    @pytest.mark.parametrize("n,m", [(128, 512), (200, 700), (64, 100)])
+    def test_matches_pallas_kernel(self, rng, n, m):
+        src, dst = _clouds(rng, 2, n, m)
+        mask = rng.random((2, m)) > 0.25
+        want = jax.vmap(lambda s, d, k: jnn.nearest_neighbor_pallas(
+            s, d, k, interpret=True))(jnp.asarray(src), jnp.asarray(dst),
+                                      jnp.asarray(mask))
+        got = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        np.testing.assert_array_equal(got[2].numpy(), want[2])
+        assert_dist_close(got[0].numpy(), want[0], src, want[2])
+
+    def test_matches_xla_dispatch(self, rng):
+        src, dst = _clouds(rng, 3, 90, 130)
+        mask = rng.random((3, 130)) > 0.3
+        wd, wi, wx = jnn.nearest_neighbor_full(jnp.asarray(src), jnp.asarray(dst),
+                                               jnp.asarray(mask), force_xla=True)
+        gd, gi, gx = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
+        np.testing.assert_array_equal(gi.numpy(), wi)
+        np.testing.assert_array_equal(gx.numpy(), wx)
+        assert_dist_close(gd.numpy(), wd, src, wx)
+
+    def test_masked_dst_never_wins(self, rng):
+        src = rng.standard_normal((1, 64, 3)).astype(np.float32)
+        dst = np.concatenate([src, src * 0.5], axis=1)
+        mask = np.arange(128)[None] >= 64  # mask out the identical first half
+        d, i, xyz = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
+        assert (i.numpy() >= 64).all()
+        np.testing.assert_array_equal(xyz.numpy(), dst[0][i.numpy()[0]][None])
+
+    def test_tie_break_first_index(self):
+        d, i = nn_cuda.nn_exact(torch.zeros((1, 8, 3)), torch.zeros((1, 16, 3)))
+        assert (i == 0).all() and (d == 0).all()
+
+    def test_distance_expression_order(self, rng):
+        """The plain version evaluates (|d|^2 + |s|^2) - 2 (d . s) with the
+        products summed x, y, z in order, as the kernel does bit for bit."""
+        src, dst = _clouds(rng, 1, 33, 47)
+        d, i = nn_cuda.nn_exact(t(src), t(dst))
+        s, q = src[0][:, None, :], dst[0][None, :, :]
+        cross = (q[..., 0] * s[..., 0] + q[..., 1] * s[..., 1]) + q[..., 2] * s[..., 2]
+        dsq = (q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]) + q[..., 2] * q[..., 2]
+        ssq = (s[..., 0] * s[..., 0] + s[..., 1] * s[..., 1]) + s[..., 2] * s[..., 2]
+        d2 = (dsq + ssq) - np.float32(2.0) * cross
+        np.testing.assert_array_equal(i.numpy()[0], d2.argmin(-1))
+        np.testing.assert_array_equal(d.numpy()[0], np.maximum(d2.min(-1), 0))
+
+
+def _sorted_scene(rng, B, N, M):
+    """Spatially sorted clouds, as ICP feeds the bounded kernel, so the
+    Pallas kernel actually prunes tiles."""
+    src = rng.uniform(-1, 1, (B, N, 3)).astype(np.float32)
+    dst = (src[:, :M] + rng.standard_normal((B, M, 3)) * 0.02).astype(np.float32) \
+        if M <= N else rng.uniform(-1, 1, (B, M, 3)).astype(np.float32)
+    src = np.take_along_axis(src, np.argsort(src[..., 0], 1)[..., None], 1)
+    dst = np.take_along_axis(dst, np.argsort(dst[..., 0], 1)[..., None], 1)
+    return src, dst
+
+
+class TestBoundedNN:
+    @pytest.mark.parametrize("B,N,M", [(2, 1024, 768), (3, 700, 512)])
+    def test_contract_vs_pallas_kernel(self, rng, B, N, M):
+        src, dst = _sorted_scene(rng, B, N, M)
+        mask = rng.random((B, M)) > 0.1
+        dead = np.zeros(B, bool)
+        dead[-1] = True
+        thresh_sq = np.float32(0.01)
+        wd, wx = jnn._bounded_batched(jnp.asarray(src), jnp.asarray(dst),
+                                      jnp.asarray(thresh_sq), jnp.asarray(mask),
+                                      jnp.asarray(dead), interpret=True)
+        wd, wx = np.asarray(wd), np.asarray(wx)
+        gd, gx = nn_cuda.nearest_neighbor_bounded(t(src), t(dst), float(thresh_sq),
+                                                  t(mask), dead=t(dead))
+        gd, gx = gd.numpy(), gx.numpy()
+        # Ground truth: the exact NN over valid dst rows.
+        ed, _, ex = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
+        within = (ed.numpy() < thresh_sq) & ~dead[:, None]
+        assert within.sum() > 100 and (~within[:-1]).sum() > 10
+        np.testing.assert_array_equal(gx[within], wx[within])
+        assert_dist_close(gd[within], wd[within], src[within], wx[within])
+        np.testing.assert_array_equal(gx[within], ex.numpy()[within])
+        # Beyond the threshold both only promise a distance > thresh.
+        assert (gd[~within] >= thresh_sq).all() and (wd[~within] >= thresh_sq).all()
+        # Dead lanes: the no-hit sentinel on both sides.
+        assert (wd[-1] == nn_cuda.NO_HIT).all() and (gd[-1] == nn_cuda.NO_HIT).all()
+        assert (gx[-1] == 0).all()
+
+    def test_tile_boxes_match_pallas_wrapper(self, rng):
+        """The CUDA wrapper's per-tile boxes (FAR rows left out, empty tiles
+        at (+inf, -inf)) equal the JAX wrapper's."""
+        _, dst = _clouds(rng, 2, 1, 600)
+        mask = rng.random((2, 600)) > 0.3
+        mask[1, 256:512] = False  # one all-masked tile
+        far = nn_cuda.mask_far(t(dst), t(mask))
+        got = nn_cuda.tile_boxes(far).numpy()
+        pad = np.pad(far.numpy(), ((0, 0), (0, 768 - 600), (0, 0)),
+                     constant_values=jnn.FAR)
+        lo, hi = jax.vmap(lambda p: jnn._tile_boxes(p, 256, far_sentinel=jnn.FAR))(
+            jnp.asarray(pad))
+        np.testing.assert_array_equal(got, np.concatenate([lo, hi], -1))
+        assert np.isinf(got[1, 1]).all()
+
+    def test_dead_lane_plain_sentinel(self, rng):
+        src, dst = _clouds(rng, 2, 20, 30)
+        d, xyz = nn_cuda.nn_bounded(t(src), t(dst), 0.01,
+                                    dead=torch.tensor([True, False]))
+        assert (d[0] == nn_cuda.NO_HIT).all() and (xyz[0] == 0).all()
+        ed, ei = nn_cuda.nn_exact(t(src), t(dst))
+        np.testing.assert_array_equal(d[1].numpy(), ed[1].numpy())
