@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, the CUDA toolkit (``nvcc``) and ``nvidia-smi``; it
 imports nothing of JAX or of the JAX package. Phases, one line each:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the four kernels from ``scream_tpu_torch/csrc`` in one ``nvcc``
-   call (compiler report in ``chiprun_out/chip_smoke_build.log``);
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with its time, the plain version's time and the
-   least time the card could take for the same work;
-4. main path: ``register_batch`` at 16 pairs x 4,096 points, full-width
+2. build: the kernels from ``scream_tpu_torch/csrc`` in one ``nvcc`` call
+   (compiler report in ``chiprun_out/chip_smoke_build.log``);
+3. kernels @ d=256: each kernel against its plain PyTorch version on the
+   card, at the ``register_batch`` path's shapes, with its time, the plain
+   version's time and the least time the card could take for the same work;
+4. path 1, ``register_batch`` at 16 pairs x 4,096 points, full-width
    ``ModelConfig`` from a seeded random init, 30 ICP iterations, distinct
    inputs per call, with and without ``icp_subsample=1024``; pairs/s, each
-   kernel's launches (all must be > 0) and finiteness;
+   kernel's launches (all of the path's must be > 0) and finiteness;
 5. oracle pose: the pose solve and ICP fed the GT-posed source plus noise
    must recover the pose; the same solve on the CPU path must agree;
-6. the kernel list (JSON), the ``nvidia-smi`` line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+6. kernels at the GT-free serving path's shapes against their plain
+   versions: d=128 (head dim 16) attention, the exact NN at B = 1, 7, 8,
+   the batched bounded NN at B = 7, 8, 14 and the unbatched one at B = 1;
+7. path 2, GT-free serving with the shipped hint-free checkpoint
+   (``scream_tpu_torch/weights/point-generator-hintfree``): 16 fresh
+   448-point pairs (seed 100, poses <= 30 deg) through
+   ``register_pair(passes=2)``, ``register_pairs`` (batch 8) and
+   ``register_pair_robust`` on the card and on the CPU path (per API,
+   recall and transforms must agree); launches (all five kernels > 0);
+8. the CLI (``python -m scream_tpu_torch register``) in a subprocess, its
+   transform against the in-process one;
+9. serving times (ungated): ``register_pairs`` pairs/s at 8 x 512 and
+   8 x 4,096, ``register_pair`` latency at 512 and 4,096 points, the robust
+   latency, and the stage times of one pass;
+10. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+    line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
 into a stack dump and exit code 1.
@@ -32,13 +46,19 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1080
 B, CAP, N_SRC, N_TGT = 16, 4096, 3840, 4032  # bench.py's headline shape
 ICP_ITERS, ICP_SUB = 30, 1024
 TIMED_BATCHES = 3
+HINTFREE = os.path.join("scream_tpu_torch", "weights", "point-generator-hintfree")
+GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED = 16, 448, 100  # measure_gt_free.py
+SERVE_BATCH, SERVE_PAIRS = 8, 64  # the README's serving shape: 8 x 512
+TRANSFORM_TOL = 5e-2  # card vs CPU path, per transform entry (bf16 forward)
+PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 OUT_DIR = "chiprun_out"
+DEV = "cuda"  # every phase runs on the card
 
 
 def log(msg):
@@ -134,27 +154,22 @@ def oracle_pred(batch, noise, seed, device):
     return torch.as_tensor(pred.astype(np.float32), device=device)
 
 
-def phase_kernels(model, batch):
-    """Each kernel against its plain version on the card; returns records."""
+def check_attention(blk, m_bool, suffix=""):
+    """Kernels 1 and 2 against their plain versions on the card, for the
+    attention block ``blk`` on inputs of ``m_bool``'s shape (B, L); and the
+    whole fused block against the literal plain block. Returns records."""
     import torch
 
-    from scream_tpu_torch.geometry.icp import _spatial_sort
-    from scream_tpu_torch.ops import attn_cuda, nn_cuda
-    from scream_tpu_torch.pipeline.register import (solve_pose,
-                                                    spread_subsample_indices,
-                                                    to_device)
+    from scream_tpu_torch.ops import attn_cuda
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     bf, f32 = torch.bfloat16, torch.float32
     records = []
-    blk = model.trunk.stem_0
     H, d = blk.num_heads, blk.d_model
     hid = d * blk.ffn_mult
     g = torch.Generator(device=dev).manual_seed(0)
-    L = CAP
-    x = torch.randn((B, L, d), generator=g, device=dev).to(bf)
-    tb = to_device(batch, dev)
-    m_bool = tb["tgt_mask"]
+    Bx, L = m_bool.shape
+    x = torch.randn((Bx, L, d), generator=g, device=dev).to(bf)
     m = m_bool.float().contiguous()
     c = lambda w: w.detach().to(bf).contiguous()
     p = lambda w: w.detach().float().contiguous()
@@ -170,13 +185,13 @@ def phase_kernels(model, batch):
     torch.cuda.synchronize()
     err = max(rel_err(KV, KVp), rel_err(ks, ksp))
     abs_err = max(float((KV - KVp).abs().max()), float((ks - ksp).abs().max()))
-    check(err <= 5e-3, f"attn_stats: relative error {err:.3g} > 5e-3")
+    check(err <= 5e-3, f"attn_stats{suffix}: relative error {err:.3g} > 5e-3")
     ms = cuda_ms(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H))
     pms = cuda_ms(lambda: attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H))
     hd = d // H
-    b_ms, b_by = bound(B * L * d * 2 + B * L * 4 + 2 * d * d * 2 + B * (H * hd * hd + d) * 4,
-                       [(2 * B * L * d * 2 * d + 2 * B * L * H * hd * hd, PEAK_BF16)])
-    records.append(dict(name="attn_stats", err=err, max_abs_err=abs_err, ms=ms,
+    b_ms, b_by = bound(Bx * L * d * 2 + Bx * L * 4 + 2 * d * d * 2 + Bx * (H * hd * hd + d) * 4,
+                       [(2 * Bx * L * d * 2 * d + 2 * Bx * L * H * hd * hd, PEAK_BF16)])
+    records.append(dict(name="attn_stats" + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="5e-3 rel",
                         route="cuda", source="scream_tpu_torch/csrc/attn.cu",
                         replaces="scream_tpu/ops/attn_pallas.py:117"))
@@ -191,52 +206,142 @@ def phase_kernels(model, batch):
     abs_err = float((out.float() - outp.float())[m_bool].abs().max())
     # One bf16 ulp at the output's largest values is 2^-8..2^-7 of them, so a
     # single final-rounding flip reaches 4e-3..8e-3.
-    check(err <= 1e-2, f"attn_apply: relative error {err:.3g} > 1e-2")
+    check(err <= 1e-2, f"attn_apply{suffix}: relative error {err:.3g} > 1e-2")
     ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
     pms = cuda_ms(lambda: attn_cuda.attn_apply_plain(*args, **kw))
-    b_ms, b_by = bound(2 * B * L * d * 2 + B * L * 4 + (2 * d * d + 2 * d * hid) * 2
-                       + B * (H * hd * hd + d) * 4 + 4 * d * 4,
-                       [(2 * B * L * d * (2 * d + 2 * hid), PEAK_BF16),
-                        (2 * B * L * H * hd * hd, PEAK_FP32)])
-    records.append(dict(name="attn_apply", err=err, max_abs_err=abs_err, ms=ms,
+    b_ms, b_by = bound(2 * Bx * L * d * 2 + Bx * L * 4 + (2 * d * d + 2 * d * hid) * 2
+                       + Bx * (H * hd * hd + d) * 4 + 4 * d * 4,
+                       [(2 * Bx * L * d * (2 * d + 2 * hid), PEAK_BF16),
+                        (2 * Bx * L * H * hd * hd, PEAK_FP32)])
+    records.append(dict(name="attn_apply" + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="1e-2 rel",
                         route="cuda", source="scream_tpu_torch/csrc/attn.cu",
                         replaces="scream_tpu/ops/attn_pallas.py:147"))
 
     # The whole fused block against the literal plain block in bf16, the
     # comparison the TPU selftest gates the Pallas kernels at (5e-2).
-    fused = attn_cuda.attention_block_fused(
-        x, x, m_bool, m_bool, blk.q_proj.kernel, blk.k_proj.kernel,
-        blk.v_proj.kernel, blk.merge.kernel, blk.norm1.scale, blk.norm1.bias,
-        blk.ffn_in.kernel, blk.ffn_out.kernel, blk.norm2.scale, blk.norm2.bias,
-        num_heads=H, dtype=bf, norm_dtype=f32)
-    plain = attn_cuda.block_plain(
-        x, x, m_bool, m_bool, blk.q_proj.kernel, blk.k_proj.kernel,
-        blk.v_proj.kernel, blk.merge.kernel, blk.norm1.scale, blk.norm1.bias,
-        blk.ffn_in.kernel, blk.ffn_out.kernel, blk.norm2.scale, blk.norm2.bias,
-        num_heads=H, cd=bf, nd=f32, attn_eps=1e-6, ln_eps=1e-5)
+    weights = (blk.q_proj.kernel, blk.k_proj.kernel, blk.v_proj.kernel,
+               blk.merge.kernel, blk.norm1.scale, blk.norm1.bias, blk.ffn_in.kernel,
+               blk.ffn_out.kernel, blk.norm2.scale, blk.norm2.bias)
+    with torch.no_grad():
+        fused = attn_cuda.attention_block_fused(x, x, m_bool, m_bool, *weights,
+                                                num_heads=H, dtype=bf, norm_dtype=f32)
+        plain = attn_cuda.block_plain(x, x, m_bool, m_bool, *weights, num_heads=H,
+                                      cd=bf, nd=f32, attn_eps=1e-6, ln_eps=1e-5)
     torch.cuda.synchronize()
-    blk_err = rel_err(fused.detach(), plain.detach(), rows=m_bool)
-    check(blk_err <= 5e-2, f"fused block vs plain block: {blk_err:.3g} > 5e-2")
-    log(f"kernel fused_block_vs_plain_block: rel_err {blk_err:.3e} (bar 5e-2)")
+    blk_err = rel_err(fused, plain, rows=m_bool)
+    check(blk_err <= 5e-2, f"fused block{suffix} vs plain block: {blk_err:.3g} > 5e-2")
+    log(f"kernel fused_block_vs_plain_block{suffix} (d {d}, head dim {hd}, {Bx} x {L}): "
+        f"rel_err {blk_err:.3e} (bar 5e-2)")
+    return records
 
-    # Kernel 3: exact NN of the pose solve (src_pred/s against tgt/s).
-    inv_s = (1.0 / tb["scale"])[:, None, None]
-    pred = oracle_pred(batch, 0.01, 0, dev)
-    src = (pred * inv_s).contiguous()
-    dst = nn_cuda.mask_far(tb["tgt"] * inv_s, m_bool)
+
+def log_records(records):
+    for r in records:
+        log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+            f"(err {r['err']:.3e}, bar {r['bar']}) | {r['ms']:.4f} ms | plain "
+            f"{r['plain_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f" | live tile share {r['live_share']:.3f}" if "live_share" in r else ""))
+
+
+def live_pairs(s_t, dst, thresh_sq):
+    """(live, total): the (128-point sub-slab, 256-row tile) pairs whose
+    boxes pass the bounded kernel's threshold test on these inputs."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+
+    Bx, n = s_t.shape[:2]
+    slabs = s_t.reshape(Bx, n // 128, 128, 3)
+    boxes = nn_cuda.tile_boxes(dst)
+    gap = torch.clamp_min(torch.maximum(
+        slabs.amin(2)[:, :, None] - boxes[:, None, :, 3:],
+        boxes[:, None, :, :3] - slabs.amax(2)[:, :, None]), 0.0)
+    live = int(((gap * gap).sum(-1) <= thresh_sq).sum())
+    return live, Bx * (n // 128) * boxes.shape[1]
+
+
+def check_exact(src, dst, label):
+    """Kernel 3 against its plain version: equal indices, distances to 1e-6.
+    Returns the largest distance error."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+
     d2, idx = nn_cuda.nn_exact(src, dst)
     d2p, idxp = nn_cuda.nn_exact_plain(src, dst)
     torch.cuda.synchronize()
     mism = int((idx != idxp).sum())
     abs_err = float((d2 - d2p).abs().max())
     check(mism == 0 and abs_err <= 1e-6,
-          f"nn_exact: {mism} index mismatches, distance error {abs_err:.3g}")
+          f"{label}: {mism} index mismatches, distance error {abs_err:.3g}")
+    return abs_err
+
+
+def check_bounded(fn, s_t, dst, thresh_sq, dead, label):
+    """A bounded-NN wrapper ``fn`` against ``nn_bounded_plain``: exact
+    distances (1e-6) and equal winners within the threshold, at least the
+    threshold outside it, the sentinel on dead lanes. Returns the largest
+    distance error."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+
+    d2, xyz = fn(s_t, dst, thresh_sq, dead)
+    d2p, xyzp = nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, dead)
+    torch.cuda.synchronize()
+    live = ~dead[:, None].expand_as(d2)
+    within = (d2p < thresh_sq) & live
+    abs_err = float((d2 - d2p)[within].abs().max())
+    coords_equal = bool(torch.equal(xyz[within], xyzp[within]))
+    dead_ok = bool((d2[~live] == nn_cuda.NO_HIT).all())
+    outside_ok = bool((d2[live & ~within] >= thresh_sq).all())
+    check(abs_err <= 1e-6 and coords_equal and dead_ok and outside_ok
+          and int(within.sum()) > 0,
+          f"{label}: distance error {abs_err:.3g}, coords equal {coords_equal}, "
+          f"dead lanes ok {dead_ok}, outside ok {outside_ok}")
+    return abs_err
+
+
+def icp_view(src_dn, tgt_dn, src_mask, tgt_mask, T):
+    """The bounded NN's inputs as ICP builds them: src sorted on the
+    init-rotated axis and moved by ``T``, tgt sorted on x with its masked
+    rows at FAR."""
+    from scream_tpu_torch.geometry.icp import _spatial_sort
+    from scream_tpu_torch.ops import nn_cuda
+
+    s_sorted, _ = _spatial_sort(src_dn, src_mask, T[:, 0, :3])
+    t_sorted, t_mask = _spatial_sort(tgt_dn, tgt_mask)
+    s_t = (s_sorted @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]).contiguous()
+    return s_t, nn_cuda.mask_far(t_sorted, t_mask)
+
+
+def phase_kernels(model, batch):
+    """Each kernel against its plain version on the card; returns records."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+    from scream_tpu_torch.pipeline.register import (solve_pose,
+                                                    spread_subsample_indices,
+                                                    to_device)
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    tb = to_device(batch, dev)
+    m_bool = tb["tgt_mask"]
+    records = check_attention(model.trunk.stem_0, m_bool)
+
+    # Kernel 3: exact NN of the pose solve (src_pred/s against tgt/s).
+    inv_s = (1.0 / tb["scale"])[:, None, None]
+    pred = oracle_pred(batch, 0.01, 0, dev)
+    src = (pred * inv_s).contiguous()
+    dst = nn_cuda.mask_far(tb["tgt"] * inv_s, m_bool)
+    abs_err = check_exact(src, dst, "nn_exact")
     ms = cuda_ms(lambda: nn_cuda.nn_exact(src, dst))
     pms = cuda_ms(lambda: nn_cuda.nn_exact_plain(src, dst), reps=3)
     b_ms, b_by = bound(B * CAP * 12 * 2 + B * CAP * 12,
                        [(9 * B * CAP * CAP + 5 * B * CAP, PEAK_FP32)])
-    records.append(dict(name="nn_exact", err=float(mism), max_abs_err=abs_err, ms=ms,
+    records.append(dict(name="nn_exact", err=0.0, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                         bar="0 index mismatches, 1e-6 abs", route="cuda",
                         source="scream_tpu_torch/csrc/nn.cu",
@@ -248,38 +353,20 @@ def phase_kernels(model, batch):
                      tb["scale"], tb["center"])
     src_dn = tb["src"] * inv_s + tb["center"][:, None, :]
     tgt_dn = tb["tgt"] * inv_s + tb["center"][:, None, :]
-    T = sol.transform
+    thresh_sq = float(torch.tensor(0.1, dtype=f32) ** 2)
+    dead = torch.zeros(B, dtype=torch.bool, device=dev)
+    dead[-2:] = True
     for n in (CAP, ICP_SUB):
         idx = torch.as_tensor(spread_subsample_indices(CAP, n), dtype=torch.long, device=dev)
-        s_sorted, _ = _spatial_sort(src_dn[:, idx], tb["src_mask"][:, idx], T[:, 0, :3])
-        t_sorted, t_mask = _spatial_sort(tgt_dn, m_bool)
-        s_t = (s_sorted @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]).contiguous()
-        dst = nn_cuda.mask_far(t_sorted, t_mask)
-        thresh_sq = float(torch.tensor(0.1, dtype=f32) ** 2)
-        dead = torch.zeros(B, dtype=torch.bool, device=dev)
-        dead[-2:] = True
-        d2, xyz = nn_cuda.nn_bounded(s_t, dst, thresh_sq, dead)
-        d2p, xyzp = nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, dead)
-        torch.cuda.synchronize()
-        within = (d2p < thresh_sq) & ~dead[:, None]
-        abs_err = float((d2 - d2p)[within].abs().max())
-        coords_equal = bool(torch.equal(xyz[within], xyzp[within]))
-        dead_ok = bool((d2[-2:] == nn_cuda.NO_HIT).all())
-        check(abs_err <= 1e-6 and coords_equal and dead_ok and int(within.sum()) > 0,
-              f"nn_bounded n={n}: distance error {abs_err:.3g}, coords equal "
-              f"{coords_equal}, dead lanes ok {dead_ok}")
+        s_t, dst = icp_view(src_dn[:, idx], tgt_dn, tb["src_mask"][:, idx], m_bool,
+                            sol.transform)
+        abs_err = check_bounded(nn_cuda.nn_bounded, s_t, dst, thresh_sq, dead,
+                                f"nn_bounded n={n}")
         alive = torch.zeros(B, dtype=torch.bool, device=dev)
         ms = cuda_ms(lambda: nn_cuda.nn_bounded(s_t, dst, thresh_sq, alive))
         pms = cuda_ms(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, alive), reps=3)
-        # Work this run's data needs: the (128-point sub-slab, 256-row tile)
-        # pairs whose boxes pass the threshold test.
-        slabs = s_t.reshape(B, n // 128, 128, 3)
-        boxes = nn_cuda.tile_boxes(dst)
-        gap = torch.clamp_min(torch.maximum(
-            slabs.amin(2)[:, :, None] - boxes[:, None, :, 3:],
-            boxes[:, None, :, :3] - slabs.amax(2)[:, :, None]), 0.0)
-        live = int(((gap * gap).sum(-1) <= thresh_sq).sum())
-        total = B * (n // 128) * boxes.shape[1]
+        # Work this run's data needs: the live (sub-slab, tile) pairs.
+        live, total = live_pairs(s_t, dst, thresh_sq)
         b_ms, b_by = bound(B * n * 12 + B * CAP * 12 + B * n * 16,
                            [(9 * live * 128 * 256 + 5 * live * 256, PEAK_FP32)])
         rec = dict(name="nn_bounded" if n == CAP else "nn_bounded_sub1024", err=0.0,
@@ -290,11 +377,7 @@ def phase_kernels(model, batch):
                    live_share=live / total)
         records.append(rec)
 
-    for r in records:
-        log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
-            f"(err {r['err']:.3e}, bar {r['bar']}) | {r['ms']:.4f} ms | plain "
-            f"{r['plain_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-            + (f" | live tile share {r['live_share']:.3f}" if "live_share" in r else ""))
+    log_records(records)
     return records
 
 
@@ -307,7 +390,8 @@ def phase_forward(model, batch):
     from scream_tpu_torch.models import PointTransformer
     from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
 
-    plain = PointTransformer(ModelConfig(fused_attention=False), device="cuda")
+    plain = PointTransformer(ModelConfig(fused_attention=False),
+                             device="cuda")
     plain.load_state_dict(model.state_dict())
     tb = to_device({k: v[:2, :1024] if v.ndim > 1 and v.shape[1] == CAP else v[:2]
                     for k, v in batch.items()}, "cuda")
@@ -344,7 +428,7 @@ def run_path(model, batches, icp_subsample):
     finite = all(bool(torch.isfinite(x).all()) for m in outs
                  for x in (m.transform, m.re_deg, m.te))
     check(finite, "register_batch: non-finite output")
-    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in PATH1_KERNELS), f"a kernel was not launched: {counts}")
     check(all(m.transform.shape == (B, 4, 4) for m in outs), "bad output shape")
     re = torch.cat([m.re_deg for m in outs])
     log(f"main path register_batch B={B} cap={CAP} icp_iters={ICP_ITERS} "
@@ -381,6 +465,294 @@ def phase_oracle(batch):
         f"err {t_err:.2e} (bar 2e-2), n_corr equal {same_corr}")
 
 
+def make_gt_free_pairs(n_pairs, n_points, seed, max_angle_deg=30.0):
+    """Fresh synthetic pairs as ``scripts/measure_gt_free.py`` makes them."""
+    import numpy as np
+
+    from scream_tpu_torch.data.synthetic import make_pair
+
+    rng = np.random.default_rng(seed)
+    return [make_pair(rng, n_src=n_points, n_tgt=n_points, overlap=0.7, noise=0.0,
+                      max_angle=np.deg2rad(max_angle_deg)) for _ in range(n_pairs)]
+
+
+def gt_transform(pair):
+    import numpy as np
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = pair["rot"]
+    T[:3, 3] = pair["trans"].reshape(3)
+    return T
+
+
+def load_hintfree(device):
+    """The shipped hint-free checkpoint as a PointTransformer on ``device``."""
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.utils.checkpoint import load_params
+
+    cfg, normalize, state = load_params(HINTFREE)
+    model = PointTransformer(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    return model.eval(), normalize
+
+
+def phase_kernels_gt_free(model, normalize, pairs, pair_4096):
+    """Kernels at the GT-free serving path's shapes against their plain
+    versions: stats and apply at d=128 / head dim 16 on a register_pairs
+    batch (8 x 512, 448 valid rows); the exact NN of the pose solve at the
+    single-pair, robust-pass and register_pairs batches (B = 1, 7, 8); the
+    batched bounded NN as the batched ICP calls it at the robust-pass,
+    register_pairs and robust-ladder batches (B = 7, 8, 14; two lanes
+    dead); the unbatched bounded NN (B = 1) as the single-pair ICP calls
+    it, at 512 and 4,096 points. Inputs: ``pairs`` through the model and
+    its pose solve, as the GT-free path builds them."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.data import pad_cloud
+    from scream_tpu_torch.ops import nn_cuda
+    from scream_tpu_torch.pipeline import register as reg
+
+    dev = torch.device(DEV)
+    m_bool = torch.zeros((SERVE_BATCH, 512), dtype=torch.bool, device=dev)
+    m_bool[:, :GT_FREE_POINTS] = True
+    records = check_attention(model.trunk.stem_0, m_bool, suffix="_d128")
+
+    thresh_sq = float(torch.tensor(0.1, dtype=torch.float32) ** 2)
+    checked = []
+    for n_lanes in (1, 7, 8, 14):
+        items = [(p["src"], p["tgt"]) for p in pairs[:n_lanes]]
+        b = reg._normalized_batch(items, normalize, 512, dev)
+        with torch.no_grad():
+            sol, src_dn, tgt_dn = reg._gt_free_solve(model, b, 0.1, "tgt")
+            pred = model(b["src"], b["tgt"], b["src_mask"], b["tgt_mask"], None).float()
+        inv_s = (1.0 / b["scale"])[:, None, None]
+        if n_lanes != 14:
+            err = check_exact((pred * inv_s).contiguous(),
+                              nn_cuda.mask_far(b["tgt"] * inv_s, b["tgt_mask"]),
+                              f"nn_exact B={n_lanes}")
+            checked.append(f"nn_exact B={n_lanes} err {err:.1e}")
+        s_t, dst = icp_view(src_dn, tgt_dn, b["src_mask"], b["tgt_mask"], sol.transform)
+        dead = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+        if n_lanes == 1:
+            err = check_bounded(nn_cuda.nn_bounded_single, s_t, dst, thresh_sq, dead,
+                                "nn_bounded_single B=1")
+            gone = nn_cuda.nn_bounded_single(s_t, dst, thresh_sq, ~dead)[0]
+            check(bool((gone == nn_cuda.NO_HIT).all()),
+                  "nn_bounded_single: a dead lane is not at the sentinel")
+            checked.append(f"nn_bounded_single B=1 err {err:.1e}")
+            continue
+        dead[-2:] = True
+        err = check_bounded(nn_cuda.nn_bounded, s_t, dst, thresh_sq, dead,
+                            f"nn_bounded B={n_lanes}")
+        checked.append(f"nn_bounded B={n_lanes} err {err:.1e}")
+    log("kernels at the GT-free batches (hint-free model, 512 cap), all within "
+        "their path-1 bars: " + ", ".join(checked))
+
+    # The single-pair ICP's NN at 512 and 4,096 points, timed: a 2-degree,
+    # 0.01 perturbation of the GT pose, an ICP iteration's view.
+    c, s = np.cos(np.deg2rad(2.0)), np.sin(np.deg2rad(2.0))
+    nudge = np.array([[c, -s, 0, 0.01], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                     np.float32)
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    on = lambda a: torch.as_tensor(a, device=dev)[None]
+    for pair, cap in ((pairs[0], 512), (pair_4096, 4096)):
+        (sp, sm), (tp, tm) = pad_cloud(pair["src"], cap), pad_cloud(pair["tgt"], cap)
+        T = on(gt_transform(pair) @ nudge)
+        s_t, dst = icp_view(on(sp), on(tp), on(sm), on(tm), T)
+        abs_err = check_bounded(nn_cuda.nn_bounded_single, s_t, dst, thresh_sq, no,
+                                f"nn_bounded_single n={cap}")
+        ms = cuda_ms(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq))
+        pms = cuda_ms(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, None), reps=3)
+        live, total = live_pairs(s_t, dst, thresh_sq)
+        b_ms, b_by = bound(cap * 12 + cap * 12 + cap * 16,
+                           [(9 * live * 128 * 256 + 5 * live * 256, PEAK_FP32)])
+        records.append(dict(
+            name="nn_bounded_single" if cap == 512 else "nn_bounded_single_4096",
+            err=0.0, max_abs_err=abs_err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, bar="exact within threshold", route="cuda",
+            source="scream_tpu_torch/csrc/nn.cu",
+            replaces="scream_tpu/ops/nn_pallas.py:162", live_share=live / total))
+    log_records(records)
+    return records
+
+
+def phase_gt_free(model, model_cpu, normalize, pairs):
+    """Path 2: GT-free serving with the trained hint-free weights, each API
+    on the card and on the CPU path over the same pairs:
+    register_pair(passes=2), register_pairs (batch SERVE_BATCH) and
+    register_pair_robust (axis7). Recall (RE <= 15 deg, TE <= 0.3) and
+    median RE/TE of each; per API the card may trail the CPU path's recall
+    by at most 2/16 and its transforms may leave TRANSFORM_TOL on at most
+    2/16 of the pairs. Returns the launch counts of the card's run."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.geometry.metrics import transformation_error
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline import (register_pair, register_pair_robust,
+                                           register_pairs)
+
+    gt = torch.as_tensor(np.stack([gt_transform(p) for p in pairs]))
+    items = [(p["src"], p["tgt"]) for p in pairs]
+    apis = (
+        ("register_pair(passes=2)", lambda m, dev: [
+            register_pair(m, s, t, normalize=normalize, passes=2, device=dev)
+            for s, t in items]),
+        (f"register_pairs(batch {SERVE_BATCH})", lambda m, dev: register_pairs(
+            m, items, normalize=normalize, batch_size=SERVE_BATCH, device=dev)),
+        ("register_pair_robust(axis7)", lambda m, dev: [
+            register_pair_robust(m, s, t, normalize=normalize, device=dev)
+            for s, t in items]),
+    )
+
+    def score(results):
+        T = torch.as_tensor(np.stack([r.transform for r in results]))
+        re, te = (x.numpy() for x in transformation_error(T, gt))
+        return float(((re <= 15.0) & (te <= 0.3)).mean()), float(np.median(re)), \
+            float(np.median(te))
+
+    reset_launch_counts()
+    card = {}
+    for name, run in apis:
+        t0 = time.perf_counter()
+        card[name] = (run(model, DEV), time.perf_counter() - t0)
+    counts = launch_counts()
+    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+
+    n_tol = 2 / 16
+    for name, run in apis:
+        t0 = time.perf_counter()
+        cpu, t_cpu = run(model_cpu, "cpu"), time.perf_counter() - t0
+        got, t_card = card[name]
+        check(all(np.isfinite(r.transform).all() and 0.0 <= r.fitness <= 1.0
+                  for r in got), f"{name}: non-finite transform or fitness out of [0, 1]")
+        rc, rcpu = score(got), score(cpu)
+        diff = [float(np.abs(a.transform - b.transform).max()) for a, b in zip(got, cpu)]
+        n_far = sum(d > TRANSFORM_TOL for d in diff)
+        check(rc[0] >= rcpu[0] - n_tol - 1e-9 and n_far <= n_tol * len(pairs),
+              f"GT-free {name} card vs CPU path: recall {rc[0]:.4f} vs {rcpu[0]:.4f}, "
+              f"{n_far} of {len(pairs)} transforms beyond {TRANSFORM_TOL}")
+        extra = ""
+        if "robust" in name:
+            check(all(0.0 <= r.score_margin <= 1.0 for r in got),
+                  f"{name}: score_margin out of [0, 1]")
+            extra = (f" | ambiguous card {sum(r.ambiguous for r in got)} CPU "
+                     f"{sum(r.ambiguous for r in cpu)}, median margin card "
+                     f"{float(np.median([r.score_margin for r in got])):.4f} CPU "
+                     f"{float(np.median([r.score_margin for r in cpu])):.4f}")
+        log(f"path 2 GT-free {name}, hint-free d128 checkpoint, {len(pairs)} x "
+            f"{GT_FREE_POINTS} pts, seed {GT_FREE_SEED}, poses <= 30 deg: card recall "
+            f"{rc[0]:.4f}, median RE {rc[1]:.4f} deg, TE {rc[2]:.5f} ({t_card:.2f} s) | "
+            f"CPU path recall {rcpu[0]:.4f}, median RE {rcpu[1]:.4f} deg, TE "
+            f"{rcpu[2]:.5f} ({t_cpu:.2f} s) | transforms card vs CPU: max "
+            f"{max(diff):.3e}, median {float(np.median(diff)):.3e}, {n_far} beyond "
+            f"{TRANSFORM_TOL} (bar <= {n_tol * len(pairs):g}){extra}")
+    log(f"path 2 launches: {json.dumps(counts)}")
+    return counts
+
+
+def phase_cli(model, normalize, pair):
+    """``python -m scream_tpu_torch register`` in a subprocess on two .npy
+    clouds; its transform against the in-process register_pair (1e-5)."""
+    import numpy as np
+
+    from scream_tpu_torch.pipeline import register_pair
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    src, tgt = (os.path.join(root, OUT_DIR, f"cli_{k}.npy") for k in ("src", "tgt"))
+    np.save(src, pair["src"])
+    np.save(tgt, pair["tgt"])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "scream_tpu_torch", "register", "--src", src,
+           "--tgt", tgt, "--params", HINTFREE, "--device", DEV]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root,
+                          env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = register_pair(model, pair["src"], pair["tgt"], normalize=normalize,
+                        passes=2, device=DEV)
+    err = float(np.abs(np.asarray(out["transform"], np.float32) - ref.transform).max())
+    check(err <= 1e-5 and out["n_corr"] == ref.n_corr,
+          f"CLI vs in-process: transform error {err:.3g}, n_corr {out['n_corr']} "
+          f"vs {ref.n_corr}")
+    log(f"cli: python -m scream_tpu_torch register --params {HINTFREE} ({wall:.1f} s "
+        f"wall, subprocess): transform vs in-process max err {err:.2e} (bar 1e-5), "
+        f"n_corr {out['n_corr']} equal, fitness {out['fitness']:.4f}")
+
+
+def phase_serving_times(model, normalize, pairs_512, pairs_4096):
+    """Ungated serving times on the card, distinct inputs per call, results
+    on the host: register_pairs pairs/s (SERVE_PAIRS pairs at batch
+    SERVE_BATCH), register_pair latency, the robust latency, and the stage
+    times (CUDA events) of one register_pair pass and one register_pairs
+    batch. Returns a dict."""
+    import torch
+
+    from scream_tpu_torch.geometry.icp import (registration_icp,
+                                               registration_icp_batched)
+    from scream_tpu_torch.pipeline import register as reg
+
+    dev = torch.device(DEV)
+    out = {}
+    for cap, pairs in ((512, pairs_512), (4096, pairs_4096)):
+        as_pairs = [(p["src"], p["tgt"]) for p in pairs]
+        reg.register_pairs(model, as_pairs[:SERVE_BATCH], normalize=normalize,
+                           batch_size=SERVE_BATCH, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg.register_pairs(model, as_pairs[SERVE_BATCH:], normalize=normalize,
+                           batch_size=SERVE_BATCH, device=dev)
+        out[f"register_pairs_pairs_per_s_{SERVE_BATCH}x{cap}"] = \
+            (len(as_pairs) - SERVE_BATCH) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for p in pairs[:4]:
+            reg.register_pair(model, p["src"], p["tgt"], normalize=normalize,
+                              passes=2, device=dev)
+        out[f"register_pair_ms_{cap}"] = (time.perf_counter() - t0) / 4 * 1e3
+
+        # Stage times: one register_pair pass and one register_pairs batch.
+        for name, items in (("register_pair", as_pairs[4:5]),
+                            ("register_pairs", as_pairs[8:8 + SERVE_BATCH])):
+            b = reg._normalized_batch(items, normalize, cap, dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            with torch.no_grad():
+                ev[0].record()
+                pred = model(b["src"], b["tgt"], b["src_mask"], b["tgt_mask"], None).float()
+                ev[1].record()
+                sol = reg.solve_pose(b["src"], pred, b["tgt"], b["src_mask"],
+                                     b["tgt_mask"], b["scale"], b["center"])
+                ev[2].record()
+                inv_s = (1.0 / b["scale"])[:, None, None]
+                sdn = b["src"] * inv_s + b["center"][:, None, :]
+                tdn = b["tgt"] * inv_s + b["center"][:, None, :]
+                if name == "register_pair":
+                    r = registration_icp(sdn[0], tdn[0], 0.1, init=sol.transform[0],
+                                         src_mask=b["src_mask"][0],
+                                         tgt_mask=b["tgt_mask"][0])
+                else:
+                    r = registration_icp_batched(sdn, tdn, 0.1, init=sol.transform,
+                                                 src_mask=b["src_mask"],
+                                                 tgt_mask=b["tgt_mask"])
+                r.transformation.cpu()
+                ev[3].record()
+            torch.cuda.synchronize()
+            out[f"stages_ms_{name}_{cap}"] = {
+                "forward": ev[0].elapsed_time(ev[1]), "solve": ev[1].elapsed_time(ev[2]),
+                "icp": ev[2].elapsed_time(ev[3]),
+                "icp_iterations": r.iterations.cpu().tolist()}
+    t0 = time.perf_counter()
+    for p in pairs_512[1:4]:
+        reg.register_pair_robust(model, p["src"], p["tgt"], normalize=normalize, device=dev)
+    out["register_pair_robust_ms_512"] = (time.perf_counter() - t0) / 3 * 1e3
+    log("serving times (ungated): " + json.dumps(out))
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -401,19 +773,40 @@ def main():
     pps_sub, counts_sub = run_path(model, batches[TIMED_BATCHES + 1:-1], ICP_SUB)
     phase_oracle(batches[-1])
 
+    # Path 2: GT-free serving with the shipped hint-free checkpoint.
+    hf, normalize = load_hintfree(DEV)
+    hf_cpu, _ = load_hintfree("cpu")
+    pairs = make_gt_free_pairs(GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED)
+    pairs_512 = make_gt_free_pairs(SERVE_PAIRS + SERVE_BATCH, GT_FREE_POINTS, 200)
+    pairs_4096 = make_gt_free_pairs(SERVE_PAIRS + SERVE_BATCH, 4000, 300)
+    records += phase_kernels_gt_free(hf, normalize, pairs, pairs_4096[0])
+    serve_counts = phase_gt_free(hf, hf_cpu, normalize, pairs)
+    phase_cli(hf, normalize, pairs[1])
+    serving = phase_serving_times(hf, normalize, pairs_512, pairs_4096)
+
+    # Launches: each row from the run of the path that gives it its shape.
+    path_of = {"attn_stats": counts, "attn_apply": counts, "nn_exact": counts,
+               "nn_bounded": counts}
+    wrapper_of = {"attn_stats_d128": "attn_stats", "attn_apply_d128": "attn_apply",
+                  "nn_bounded_single": "nn_bounded_single"}
     kernels = []
     for r in records:
-        if r["name"] == "nn_bounded_sub1024":
-            continue
+        if r["name"] in path_of:
+            launches = path_of[r["name"]][r["name"]]
+        elif r["name"] in wrapper_of:
+            launches = serve_counts[wrapper_of[r["name"]]]
+        else:
+            continue  # extra shapes (the ICP subsample, B=1 at 4,096), logged above
         kernels.append({
             "name": r["name"], "status": "ported, within its bar",
             "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": counts[r["name"]],
+            "replaces": r["replaces"], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
     log(json.dumps({"pairs_per_s": pps, "pairs_per_s_icp_subsampled": pps_sub,
-                    "launches_icp_subsampled": counts_sub}))
+                    "launches_icp_subsampled": counts_sub,
+                    "launches_gt_free_serving": serve_counts, **serving}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

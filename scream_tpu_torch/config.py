@@ -39,12 +39,17 @@ class ModelConfig:
     norm_dtype: str = "float32"
     separate_stems: bool = False  # True for the DEM (OpenGF) variant
     remat: bool = False  # rematerialize attention blocks during training
-    # Fused block-tail kernel. The port has no tail kernel yet: the fused
-    # attention kernels subsume the tail wherever they apply.
+    # Fused block-tail kernel (TPU: ffn_pallas._tail_kernel), not ported
+    # yet. Where the fused attention block does not apply but the JAX rule
+    # (ops.ffn.jax_fusable_tail) admits the tail kernel, a block on CUDA
+    # tensors raises NotImplementedError; False asks for the plain tail
+    # (so does fused_attention=False).
     fused_block_tail: Optional[bool] = None
     # Fused attention-block kernels (ops/attn_cuda.py). None = auto: on
-    # CUDA tensors whenever ``ops.attn_cuda.fusable_block`` holds; False
-    # forces the plain body.
+    # CUDA tensors the kernels run wherever the JAX rule
+    # (``ops.attn_cuda.jax_fusable_block``) admits the fused block, and a
+    # shape the kernels do not take (fp32, other head dims) raises
+    # NotImplementedError; False forces the plain body, tail included.
     fused_attention: Optional[bool] = None
 
     @property

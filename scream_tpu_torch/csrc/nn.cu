@@ -7,7 +7,12 @@
 // wrapper, so they never win.
 //
 // nn_bounded replaces scream_tpu/ops/nn_pallas.py:_nn_bounded_batched_fine_kernel
-// (_bounded_batched, the batched ICP's NN). Contract: exact for every src
+// (_bounded_batched, the batched ICP's NN) and, launched at B = 1,
+// scream_tpu/ops/nn_pallas.py:_nn_bounded_kernel (_bounded_impl, the
+// single-pair ICP's NN); the TPU's coarse (_nn_bounded_batched_kernel) and
+// grouped (_nn_bounded_batched_fine4_kernel) tilings compute the same
+// function. At B = 1 and 4,096 points a launch is only 32 blocks of 128
+// threads; splitting the dst tiles over blocks is later work. Contract: exact for every src
 // point whose true NN lies within the threshold; a (128-point src sub-slab,
 // 256-row dst tile) pair whose bounding boxes are farther apart than the
 // threshold (gap^2 > thresh^2, strict) is skipped, a dead lane skips every

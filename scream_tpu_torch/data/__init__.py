@@ -1,4 +1,5 @@
-"""Host-side data: synthetic pairs, padded batching and the pair loader."""
+"""Host-side data: synthetic pairs, padded batching, the pair loader, and
+the point-cloud readers of the ``register`` CLI (``ply.load_cloud_any``)."""
 
 from scream_tpu_torch.data.batching import collate_pairs, pad_cloud
 from scream_tpu_torch.data.datasets import SyntheticPairDataset

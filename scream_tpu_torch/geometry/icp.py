@@ -1,17 +1,26 @@
-"""Batched point-to-point ICP (port of ``scream_tpu/geometry/icp.py``).
+"""Point-to-point ICP (port of ``scream_tpu/geometry/icp.py``).
 
-The TPU version is a ``lax.while_loop`` under ``vmap``; here one batched
-loop runs the fixed ``max_iteration`` steps for every lane, with a per-lane
-``alive`` flag. A lane that converged or ran out of iterations is frozen
-with ``torch.where`` and passed to the bounded NN kernel as ``dead``, so its
-tiles cost nothing. The loop never reads a value back to the host, so it
-cannot wait on a flag the device never sets.
+Two entry points, as in the JAX package:
 
-Each step (Open3D's ``registration_icp`` with point-to-point estimation,
-reference ``evaluate_3d_match.py:109-114``): transform src by the pending
-estimate, threshold-bounded NN in tgt, fitness and inlier RMSE at that
-transform, then an absolute weighted-Kabsch re-estimate from the original
-src. The load-bearing semantics of ``_make_icp_fns`` and
+* :func:`registration_icp` refines ONE pair, ``(N, 3)`` clouds and a
+  ``(4, 4)`` init, and stops on Open3D's convergence test like the TPU's
+  ``lax.while_loop``: a host loop reads one flag back from the device per
+  iteration (the TPU evaluates the same test on the device). Its NN is the
+  unbatched bounded kernel (``nn_cuda.nn_bounded_single``).
+* :func:`registration_icp_batched` refines ``B`` pairs at once, the
+  ``vmap``ped loop of the JAX package (its ``chunk=None`` path): all lanes
+  run the fixed ``max_iteration`` steps with a per-lane ``alive`` flag; a
+  lane that converged or ran out of iterations is frozen with
+  ``torch.where`` and passed to the batched bounded NN kernel as ``dead``,
+  so its tiles cost nothing. It never reads a value back to the host, so
+  it cannot wait on a flag the device never sets.
+
+Both build their steps from one :func:`_make_icp_fns`, as the JAX package's
+two loops do. Each step (Open3D's ``registration_icp`` with point-to-point
+estimation, reference ``evaluate_3d_match.py:109-114``): transform src by
+the pending estimate, threshold-bounded NN in tgt, fitness and inlier RMSE
+at that transform, then an absolute weighted-Kabsch re-estimate from the
+original src. The load-bearing semantics of ``_make_icp_fns`` and
 ``registration_icp:255-287`` are kept:
 
 * metrics are taken at the post-update transform;
@@ -32,7 +41,7 @@ import torch
 
 from scream_tpu_torch.geometry.kabsch import kabsch
 from scream_tpu_torch.geometry.metrics import transformation_error
-from scream_tpu_torch.ops.nn_cuda import nearest_neighbor_bounded
+from scream_tpu_torch.ops.nn_cuda import mask_far, nn_bounded, nn_bounded_single
 
 
 def _spatial_sort(pts, mask, axis_dir: Optional[torch.Tensor] = None):
@@ -54,10 +63,10 @@ def _spatial_sort(pts, mask, axis_dir: Optional[torch.Tensor] = None):
 
 
 class ICPResult(NamedTuple):
-    transformation: torch.Tensor  # (B, 4, 4)
-    fitness: torch.Tensor  # (B,) inlier fraction of valid src points
-    inlier_rmse: torch.Tensor  # (B,)
-    iterations: torch.Tensor  # (B,) int
+    transformation: torch.Tensor  # (4, 4), batched (B, 4, 4)
+    fitness: torch.Tensor  # inlier fraction of valid src points, (B,)
+    inlier_rmse: torch.Tensor  # scalar, (B,)
+    iterations: torch.Tensor  # scalar int, (B,)
 
 
 class _State(NamedTuple):
@@ -87,15 +96,17 @@ def _f32_square(x: float) -> float:
 
 
 def _make_icp_fns(src, tgt, src_mask, tgt_mask, thresh_sq: float,
-                  relative_fitness: float, relative_rmse: float):
+                  relative_fitness: float, relative_rmse: float, nn=nn_bounded):
     """The per-iteration machinery ``(step, converged, measure)`` over the
-    (sorted, fp32) batched clouds."""
+    (sorted, fp32) batched clouds; ``nn`` is the bounded NN wrapper (the
+    batched kernel, or ``nn_bounded_single`` for a one-lane batch), given
+    tgt with its masked rows at ``FAR``."""
     n_valid_src = torch.clamp_min(src_mask.float().sum(-1), 1.0)
+    dst = mask_far(tgt, tgt_mask)
 
     def measure(T, dead=None):
         src_t = src @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
-        nn_dist, corr_tgt = nearest_neighbor_bounded(src_t, tgt, thresh_sq,
-                                                     tgt_mask, dead=dead)
+        nn_dist, corr_tgt = nn(src_t, dst, thresh_sq, dead)
         valid = (nn_dist < thresh_sq) & src_mask
         w = valid.float()
         n_inlier = w.sum(-1)
@@ -120,6 +131,30 @@ def _make_icp_fns(src, tgt, src_mask, tgt_mask, thresh_sq: float,
     return step, converged, measure
 
 
+def _prepare(src, tgt, init, src_mask, tgt_mask):
+    """fp32 batched clouds sorted for the bounded kernel's tile pruning:
+    src along its init-rotated x axis, tgt along x."""
+    dev = src.device
+    if src_mask is None:
+        src_mask = torch.ones(src.shape[:-1], dtype=torch.bool, device=dev)
+    if tgt_mask is None:
+        tgt_mask = torch.ones(tgt.shape[:-1], dtype=torch.bool, device=dev)
+    src, src_mask = _spatial_sort(src.float(), src_mask, axis_dir=init[:, 0, :3])
+    tgt, tgt_mask = _spatial_sort(tgt.float(), tgt_mask)
+    return src, tgt, src_mask, tgt_mask
+
+
+def _finish(s: _State, converged, measure) -> ICPResult:
+    """Open3D breaks right after measuring: on early convergence it returns
+    the measured transform; on exhaustion every update stands. Final
+    metrics at the returned transform."""
+    early = converged(s)
+    T_final = torch.where(early[:, None, None], s.T_meas, s.T_pending)
+    iters = torch.where(early, s.it - 1, s.it)
+    _, _, _, fitness, rmse = measure(T_final)
+    return ICPResult(T_final, fitness, rmse, iters)
+
+
 def registration_icp(
     src: torch.Tensor,
     tgt: torch.Tensor,
@@ -131,28 +166,61 @@ def registration_icp(
     relative_fitness: float = 1e-6,
     relative_rmse: float = 1e-6,
 ) -> ICPResult:
-    """Refine initial poses aligning ``src`` onto ``tgt``, batched.
+    """Refine an initial pose aligning ``src`` ``(N, 3)`` onto ``tgt``
+    ``(M, 3)`` (padded ok, with masks); ``init`` ``(4, 4)``, identity if
+    None. Stops when Open3D's convergence test holds or after
+    ``max_iteration`` updates; each iteration reads the test's flag back to
+    the host. Returns an unbatched :class:`ICPResult` whose
+    ``transformation`` maps src -> tgt frame.
+    """
+    if init is None:
+        init = torch.eye(4, device=src.device)
+    init = init.float()[None]
+    src, tgt, src_mask, tgt_mask = _prepare(
+        src[None], tgt[None], init,
+        None if src_mask is None else src_mask[None],
+        None if tgt_mask is None else tgt_mask[None])
+    step, converged, measure = _make_icp_fns(
+        src, tgt, src_mask, tgt_mask, _f32_square(max_correspondence_distance),
+        relative_fitness, relative_rmse, nn=nn_bounded_single)
+
+    s = _init_icp_state(init)
+    for _ in range(max_iteration):
+        if bool(converged(s)[0]):  # the one host read per iteration
+            break
+        # One NN pass serves both the metrics at T_pending and the next update.
+        T_new, fitness, rmse = step(s.T_pending)
+        s = _State(s.T_pending, T_new, fitness, rmse, s.fitness, s.rmse, s.it + 1)
+    return ICPResult(*(x[0] for x in _finish(s, converged, measure)))
+
+
+def registration_icp_batched(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    max_correspondence_distance: float,
+    init: Optional[torch.Tensor] = None,
+    max_iteration: int = 30,
+    src_mask: Optional[torch.Tensor] = None,
+    tgt_mask: Optional[torch.Tensor] = None,
+    relative_fitness: float = 1e-6,
+    relative_rmse: float = 1e-6,
+) -> ICPResult:
+    """Refine initial poses aligning ``src`` onto ``tgt``, batched: the
+    JAX package's ``registration_icp_batched`` with ``chunk=None``.
 
     ``src``/``tgt`` ``(B, N, 3)``/``(B, M, 3)`` (padded, with masks),
-    ``init`` ``(B, 4, 4)`` (identity if None). Returns an :class:`ICPResult`
-    whose ``transformation`` maps src -> tgt frame.
+    ``init`` ``(B, 4, 4)`` (identity if None). Every lane runs until the
+    slowest converges or ``max_iteration``; converged lanes are frozen and
+    skip their NN tiles. Returns a batched :class:`ICPResult`.
     """
     B = src.shape[0]
-    dev = src.device
     if init is None:
-        init = torch.eye(4, device=dev).expand(B, 4, 4)
-    if src_mask is None:
-        src_mask = torch.ones(src.shape[:-1], dtype=torch.bool, device=dev)
-    if tgt_mask is None:
-        tgt_mask = torch.ones(tgt.shape[:-1], dtype=torch.bool, device=dev)
+        init = torch.eye(4, device=src.device).expand(B, 4, 4)
     init = init.float()
-    thresh_sq = _f32_square(max_correspondence_distance)
-
-    src, src_mask = _spatial_sort(src.float(), src_mask, axis_dir=init[:, 0, :3])
-    tgt, tgt_mask = _spatial_sort(tgt.float(), tgt_mask)
-
+    src, tgt, src_mask, tgt_mask = _prepare(src, tgt, init, src_mask, tgt_mask)
     step, converged, measure = _make_icp_fns(
-        src, tgt, src_mask, tgt_mask, thresh_sq, relative_fitness, relative_rmse)
+        src, tgt, src_mask, tgt_mask, _f32_square(max_correspondence_distance),
+        relative_fitness, relative_rmse)
 
     s = _init_icp_state(init)
     for _ in range(max_iteration):
@@ -164,14 +232,7 @@ def registration_icp(
                      s.it + 1)
         s = _State(*(torch.where(alive.reshape(-1, *([1] * (o.dim() - 1))), n, o)
                      for n, o in zip(new, s)))
-
-    # Open3D breaks right after measuring: on early convergence it returns
-    # the measured transform; on exhaustion every update stands.
-    early = converged(s)
-    T_final = torch.where(early[:, None, None], s.T_meas, s.T_pending)
-    iters = torch.where(early, s.it - 1, s.it)
-    _, _, _, fitness, rmse = measure(T_final)
-    return ICPResult(T_final, fitness, rmse, iters)
+    return _finish(s, converged, measure)
 
 
 def icp_refine_if_better(
@@ -188,7 +249,7 @@ def icp_refine_if_better(
     against ground truth (reference ``evaluate_3d_match.py:116-119``).
     Returns ``(T, re_deg, te)``."""
     re0, te0 = transformation_error(init_T, gt_T)
-    result = registration_icp(
+    result = registration_icp_batched(
         src, tgt, max_correspondence_distance, init=init_T,
         max_iteration=max_iteration, src_mask=src_mask, tgt_mask=tgt_mask)
     re1, te1 = transformation_error(result.transformation, gt_T)

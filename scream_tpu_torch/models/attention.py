@@ -6,9 +6,11 @@
   normalizer accumulated in fp32 under bf16 compute.
 * :class:`AttentionBlock`: projections -> linear attention -> merge -> FFN,
   with the reference's double q-residual (``models/transformer.py:74-90``).
-  On CUDA tensors, when ``v is k`` and the shape passes
-  ``ops.attn_cuda.fusable_block``, the whole block runs as the two fused
-  kernels; otherwise as the plain body.
+  On CUDA tensors a block runs where the JAX package runs a Pallas kernel
+  on the TPU: the two fused kernels where its fused-block rule holds, and
+  it raises ``NotImplementedError`` where the kernels do not take that
+  shape or where the TPU would run the unported tail kernel. CPU tensors
+  run the plain body, as the JAX package does off the TPU.
 * :func:`sinusoidal_pe`: the continuous n-dim coordinate embedding
   (``models/transformer.py:135-179``).
 
@@ -26,7 +28,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from scream_tpu_torch.ops import attn_cuda
-from scream_tpu_torch.ops.ffn import tail_plain
+from scream_tpu_torch.ops.ffn import jax_fusable_tail, tail_plain
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """The routing predicate of :meth:`AttentionBlock._use_fused`: whether a
+    block's input lies on a CUDA device (the CPU tests patch it)."""
+    return x.is_cuda
 
 
 def sinusoidal_pe(
@@ -109,19 +117,22 @@ class AttentionBlock(nn.Module):
     ``q_proj, k_proj, v_proj, merge, ffn_in, ffn_out`` (``.kernel``,
     ``(in, out)``) and ``norm1, norm2`` (``.scale, .bias``).
 
-    ``fused_attn``: None = the fused kernels on CUDA tensors when ``v is k``
-    and ``ops.attn_cuda.fusable_block`` holds; True = always the fused path
-    when ``v is k`` (plain versions of its kernels on CPU tensors); False =
-    always the plain body.
+    ``fused_attn``: None = auto (see :meth:`_use_fused`); True = always the
+    fused path when ``v is k`` (plain versions of its kernels on CPU
+    tensors); False = the plain body, tail included. ``fused_tail``: False
+    lets an auto block on CUDA tensors run the plain tail where the TPU
+    would run its tail kernel.
     """
 
     def __init__(self, d_model: int, num_heads: int = 8, ffn_mult: int = 4,
                  dtype: torch.dtype = torch.float32,
                  norm_dtype: torch.dtype = torch.float32,
-                 fused_attn: Optional[bool] = None, generator=None):
+                 fused_attn: Optional[bool] = None,
+                 fused_tail: Optional[bool] = None, generator=None):
         super().__init__()
         self.d_model, self.num_heads, self.ffn_mult = d_model, num_heads, ffn_mult
-        self.dtype, self.norm_dtype, self.fused_attn = dtype, norm_dtype, fused_attn
+        self.dtype, self.norm_dtype = dtype, norm_dtype
+        self.fused_attn, self.fused_tail = fused_attn, fused_tail
         hid = d_model * ffn_mult
         self.q_proj = _Proj(d_model, d_model, generator)
         self.k_proj = _Proj(d_model, d_model, generator)
@@ -133,12 +144,41 @@ class AttentionBlock(nn.Module):
         self.norm2 = _Norm(d_model)
 
     def _use_fused(self, q, k, v) -> bool:
-        if v is not k or q.shape[-1] != self.d_model or k.shape[-1] != self.d_model:
+        """Fused kernels or plain body, by the JAX package's TPU rules.
+
+        On CUDA tensors the plain body never stands in for a kernel the TPU
+        would run unless ``fused_attn`` is False. Where the fused-block rule
+        holds, the kernels run or the block raises (a shape they do not
+        take). Elsewhere the TPU runs its tail kernel wherever
+        ``jax_fusable_tail`` holds; the port has not got it, so the block
+        raises unless ``fused_tail`` is False.
+        """
+        shared_kv = (v is k and q.shape[-1] == self.d_model
+                     and k.shape[-1] == self.d_model)
+        if self.fused_attn and shared_kv:
+            return True
+        if self.fused_attn is False or not _on_cuda(q):
             return False
-        if self.fused_attn is not None:
-            return self.fused_attn
-        return q.is_cuda and attn_cuda.fusable_block(
-            self.d_model, self.d_model * self.ffn_mult, self.num_heads, self.dtype)
+        hid = self.d_model * self.ffn_mult
+        if self.fused_attn is None and shared_kv and attn_cuda.jax_fusable_block(
+                self.d_model, hid, self.num_heads, self.dtype):
+            if attn_cuda.kernels_take(self.d_model, hid, self.num_heads, self.dtype):
+                return True
+            raise NotImplementedError(
+                f"fused attention block at d_model {self.d_model}, "
+                f"{self.num_heads} heads, {self.dtype}: the CUDA kernels take "
+                f"bf16, d_model in {attn_cuda.KERNEL_WIDTHS} and "
+                f"{attn_cuda.KERNEL_HEADS} heads; other shapes and fp32 are "
+                "queued in ROADMAP.md (TPU kernels still to port); pass "
+                "fused_attention=False for the plain body")
+        if self.fused_tail is not False and jax_fusable_tail(
+                self.d_model, hid, self.dtype):
+            raise NotImplementedError(
+                f"block tail at d_model {self.d_model}: the TPU runs "
+                "ffn_pallas._tail_kernel here, which is not ported yet "
+                "(ROADMAP.md, TPU kernels still to port); pass "
+                "fused_block_tail=False for the plain tail")
+        return False
 
     def forward(self, q, k, v, q_mask=None, kv_mask=None):
         B, L, S = q.shape[0], q.shape[1], k.shape[1]

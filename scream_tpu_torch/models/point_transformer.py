@@ -59,7 +59,7 @@ class _Trunk(nn.Module):
         block = lambda: AttentionBlock(
             d, cfg.num_heads, cfg.ffn_mult, dtype=cfg.compute_dtype,
             norm_dtype=cfg.norm_compute_dtype, fused_attn=cfg.fused_attention,
-            generator=generator)
+            fused_tail=cfg.fused_block_tail, generator=generator)
         for i in range(cfg.self_layers):
             self.add_module(f"stem_{i}", block())
         for i in range(cfg.cross_layers):

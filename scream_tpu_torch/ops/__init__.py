@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 * ``attn_cuda``: the fused attention block (stats + apply kernels).
-* ``nn_cuda``: exact NN (pose solve) and batched bounded NN (ICP).
+* ``nn_cuda``: exact NN (pose solve), batched bounded NN (batched ICP) and
+  its unbatched launch (single-pair ICP).
 * ``ffn``: the plain block tail the unfused attention body uses.
 
 Each kernel wrapper counts its launches in a plain integer attribute
@@ -11,7 +12,7 @@ Each kernel wrapper counts its launches in a plain integer attribute
 from scream_tpu_torch.ops import attn_cuda, nn_cuda
 
 WRAPPERS = (attn_cuda.attn_stats, attn_cuda.attn_apply,
-            nn_cuda.nn_exact, nn_cuda.nn_bounded)
+            nn_cuda.nn_exact, nn_cuda.nn_bounded, nn_cuda.nn_bounded_single)
 
 
 def reset_launch_counts() -> None:

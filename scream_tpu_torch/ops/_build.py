@@ -93,8 +93,8 @@ def build() -> Path:
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        "scream_attn_stats": [P, P, P, P, P, P, I, I, P],
-        "scream_attn_apply": [P] * 13 + [I, I, I, F, F, P],
+        "scream_attn_stats": [P, P, P, P, P, P, I, I, I, P],
+        "scream_attn_apply": [P] * 13 + [I, I, I, I, F, F, P],
         "scream_nn_exact": [P, P, P, P, I, I, I, P],
         "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
     }

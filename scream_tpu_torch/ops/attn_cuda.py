@@ -10,8 +10,9 @@ hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py
   contraction with the fp32 KV, the fp32 normalizer ``1/(Q'.K_sum + eps)``,
   then ``LN2(x + FFN(LN1(msg @ Wm + x)))``.
 
-Each wrapper launches its kernel for CUDA tensors (raising on what the
-kernel does not take) and runs its plain PyTorch version, defined beside it,
+The kernels take bf16 at d_model 128 and 256 with 8 heads (head dim 16 and
+32, ``KERNEL_WIDTHS``). Each wrapper launches its kernel for CUDA tensors
+(raising on what the kernel does not take) and runs its plain PyTorch version, defined beside it,
 only for CPU tensors. The stats are kept per head, ``(B, H, hd, hd)``: the
 TPU kernel's full ``d x d`` KV has zeros outside those diagonal blocks.
 
@@ -25,28 +26,29 @@ from __future__ import annotations
 import torch
 
 from scream_tpu_torch.ops import _build
-from scream_tpu_torch.ops.ffn import tail_plain
+from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
 
-# What the CUDA kernels take: d_model 256 split into 32-wide heads (one warp
-# per head), a hidden width in 128-column chunks, bf16 compute.
-KERNEL_D = 256
-KERNEL_HEAD_DIM = 32
+# What the CUDA kernels take: d_model 128 or 256 split into 8 heads (head
+# dim 16 or 32), a hidden width in 128-column chunks, bf16 compute.
+KERNEL_WIDTHS = (128, 256)
+KERNEL_HEADS = 8
 KERNEL_HID_CHUNK = 128
-# VMEM budget of the JAX package's auto-enable rule (attn_pallas.fusable_block).
-_VMEM_BUDGET = 10 * 1024 * 1024
-_TILE_R = 256
 
 
-def fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
-    """Whether the fused kernels apply: the JAX package's rule (aligned
-    dims, clean head split, working set inside its budget) and the shapes
-    the CUDA kernels are written for."""
+def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """The JAX package's rule for the fused block (``attn_pallas.fusable_block``):
+    aligned dims, clean head split, working set inside its VMEM budget. Where
+    it holds, the TPU runs the Pallas stats/apply kernels."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     vmem = (3 * d * d + 2 * d * hid) * itemsize + _TILE_R * hid * 4 \
         + 10 * _TILE_R * d * 4
-    jax_rule = (d % 128 == 0 and hid % 128 == 0 and d % num_heads == 0
-                and vmem < _VMEM_BUDGET)
-    return (jax_rule and d == KERNEL_D and d // num_heads == KERNEL_HEAD_DIM
+    return (d % 128 == 0 and hid % 128 == 0 and d % num_heads == 0
+            and vmem < _VMEM_BUDGET)
+
+
+def kernels_take(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels are written for this shape."""
+    return (d in KERNEL_WIDTHS and num_heads == KERNEL_HEADS
             and hid % KERNEL_HID_CHUNK == 0 and dtype == torch.bfloat16)
 
 
@@ -119,9 +121,9 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     if not _build.route(x):
         return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)
     B, S, d = x.shape
-    if d != KERNEL_D or d // num_heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"attn_stats kernel takes d={KERNEL_D} with head dim "
-                         f"{KERNEL_HEAD_DIM}, got d={d}, heads={num_heads}")
+    if d not in KERNEL_WIDTHS or num_heads != KERNEL_HEADS:
+        raise ValueError(f"attn_stats kernel takes d in {KERNEL_WIDTHS} with "
+                         f"{KERNEL_HEADS} heads, got d={d}, heads={num_heads}")
     bf = torch.bfloat16
     _check(x, "x", bf, (B, S, d))
     _check(mask, "mask", torch.float32, (B, S))
@@ -132,7 +134,7 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     ksum = torch.empty((B, d), device=x.device, dtype=torch.float32)
     err = _build.kernels().scream_attn_stats(
         x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
-        KV.data_ptr(), ksum.data_ptr(), B, S, _build.stream_ptr(x))
+        KV.data_ptr(), ksum.data_ptr(), B, S, d, _build.stream_ptr(x))
     _build.check(err, "attn_stats")
     attn_stats.launches += 1
     return KV, ksum
@@ -151,9 +153,9 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     B, L, d = x.shape
     hid = W1.shape[1]
     H = KV.shape[1]
-    if d != KERNEL_D or KV.shape[2] != KERNEL_HEAD_DIM or hid % KERNEL_HID_CHUNK:
-        raise ValueError(f"attn_apply kernel takes d={KERNEL_D}, head dim "
-                         f"{KERNEL_HEAD_DIM}, hidden a multiple of "
+    if d not in KERNEL_WIDTHS or H != KERNEL_HEADS or hid % KERNEL_HID_CHUNK:
+        raise ValueError(f"attn_apply kernel takes d in {KERNEL_WIDTHS}, "
+                         f"{KERNEL_HEADS} heads, hidden a multiple of "
                          f"{KERNEL_HID_CHUNK}; got d={d}, KV {tuple(KV.shape)}, "
                          f"hidden {hid}")
     if norm_dtype not in (torch.float32, torch.bfloat16):
@@ -174,7 +176,7 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
         x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(),
         ksum.data_ptr(), Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(),
         W1.data_ptr(), W2.data_ptr(), g2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), B, L, hid, float(attn_eps), float(ln_eps),
+        out.data_ptr(), B, L, d, hid, float(attn_eps), float(ln_eps),
         _build.stream_ptr(x))
     _build.check(err, "attn_apply")
     attn_apply.launches += 1

@@ -1,14 +1,35 @@
 """The attention-block tail in plain PyTorch (port of the plain half of
 ``scream_tpu/ops/ffn_pallas.py``): merge -> +q -> LN -> FFN(relu) -> +q -> LN.
 
-The TPU's fused tail kernel (``ffn_pallas._tail_kernel``) is not ported yet:
-on the main path the fused attention kernels subsume it. This module holds
-the tail's plain body, which the unfused attention block uses.
+The TPU's fused tail kernel (``ffn_pallas._tail_kernel``) is not ported yet.
+The JAX package runs it wherever the fused attention block does not apply
+and :func:`jax_fusable_tail` holds (``d_model >= 512``, meshes sharded over
+seq or model). On CUDA tensors the port's attention block therefore raises
+there rather than run :func:`tail_plain` in the kernel's place, unless the
+caller asks for the plain tail (``ModelConfig(fused_block_tail=False)``) or
+the plain body (``ModelConfig(fused_attention=False)``).
+This module holds the tail's plain body, which the unfused attention block
+runs on CPU tensors and where the caller asked for it.
 """
 
 from __future__ import annotations
 
 import torch
+
+# VMEM budget and row tile of the JAX package's rules (ffn_pallas.fusable,
+# attn_pallas.fusable_block).
+_VMEM_BUDGET = 10 * 1024 * 1024
+_TILE_R = 256
+
+
+def jax_fusable_tail(d: int, hid: int, dtype: torch.dtype) -> bool:
+    """The JAX package's rule for its fused tail kernel
+    (``ffn_pallas.fusable``): aligned dims and the weight + hidden tiles
+    inside its VMEM budget. Where it holds, the TPU runs ``_tail_kernel``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vmem = (d * d + 2 * d * hid) * itemsize + _TILE_R * hid * 4 \
+        + 6 * _TILE_R * d * itemsize
+    return d % 128 == 0 and hid % 128 == 0 and vmem < _VMEM_BUDGET
 
 
 def _ln(t, g, b, eps: float, norm_dtype):

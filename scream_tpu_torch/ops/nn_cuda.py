@@ -10,6 +10,14 @@ of ``scream_tpu/ops/nn_pallas.py``.
   every point whose true NN lies within the threshold. Tiles whose boxes
   are farther apart than the threshold and lanes flagged ``dead`` are
   skipped; a point with no live tile keeps ``(3e38, (0, 0, 0))``.
+* :func:`nn_bounded_single` (replaces ``_nn_bounded_kernel``, reached
+  through ``_bounded_impl``): the same function for one pair, the
+  single-pair ICP's NN, on a one-lane batch. The TPU kernel differs from the batched one only in
+  its pruning tile (a whole 1024 x 256 block against 128-point sub-slabs);
+  here it is the B = 1 launch of the same kernel, with its own launch
+  count. The TPU's other tilings of the batched kernel
+  (``_nn_bounded_batched_kernel``, ``fine=False``, and
+  ``_nn_bounded_batched_fine4_kernel``) compute this function too.
 
 Both take dst with masked rows already moved to ``FAR`` (:func:`mask_far`).
 The bounded call builds its dst tile boxes in a small kernel of its own
@@ -128,12 +136,8 @@ def tile_boxes(dst):
     return torch.cat([lo, hi], -1).contiguous()
 
 
-def nn_bounded(src, dst, thresh_sq: float, dead=None):
-    """Batched threshold-bounded NN (kernel 4): ``(min_d2 (B, N), xyz
-    (B, N, 3))``. ``dst`` has masked rows at ``FAR``; ``thresh_sq`` is a
-    Python float; ``dead`` an optional ``(B,)`` bool lane flag."""
-    if not _build.route(src):
-        return nn_bounded_plain(src, dst, thresh_sq, dead)
+def _launch_bounded(src, dst, thresh_sq: float, dead):
+    """The bounded kernel on ``(B, N, 3)`` x ``(B, M, 3)`` CUDA tensors."""
     B, N, _ = src.shape
     M = dst.shape[1]
     _build.check_tensor(src, "src", torch.float32, (B, N, 3))
@@ -151,11 +155,38 @@ def nn_bounded(src, dst, thresh_sq: float, dead=None):
         boxes.data_ptr(), min_d2.data_ptr(), xyz.data_ptr(), B, N, M,
         _build.stream_ptr(src))
     _build.check(err, "nn_bounded")
-    nn_bounded.launches += 1
     return min_d2, xyz
 
 
+def nn_bounded(src, dst, thresh_sq: float, dead=None):
+    """Batched threshold-bounded NN (kernel 4): ``(min_d2 (B, N), xyz
+    (B, N, 3))``. ``dst`` has masked rows at ``FAR``; ``thresh_sq`` is a
+    Python float; ``dead`` an optional ``(B,)`` bool lane flag."""
+    if not _build.route(src):
+        return nn_bounded_plain(src, dst, thresh_sq, dead)
+    out = _launch_bounded(src, dst, thresh_sq, dead)
+    nn_bounded.launches += 1
+    return out
+
+
 nn_bounded.launches = 0
+
+
+def nn_bounded_single(src, dst, thresh_sq: float, dead=None):
+    """Threshold-bounded NN of one pair (kernel 6), the B = 1 launch of the
+    bounded kernel: ``src`` ``(1, N, 3)``, ``dst`` ``(1, M, 3)`` with masked
+    rows at ``FAR``, ``dead`` an optional ``(1,)`` bool -> ``(min_d2 (1, N),
+    xyz (1, N, 3))``."""
+    if not _build.route(src):
+        return nn_bounded_plain(src, dst, thresh_sq, dead)
+    if src.shape[0] != 1:
+        raise ValueError(f"nn_bounded_single takes one lane, got {src.shape[0]}")
+    out = _launch_bounded(src, dst, thresh_sq, dead)
+    nn_bounded_single.launches += 1
+    return out
+
+
+nn_bounded_single.launches = 0
 
 
 def nearest_neighbor_full(
@@ -178,8 +209,25 @@ def nearest_neighbor_bounded(
     dst_mask: Optional[torch.Tensor] = None,
     dead: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched threshold-bounded NN ``(min_sq_dist, winner_xyz)``, exact for
-    every src point whose true NN lies within ``thresh_sq``
-    (``ops/nn_pallas.nearest_neighbor_bounded``)."""
+    """Unbatched threshold-bounded NN ``(min_sq_dist (N,), winner_xyz
+    (N, 3))`` of ``src`` ``(N, 3)`` in ``dst`` ``(M, 3)``, exact for every
+    src point whose true NN lies within ``thresh_sq``
+    (``ops/nn_pallas.nearest_neighbor_bounded``); ``dead`` a bool scalar."""
+    d2, xyz = nn_bounded_single(src.float().contiguous()[None],
+                                mask_far(dst, dst_mask)[None], thresh_sq,
+                                None if dead is None else dead.reshape(1))
+    return d2[0], xyz[0]
+
+
+def nearest_neighbor_bounded_batched(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    thresh_sq: float,
+    dst_mask: Optional[torch.Tensor] = None,
+    dead: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched threshold-bounded NN over ``(B, N, 3)`` x ``(B, M, 3)``
+    (``ops/nn_pallas._bounded_batched``, what the vmapped ICP lowers to);
+    ``dead`` a ``(B,)`` lane flag."""
     return nn_bounded(src.float().contiguous(), mask_far(dst, dst_mask),
                       thresh_sq, dead)

@@ -1,4 +1,5 @@
-"""Device resolution and the flax-to-torch weight converter."""
+"""Device resolution, the flax-to-torch weight converter (``convert``) and
+the port's torch checkpoints (``checkpoint``)."""
 
 from scream_tpu_torch.utils.device import resolve_device
 

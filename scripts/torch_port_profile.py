@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's ``register_batch``, on one GPU.
+"""Where the time goes in the PyTorch port's registration paths, on one GPU.
 
 Usage, from the repository root on a machine with an NVIDIA GPU:
 
     python3 scripts/torch_port_profile.py [--icp-subsample 1024]
+    python3 scripts/torch_port_profile.py --gt-free
 
-At the bench shape (16 pairs x 4,096 points, full-width model from a seeded
-random init, 30 ICP iterations) it prints, for one batch after a warm-up:
+Default: ``register_batch`` at the bench shape (16 pairs x 4,096 points,
+full-width model from a seeded random init, 30 ICP iterations). It prints,
+for one batch after a warm-up:
 
 * the stage times by CUDA events: forward, pose solve, ICP + metrics;
 * the device time of every kernel name under ``torch.profiler`` (summed over
   the batch, largest first) and the device's busy share of the wall time.
 
-It writes the profiler table to ``chiprun_out/torch_port_profile.txt``.
+``--gt-free``: GT-free serving with the shipped hint-free checkpoint, one
+``register_pair(passes=2)`` of a 448-point pair and one ``register_pairs``
+batch of 8 such pairs (capacity 512), each profiled the same way after a
+warm-up.
+
+It writes the profiler tables to ``chiprun_out/torch_port_profile.txt``.
 """
 
 import argparse
@@ -25,9 +32,75 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 B, CAP, N_SRC, N_TGT = 16, 4096, 3840, 4032
 
 
+def kernel_table(prof, wall_ms, label):
+    """Print the device time by kernel name, the busy share of ``wall_ms``
+    and the launch count; append the profiler table to the output file."""
+    import torch
+
+    # Kernels only: an operator row's "self" device time repeats the time of
+    # kernels launched under it (the ctypes launches sit under _FusedBlock).
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"{label} wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches")
+    for ms, count, name in rows[:15]:
+        print(f"  {ms:9.3f} ms  {count:5d} x  {name[:90]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "torch_port_profile.txt"), "a") as f:
+        f.write(f"{label}\n")
+        f.write(prof.key_averages().table(row_limit=40))
+        f.write("\n")
+
+
+def profile_gt_free():
+    """register_pair and one register_pairs batch with the hint-free model."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scream_tpu_torch.data.synthetic import make_pair
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.pipeline import register_pair, register_pairs
+    from scream_tpu_torch.utils.checkpoint import load_params
+
+    cfg, normalize, state = load_params(
+        os.path.join("scream_tpu_torch", "weights", "point-generator-hintfree"))
+    model = PointTransformer(cfg, device="cuda")
+    model.load_state_dict(state)
+    model.eval()
+    rng = np.random.default_rng(7)
+    pairs = [make_pair(rng, n_src=448, n_tgt=448, overlap=0.7, noise=0.0,
+                       max_angle=np.deg2rad(30.0)) for _ in range(18)]
+    as_pairs = [(p["src"], p["tgt"]) for p in pairs]
+    register_pair(model, *as_pairs[0], normalize=normalize)  # warm-up
+    register_pairs(model, as_pairs[2:10], normalize=normalize)
+    torch.cuda.synchronize()
+    print(f"device: {torch.cuda.get_device_name(0)} | GT-free, hint-free d128 checkpoint")
+    for label, run in (
+            ("register_pair(passes=2) 448 pts",
+             lambda: register_pair(model, *as_pairs[1], normalize=normalize)),
+            ("register_pairs 8 x 448 pts",
+             lambda: register_pairs(model, as_pairs[10:18], normalize=normalize))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            run()  # results come back to the host as numpy
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernel_table(prof, wall_ms, label)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--icp-subsample", type=int, default=None)
+    ap.add_argument("--gt-free", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -41,6 +114,9 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_profile: needs a CUDA GPU")
+    if args.gt_free:
+        profile_gt_free()
+        return
     ds = SyntheticPairDataset(length=3 * B, n_src=N_SRC, n_tgt=N_TGT, seed=1)
     batches = list(PairLoader(ds, batch_size=B, src_capacity=CAP, num_workers=8))
     model = PointTransformer(ModelConfig(), device="cuda",
@@ -83,27 +159,7 @@ def main():
         t0 = time.perf_counter()
         reg.register_batch(model, batches[2], **kw).transform.cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernels only: an operator row's "self" device time repeats the time of
-    # kernels launched under it (the ctypes launches sit under _FusedBlock).
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"register_batch wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall_ms:.1f} %), {sum(r[1] for r in rows)} kernel launches")
-    for ms, count, name in rows[:15]:
-        print(f"  {ms:9.3f} ms  {count:5d} x  {name[:90]}")
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "torch_port_profile.txt"), "a") as f:
-        f.write(f"icp_subsample={args.icp_subsample}\n")
-        f.write(prof.key_averages().table(row_limit=40))
-        f.write("\n")
+    kernel_table(prof, wall_ms, f"register_batch icp_subsample={args.icp_subsample}")
 
 
 if __name__ == "__main__":

@@ -199,6 +199,8 @@ class TestPackageRules:
         with pytest.raises(ValueError):
             nn_cuda.nn_bounded(x, x, 0.01)
         with pytest.raises(ValueError):
+            nn_cuda.nn_bounded_single(x, x, 0.01)
+        with pytest.raises(ValueError):
             attn_cuda.attn_stats(torch.empty((1, 4, 256), device="meta"),
                                  None, None, None, num_heads=8)
 
@@ -230,4 +232,5 @@ class TestBuild:
         ops.reset_launch_counts()
         assert set(ops.launch_counts().values()) == {0}
         assert sorted(ops.launch_counts()) == ["attn_apply", "attn_stats",
-                                               "nn_bounded", "nn_exact"]
+                                               "nn_bounded", "nn_bounded_single",
+                                               "nn_exact"]

@@ -1,6 +1,7 @@
 """The port's geometry against the JAX package on the CPU: weighted Kabsch,
-the registration metrics, the spatial sort and batched ICP (one step, whole
-trajectories, keep-iff-both-improve).
+the registration metrics, the spatial sort, batched ICP (one step, whole
+trajectories, keep-iff-both-improve) and the single-pair ICP with its early
+exit (one step, trajectories, and against the batched loop).
 
 Bars (CLAUDE.md): kabsch 1e-5; one ICP step 1e-5; an ICP trajectory 2e-2 on
 the transform with iteration counts within 1 (the JAX CPU path and the port
@@ -25,6 +26,7 @@ from scream_tpu_torch.geometry import icp as ticp
 from scream_tpu_torch.geometry import kabsch as tkabsch
 from scream_tpu_torch.geometry import metrics as tmetrics
 from scream_tpu_torch.geometry import so3 as tso3
+from scream_tpu_torch.ops import nn_cuda
 
 # scream_tpu.geometry re-exports the function ``kabsch`` under the module's name.
 jkabsch = importlib.import_module("scream_tpu.geometry.kabsch")
@@ -165,9 +167,9 @@ class TestICP:
             jnp.asarray(src), jnp.asarray(tgt), 0.1, init=jnp.asarray(init),
             max_iteration=max_iteration, src_mask=jnp.asarray(sm),
             tgt_mask=jnp.asarray(tm), force_xla=True)
-        got = ticp.registration_icp(t(src), t(tgt), 0.1, init=t(init),
-                                    max_iteration=max_iteration, src_mask=t(sm),
-                                    tgt_mask=t(tm))
+        got = ticp.registration_icp_batched(t(src), t(tgt), 0.1, init=t(init),
+                                            max_iteration=max_iteration,
+                                            src_mask=t(sm), tgt_mask=t(tm))
         np.testing.assert_allclose(got.transformation.numpy(), want.transformation,
                                    atol=2e-2, rtol=0)
         it_g, it_w = got.iterations.numpy(), np.asarray(want.iterations)
@@ -181,8 +183,9 @@ class TestICP:
     def test_no_inliers_keeps_transform(self):
         src, tgt, sm, tm, gt, init = _icp_batch(B=2, seed=2)
         init[0, :3, 3] += 50.0  # nothing within the threshold
-        got = ticp.registration_icp(t(src), t(tgt), 0.1, init=t(init),
-                                    max_iteration=5, src_mask=t(sm), tgt_mask=t(tm))
+        got = ticp.registration_icp_batched(t(src), t(tgt), 0.1, init=t(init),
+                                            max_iteration=5, src_mask=t(sm),
+                                            tgt_mask=t(tm))
         np.testing.assert_array_equal(got.transformation[0].numpy(), init[0])
         assert float(got.fitness[0]) == 0.0
 
@@ -199,3 +202,89 @@ class TestICP:
         np.testing.assert_allclose(got[2].numpy(), want[2], atol=2e-2)
         re_i, te_i = tmetrics.transformation_error(t(init), t(gt))
         assert (got[1] <= re_i + 1e-6).all() and (got[2] <= te_i + 1e-6).all()
+
+
+class TestICPSingle:
+    """The unbatched ``registration_icp`` (host loop with Open3D's early
+    exit, unbatched bounded NN) against the JAX package's unbatched
+    ``registration_icp`` and against the port's batched loop."""
+
+    def test_one_step_matches_jax(self):
+        src, tgt, sm, tm, gt, init = _icp_batch(B=2, seed=4)
+        for b in range(2):
+            step, _, _ = ticp._make_icp_fns(
+                t(src[b:b + 1]), t(tgt[b:b + 1]), t(sm[b:b + 1]), t(tm[b:b + 1]),
+                ticp._f32_square(0.1), 1e-6, 1e-6, nn=nn_cuda.nn_bounded_single)
+            T_new, fit, rmse = step(t(init[b:b + 1]))
+            jstep, _, _ = jicp._make_icp_fns(
+                jnp.asarray(src[b]), jnp.asarray(tgt[b]), jnp.asarray(sm[b]),
+                jnp.asarray(tm[b]), jnp.float32(0.1) ** 2, 1e-6, 1e-6, True)
+            wT, wf, wr = jstep(jnp.asarray(init[b]))
+            np.testing.assert_allclose(T_new[0].numpy(), wT, atol=1e-5, rtol=0)
+            np.testing.assert_allclose(float(fit[0]), float(wf), atol=1e-5)
+            np.testing.assert_allclose(float(rmse[0]), float(wr), atol=1e-5)
+
+    @pytest.mark.parametrize("max_iteration", [3, 30])
+    def test_trajectory_matches_jax_and_batched(self, max_iteration):
+        src, tgt, sm, tm, gt, init = _icp_batch(seed=5)
+        init[1] = gt[1]  # starts converged: breaks early
+        batched = ticp.registration_icp_batched(
+            t(src), t(tgt), 0.1, init=t(init), max_iteration=max_iteration,
+            src_mask=t(sm), tgt_mask=t(tm))
+        for b in range(src.shape[0]):
+            want = jicp.registration_icp(
+                jnp.asarray(src[b]), jnp.asarray(tgt[b]), 0.1, init=jnp.asarray(init[b]),
+                max_iteration=max_iteration, src_mask=jnp.asarray(sm[b]),
+                tgt_mask=jnp.asarray(tm[b]))
+            got = ticp.registration_icp(t(src[b]), t(tgt[b]), 0.1, init=t(init[b]),
+                                        max_iteration=max_iteration,
+                                        src_mask=t(sm[b]), tgt_mask=t(tm[b]))
+            assert got.transformation.shape == (4, 4) and got.iterations.dim() == 0
+            for ref in (want, _lane(batched, b)):
+                np.testing.assert_allclose(got.transformation.numpy(),
+                                           ref.transformation, atol=2e-2, rtol=0)
+                assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+                assert abs(float(got.fitness) - float(ref.fitness)) <= 2e-2
+                assert abs(float(got.inlier_rmse) - float(ref.inlier_rmse)) <= 2e-2
+            assert int(got.iterations) <= max_iteration
+            if max_iteration == 30 and b == 1:
+                assert int(got.iterations) < 30
+
+    def test_masked_tgt_rows_never_match(self):
+        """Masked tgt rows placed exactly on the GT-posed source change
+        nothing, in either loop: they are never correspondences."""
+        src, tgt, sm, tm, gt, init = _icp_batch(B=2, seed=8)
+        bait = tgt.copy()
+        bait[:, -10:] = (src @ gt[:, :3, :3].transpose(0, 2, 1) + gt[:, None, :3, 3])[:, :10]
+        assert not tm[:, -10:].any()
+        for b in range(2):
+            a, c = (ticp.registration_icp(t(src[b]), t(x[b]), 0.1, init=t(init[b]),
+                                          src_mask=t(sm[b]), tgt_mask=t(tm[b]))
+                    for x in (tgt, bait))
+            assert all(torch.equal(u, v) for u, v in zip(a, c))
+        a, c = (ticp.registration_icp_batched(t(src), t(x), 0.1, init=t(init),
+                                              src_mask=t(sm), tgt_mask=t(tm))
+                for x in (tgt, bait))
+        assert all(torch.equal(u, v) for u, v in zip(a, c))
+        assert float(a.fitness.min()) > 0.5
+
+    def test_defaults_and_no_inliers(self):
+        src, tgt, sm, tm, gt, init = _icp_batch(B=1, seed=6)
+        far = init[0].copy()
+        far[:3, 3] += 50.0
+        got = ticp.registration_icp(t(src[0]), t(tgt[0]), 0.1, init=t(far),
+                                    max_iteration=4, src_mask=t(sm[0]), tgt_mask=t(tm[0]))
+        np.testing.assert_array_equal(got.transformation.numpy(), far)
+        assert float(got.fitness) == 0.0
+        # No init, no masks: identity start over every point.
+        want = jicp.registration_icp(jnp.asarray(src[0]), jnp.asarray(src[0]), 0.1,
+                                     max_iteration=5)
+        got = ticp.registration_icp(t(src[0]), t(src[0]), 0.1, max_iteration=5)
+        np.testing.assert_allclose(got.transformation.numpy(), want.transformation,
+                                   atol=1e-5)
+        assert int(got.iterations) == int(want.iterations)
+
+
+def _lane(res, b):
+    """Lane ``b`` of a batched ICPResult."""
+    return ticp.ICPResult(*(x[b] for x in res))

@@ -173,10 +173,50 @@ class TestAttentionBlock:
             np.testing.assert_allclose(g_fused, g_plain, rtol=1e-5, atol=1e-6)
 
     def test_fusable_block_rule(self):
-        assert attn_cuda.fusable_block(256, 1024, 8, torch.bfloat16)
-        assert not attn_cuda.fusable_block(256, 1024, 8, torch.float32)
-        assert not attn_cuda.fusable_block(128, 512, 8, torch.bfloat16)
-        assert not attn_cuda.fusable_block(512, 2048, 16, torch.bfloat16)
+        fusable = lambda *a: attn_cuda.jax_fusable_block(*a) and attn_cuda.kernels_take(*a)
+        assert fusable(256, 1024, 8, torch.bfloat16)
+        assert fusable(128, 512, 8, torch.bfloat16)
+        assert not fusable(256, 1024, 8, torch.float32)
+        assert not fusable(256, 1024, 16, torch.bfloat16)
+        assert not fusable(512, 2048, 16, torch.bfloat16)
+        # The JAX rule alone admits fp32 and other head splits.
+        assert attn_cuda.jax_fusable_block(128, 512, 8, torch.float32)
+        assert attn_cuda.jax_fusable_block(256, 1024, 16, torch.bfloat16)
+        assert not attn_cuda.jax_fusable_block(512, 2048, 16, torch.bfloat16)
+
+    @pytest.mark.parametrize("L,S", [(128, 128), (100, 200)])
+    def test_fused_plain_versions_match_pallas_kernels_d128(self, rng, L, S):
+        """The hint-free width (d 128, 8 heads of 16): the fused path's
+        plain versions against the Pallas kernels in interpret mode, fp32."""
+        xq, xkv, qm, km, params = _block_args(rng, B=2, L=L, S=S, d=128, hid=512)
+        W = _weights(params)
+        want = j_attention_block(jnp.asarray(xq), jnp.asarray(xkv), jnp.asarray(qm),
+                                 jnp.asarray(km), *map(jnp.asarray, W), num_heads=8,
+                                 dtype=jnp.float32, norm_dtype=jnp.float32,
+                                 use_pallas=True, interpret=True)
+        got = attn_cuda.attention_block_fused(
+            t(xq), t(xkv), t(qm), t(km), *map(t, W), num_heads=8,
+            dtype=torch.float32, norm_dtype=torch.float32)
+        assert_rel(got.numpy(), want, rows=qm)
+        KV, ksum = attn_cuda.attn_stats(t(xkv), t(km).float(), t(W[1]), t(W[2]),
+                                        num_heads=8)
+        assert KV.shape == (2, 8, 16, 16) and ksum.shape == (2, 128)
+
+    @pytest.mark.parametrize("mode", ["self", "cross"])
+    def test_plain_block_d128_matches_flax_module(self, rng, mode):
+        xq, xkv, qm, km, params = _block_args(rng, B=2, L=40, S=56, d=128, hid=512)
+        if mode == "self":
+            xkv, km = xq, qm
+        jblk = JAttentionBlock(d_model=128, num_heads=8, ffn_mult=4,
+                               fused_tail=False, fused_attn=False)
+        jx, jkv = jnp.asarray(xq), jnp.asarray(xkv)
+        want = jblk.apply({"params": params}, jx, jkv, jkv, jnp.asarray(qm),
+                          jnp.asarray(km))
+        blk = AttentionBlock(128, 8, 4, fused_attn=False)
+        blk.load_state_dict(params_from_jax(params))
+        tkv = t(xkv)
+        got = blk(t(xq), tkv, tkv, t(qm), t(km))
+        assert_rel(got.detach().numpy(), want, rows=qm)
 
     def test_cpu_default_dispatch_is_plain_body(self, rng, monkeypatch):
         calls = []
@@ -188,6 +228,75 @@ class TestAttentionBlock:
         assert not calls
         AttentionBlock(256, 8, 4, fused_attn=True)(x, x, x)
         assert calls == [1]
+
+
+class TestCudaRouting:
+    """The block's decision on CUDA tensors, built here by patching the
+    routing predicate: where the JAX package runs a Pallas kernel on the TPU
+    the port runs its CUDA kernels or raises, never the plain body in the
+    kernel's place, unless the caller asks for the plain body."""
+
+    @pytest.fixture
+    def cuda_like(self, monkeypatch):
+        from scream_tpu_torch.models import attention
+
+        monkeypatch.setattr(attention, "_on_cuda", lambda x: True)
+        calls = []
+        monkeypatch.setattr(attn_cuda, "attention_block_fused",
+                            lambda *a, **k: calls.append(k["num_heads"]) or a[0])
+        return calls
+
+    @staticmethod
+    def _run(d, heads, dtype=torch.bfloat16, **kw):
+        blk = AttentionBlock(d, heads, 4, dtype=dtype, **kw)
+        x = torch.zeros((1, 4, d))
+        return blk(x, x, x)
+
+    @pytest.mark.parametrize("d", [128, 256])
+    def test_kernel_shapes_run_the_fused_kernels(self, cuda_like, d):
+        self._run(d, 8)
+        assert cuda_like == [8]
+
+    @pytest.mark.parametrize("d,heads,dtype", [(128, 8, torch.float32),
+                                               (256, 8, torch.float32),
+                                               (256, 16, torch.bfloat16),
+                                               (384, 8, torch.bfloat16)])
+    def test_admitted_shapes_the_kernels_do_not_take_raise(self, cuda_like, d, heads,
+                                                           dtype):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            self._run(d, heads, dtype)
+        assert not cuda_like
+
+    def test_tail_kernel_shapes_raise(self, cuda_like):
+        """d 512: the fused block is out of the JAX rule's budget, the TPU
+        runs its tail kernel, which is not ported."""
+        with pytest.raises(NotImplementedError, match="tail"):
+            self._run(512, 16)
+        # fused_attn=True with separate k and v: the unfused body, whose tail
+        # the TPU runs as its kernel.
+        blk = AttentionBlock(256, 8, 4, dtype=torch.bfloat16, fused_attn=True)
+        x = torch.zeros((1, 4, 256))
+        with pytest.raises(NotImplementedError, match="tail"):
+            blk(x, x, x.clone())
+        assert not cuda_like
+
+    def test_explicit_plain_requests_run_the_plain_body(self, cuda_like):
+        out = self._run(512, 16, fused_tail=False)
+        assert out.shape == (1, 4, 512)
+        self._run(512, 16, fused_attn=False)
+        self._run(256, 8, fused_attn=False)
+        self._run(128, 8, torch.float32, fused_attn=False)
+        assert not cuda_like
+
+    def test_shapes_without_a_tpu_kernel_run_the_plain_body(self, cuda_like):
+        """d 1024: neither JAX rule holds, so the TPU runs XLA there too."""
+        assert self._run(1024, 8).shape == (1, 4, 1024)
+        assert not cuda_like
+
+    def test_model_config_reaches_the_blocks(self):
+        _, tc = small_cfgs(fused_attention=False, fused_block_tail=False)
+        blk = PointTransformer(tc, device="cpu").trunk.stem_0
+        assert blk.fused_attn is False and blk.fused_tail is False
 
 
 def _init_jax(jcfg, N=40, M=48, B=2, seed=0):

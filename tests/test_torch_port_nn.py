@@ -1,7 +1,9 @@
 """The port's distance and nearest-neighbour search against the JAX package
-on the CPU: the plain pairwise functions, and the two NN kernels' wrappers
+on the CPU: the plain pairwise functions, and the NN kernels' wrappers
 (which run their plain versions for CPU tensors) against the Pallas kernels
-in interpret mode.
+in interpret mode: exact NN, the batched bounded NN against each TPU tiling
+of it (fine, coarse ``fine=False``, grouped ``SCREAM_NN_DSTGROUP=4``), and
+its unbatched B=1 launch against ``_bounded_impl``.
 
 Bars: exact NN gives identical indices on inputs without near-ties and
 equal winner coordinates; bounded NN gives equal coordinates for every point
@@ -141,8 +143,8 @@ class TestBoundedNN:
                                       jnp.asarray(thresh_sq), jnp.asarray(mask),
                                       jnp.asarray(dead), interpret=True)
         wd, wx = np.asarray(wd), np.asarray(wx)
-        gd, gx = nn_cuda.nearest_neighbor_bounded(t(src), t(dst), float(thresh_sq),
-                                                  t(mask), dead=t(dead))
+        gd, gx = nn_cuda.nearest_neighbor_bounded_batched(
+            t(src), t(dst), float(thresh_sq), t(mask), dead=t(dead))
         gd, gx = gd.numpy(), gx.numpy()
         # Ground truth: the exact NN over valid dst rows.
         ed, _, ex = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
@@ -179,3 +181,82 @@ class TestBoundedNN:
         assert (d[0] == nn_cuda.NO_HIT).all() and (xyz[0] == 0).all()
         ed, ei = nn_cuda.nn_exact(t(src), t(dst))
         np.testing.assert_array_equal(d[1].numpy(), ed[1].numpy())
+
+
+def _assert_bounded_contract(gd, gx, wd, wx, src, exact_d, exact_x, thresh_sq, dead):
+    """Equal winners and distances (1e-6 of |s|^2 + |d|^2) within the
+    threshold, both sides > thresh outside it, dead lanes at the sentinel."""
+    within = (exact_d < thresh_sq) & ~dead[:, None]
+    assert within.sum() > 50 and (~within & ~dead[:, None]).sum() > 10
+    np.testing.assert_array_equal(gx[within], wx[within])
+    np.testing.assert_array_equal(gx[within], exact_x[within])
+    assert_dist_close(gd[within], wd[within], src[within], wx[within])
+    outside = ~within & ~dead[:, None]
+    assert (gd[outside] >= thresh_sq).all() and (wd[outside] >= thresh_sq).all()
+    assert (gd[dead] == nn_cuda.NO_HIT).all() and (wd[dead] == nn_cuda.NO_HIT).all()
+    assert (gx[dead] == 0).all()
+
+
+class TestBoundedNNSingle:
+    """Kernel 6: the unbatched bounded NN (the B=1 launch of the bounded
+    kernel) against ``_bounded_impl`` in interpret mode, the TPU's
+    ``_nn_bounded_kernel`` with its whole-block (1024 x 256) pruning."""
+
+    @pytest.mark.parametrize("N,M,dead", [(1100, 700, False), (700, 1300, False),
+                                          (300, 257, True)])
+    def test_contract_vs_pallas_kernel(self, rng, N, M, dead):
+        src, dst = _sorted_scene(rng, 1, N, M)
+        src, dst = src[0], dst[0]
+        mask = rng.random(M) > 0.1
+        thresh_sq = np.float32(0.01)
+        jd = jnp.asarray(dead) if dead else None
+        wd, wx = jnn._bounded_impl(jnp.asarray(src), jnp.asarray(dst),
+                                   jnp.asarray(thresh_sq), jnp.asarray(mask), jd,
+                                   interpret=True, tile_n=1024, tile_m=256)
+        gd, gx = nn_cuda.nearest_neighbor_bounded(
+            t(src), t(dst), float(thresh_sq), t(mask),
+            dead=torch.tensor(dead) if dead else None)
+        assert gd.shape == (N,) and gx.shape == (N, 3)
+        ed, _, ex = nn_cuda.nearest_neighbor_full(t(src[None]), t(dst[None]), t(mask[None]))
+        lane_dead = np.array([dead])
+        if dead:  # every lane at the sentinel; the contract check needs live points
+            assert (gd.numpy() == nn_cuda.NO_HIT).all() and (np.asarray(wd) == nn_cuda.NO_HIT).all()
+            assert (gx.numpy() == 0).all() and (np.asarray(wx) == 0).all()
+            return
+        _assert_bounded_contract(gd.numpy()[None], gx.numpy()[None], np.asarray(wd)[None],
+                                 np.asarray(wx)[None], src[None], ed.numpy(), ex.numpy(),
+                                 thresh_sq, lane_dead)
+
+    def test_single_equals_batched_lane(self, rng):
+        """The unbatched wrapper is lane 0 of the batched one, bit for bit."""
+        src, dst = _sorted_scene(rng, 1, 600, 500)
+        a = nn_cuda.nearest_neighbor_bounded(t(src[0]), t(dst[0]), 0.01)
+        b = nn_cuda.nn_bounded(t(src), t(dst), 0.01)
+        assert torch.equal(a[0], b[0][0]) and torch.equal(a[1], b[1][0])
+
+
+class TestBoundedNNTilings:
+    """Kernels 7 and 8: the TPU's coarse (``fine=False``) and grouped
+    (``SCREAM_NN_DSTGROUP=4``) tilings of the batched bounded NN compute the
+    function the port's ``nn_bounded`` computes (one kernel serves all)."""
+
+    @pytest.mark.parametrize("variant", ["coarse", "dstgroup4"])
+    def test_contract_vs_pallas_variant(self, rng, monkeypatch, variant):
+        B, N, M = 3, 1500, 1300
+        src, dst = _sorted_scene(rng, B, N, M)
+        mask = rng.random((B, M)) > 0.1
+        dead = np.array([False, True, False])
+        thresh_sq = np.float32(0.01)
+        kw = dict(interpret=True)
+        if variant == "coarse":
+            kw["fine"] = False
+        else:
+            monkeypatch.setenv("SCREAM_NN_DSTGROUP", "4")
+        wd, wx = jnn._bounded_batched(jnp.asarray(src), jnp.asarray(dst),
+                                      jnp.asarray(thresh_sq), jnp.asarray(mask),
+                                      jnp.asarray(dead), **kw)
+        gd, gx = nn_cuda.nearest_neighbor_bounded_batched(
+            t(src), t(dst), float(thresh_sq), t(mask), dead=t(dead))
+        ed, _, ex = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
+        _assert_bounded_contract(gd.numpy(), gx.numpy(), np.asarray(wd), np.asarray(wx),
+                                 src, ed.numpy(), ex.numpy(), thresh_sq, dead)
