@@ -31,7 +31,18 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
 9. serving times (ungated): ``register_pairs`` pairs/s at 8 x 512 and
    8 x 4,096, ``register_pair`` latency at 512 and 4,096 points, the robust
    latency, and the stage times of one pass;
-10. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+10. path 3, the GAN training step (``threedmatch_presets`` with
+    ``use_gan``: full-width generator from the seeded random init, the
+    shipped discriminator ``scream_tpu_torch/weights/discriminator``):
+    the splat kernel against its plain version at the 3DMatch shape
+    (48 images x 8,192 points x 64 x 64, rho 24) and the KITTI GAN shape
+    (8 back views x 16,384 points, rho 48), forward, argmax and VJP; one
+    generator step (GAN on) and one discriminator step on the card and on
+    the CPU path (2 pairs x 1,024 points); the shipped discriminator's mean
+    logits on real and fake renders (8 pairs x 512 points) on both; then
+    timed training at 8 pairs x 4,096 points, G + D iterations and G-only
+    steps, pairs/s, stage times and launches (splat, stats, apply > 0);
+11. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -55,6 +66,16 @@ GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED = 16, 448, 100  # measure_gt_free.py
 SERVE_BATCH, SERVE_PAIRS = 8, 64  # the README's serving shape: 8 x 512
 TRANSFORM_TOL = 5e-2  # card vs CPU path, per transform entry (bf16 forward)
 PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
+PATH2_KERNELS = PATH1_KERNELS + ("nn_bounded_single",)
+# Path 3: threedmatch_presets() (batch 8, max_points 4,096) with use_gan;
+# KITTI's max_points 8,192 for the KITTI GAN render shape.
+TRAIN_B, TRAIN_CAP, KITTI_CAP = 8, 4096, 8192
+TRAIN_ITERS = 5  # timed iterations per mode, after one warm-up
+DISC = os.path.join("scream_tpu_torch", "weights", "discriminator")
+PATH3_KERNELS = ("attn_stats", "attn_apply", "max_splat")
+# fp32 operations per (point, pixel) pair of the splat: cross 3, d^2 4
+# (add, 2x, sub, max), scale 1, exp 1, two products, two compares.
+SPLAT_OPS_PER_PAIR = 13
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 OUT_DIR = "chiprun_out"
@@ -134,11 +155,11 @@ def phase_build():
         log(f"  ptxas: {ln}")
 
 
-def make_batches(n_batches, seed):
+def make_batches(n_batches, seed, batch=B, n_src=N_SRC, n_tgt=N_TGT, cap=CAP):
     from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
 
-    ds = SyntheticPairDataset(length=B * n_batches, n_src=N_SRC, n_tgt=N_TGT, seed=seed)
-    return list(PairLoader(ds, batch_size=B, src_capacity=CAP, tgt_capacity=CAP,
+    ds = SyntheticPairDataset(length=batch * n_batches, n_src=n_src, n_tgt=n_tgt, seed=seed)
+    return list(PairLoader(ds, batch_size=batch, src_capacity=cap, tgt_capacity=cap,
                            num_workers=8, prefetch=4))
 
 
@@ -154,10 +175,11 @@ def oracle_pred(batch, noise, seed, device):
     return torch.as_tensor(pred.astype(np.float32), device=device)
 
 
-def check_attention(blk, m_bool, suffix=""):
+def check_attention(blk, m_bool, suffix="", x=None):
     """Kernels 1 and 2 against their plain versions on the card, for the
-    attention block ``blk`` on inputs of ``m_bool``'s shape (B, L); and the
-    whole fused block against the literal plain block. Returns records."""
+    attention block ``blk`` on the bf16 input ``x`` (B, L, d), seeded random
+    if None, with the mask ``m_bool`` (B, L); and the whole fused block
+    against the literal plain block. Returns records."""
     import torch
 
     from scream_tpu_torch.ops import attn_cuda
@@ -169,7 +191,9 @@ def check_attention(blk, m_bool, suffix=""):
     hid = d * blk.ffn_mult
     g = torch.Generator(device=dev).manual_seed(0)
     Bx, L = m_bool.shape
-    x = torch.randn((Bx, L, d), generator=g, device=dev).to(bf)
+    if x is None:
+        x = torch.randn((Bx, L, d), generator=g, device=dev).to(bf)
+    x = x.to(bf).contiguous()
     m = m_bool.float().contiguous()
     c = lambda w: w.detach().to(bf).contiguous()
     p = lambda w: w.detach().float().contiguous()
@@ -618,7 +642,7 @@ def phase_gt_free(model, model_cpu, normalize, pairs):
         t0 = time.perf_counter()
         card[name] = (run(model, DEV), time.perf_counter() - t0)
     counts = launch_counts()
-    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in PATH2_KERNELS), f"a kernel was not launched: {counts}")
 
     n_tol = 2 / 16
     for name, run in apis:
@@ -753,6 +777,329 @@ def phase_serving_times(model, normalize, pairs_512, pairs_4096):
     return out
 
 
+def gt_aligned(tb):
+    """The GT-aligned source of a batch: what the discriminator step renders
+    as "real"."""
+    from scream_tpu_torch.pipeline.register import gt_aligned_src
+
+    return gt_aligned_src(tb["src"], tb["rot"], tb["trans"])
+
+
+def phase_kernels_train(model, batch):
+    """Kernels 1 and 2 at the training path's shape against their plain
+    versions: ``model``'s first block on its real input from the training
+    batch (8 pairs x 4,096 points, d 256; the target's self-attention, as
+    the generator step's forward first calls it), under path 1's bars."""
+    import torch
+
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+
+    tb = to_device(batch, DEV)
+    seen = []
+    hook = model.trunk.stem_0.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].detach(), args[3])) if not seen else None)
+    try:
+        with torch.no_grad():
+            model(tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                  gt_center_hint(tb["rot"], tb["trans"]))
+    finally:
+        hook.remove()
+    x, m_bool = seen[0]
+    records = check_attention(model.trunk.stem_0, m_bool, suffix="_train", x=x)
+    log_records(records)
+    return records
+
+
+def check_splat(batch, rcfg, name):
+    """The splat kernel against its plain version on the card at one render
+    shape: the batch's GT-aligned source (plus 0.01 noise) beside its target
+    under ``rcfg``'s views. Forward images within 1e-4 and 0 argmax
+    mismatches; the VJP with respect to the points through the renderer
+    (kernel route, argmax backward, vs the plain renderer under autograd)
+    within 1e-3 of the largest gradient (``selftest.py``'s bars). Returns a
+    record."""
+    import torch
+
+    from scream_tpu_torch.ops import render, splat_cuda
+    from scream_tpu_torch.pipeline.register import to_device
+
+    dev = torch.device(DEV)
+    tb = to_device(batch, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    src = gt_aligned(tb) + 0.01 * torch.randn(tb["src"].shape, generator=g, device=dev)
+    views = render.view_matrices(rcfg.multi_view, rcfg.view_mode, dev)
+    with torch.no_grad():
+        xy, vals = render.splat_inputs(src, tb["tgt"], tb["src_mask"], tb["tgt_mask"], views)
+        xy, vals = xy.contiguous(), vals.contiguous()
+        img, arg = splat_cuda.splat_forward(xy, vals, rcfg.rho, rcfg.width)
+        img_p, arg_p = splat_cuda.max_splat_plain(xy, vals, rcfg.rho, rcfg.width)
+    torch.cuda.synchronize()
+    fwd_err = float((img - img_p).abs().max())
+    mism = int((arg != arg_p).sum())
+    zero_share = float((img_p == 0).float().mean())
+
+    # VJP through the renderer, as selftest.py measures it.
+    kw = dict(rho=rcfg.rho, width=rcfg.width, multi_view=rcfg.multi_view,
+              view_mode=rcfg.view_mode)
+    grads = []
+    for use_pallas in (True, False):
+        p = src.clone().requires_grad_(True)
+        q = tb["tgt"].clone().requires_grad_(True)
+        out = render.render_depth_images(p, q, tb["src_mask"], tb["tgt_mask"],
+                                         use_pallas=use_pallas, **kw)
+        cot = torch.cos(torch.arange(out.numel(), device=dev, dtype=torch.float32)
+                        * 0.01).reshape(out.shape)
+        grads.append(torch.autograd.grad(out, (p, q), cot))
+    torch.cuda.synchronize()
+    vjp_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(*grads))
+    check(fwd_err < 1e-4 and mism == 0 and vjp_err < 1e-3,
+          f"{name}: forward error {fwd_err:.3g} (bar 1e-4), {mism} argmax mismatches, "
+          f"VJP relative error {vjp_err:.3g} (bar 1e-3)")
+    ms = cuda_ms(lambda: splat_cuda.splat_forward(xy, vals, rcfg.rho, rcfg.width))
+    with torch.no_grad():
+        pms = cuda_ms(lambda: splat_cuda.max_splat_plain(xy, vals, rcfg.rho, rcfg.width),
+                      reps=3)
+    I, N = xy.shape[0], xy.shape[1]
+    P = rcfg.width * rcfg.width
+    b_ms, b_by = bound(I * N * 16 + I * 2 * P * 8,
+                       [(SPLAT_OPS_PER_PAIR * I * N * P, PEAK_FP32)])
+    log(f"kernel {name} ({I} images x {N} points x {rcfg.width}^2, rho {rcfg.rho:g}): "
+        f"argmax mismatches {mism} (bar 0), VJP rel err {vjp_err:.3e} (bar 1e-3), "
+        f"all-zero pixel share {zero_share:.3f}")
+    return dict(name=name, err=fwd_err, max_abs_err=fwd_err, ms=ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by, bar="1e-4 abs, 0 argmax mismatches",
+                route="cuda", source="scream_tpu_torch/csrc/splat.cu",
+                replaces="scream_tpu/ops/splat_pallas.py:36")
+
+
+def phase_splat(batch_3dm, batch_kitti):
+    """Kernel 9 at the 3DMatch GAN shape and the KITTI GAN shape."""
+    from scream_tpu_torch.config import RenderConfig, kitti_gan_render_config
+
+    records = [check_splat(batch_3dm, RenderConfig(), "max_splat"),
+               check_splat(batch_kitti, kitti_gan_render_config(), "max_splat_kitti")]
+    log_records(records)
+    return records
+
+
+def gan_steps(device, init_state, batch, fake=None):
+    """One generator step with the GAN on and one discriminator step on
+    ``device``, from the generator weights ``init_state`` and the shipped
+    discriminator; the discriminator scores ``fake`` if given, else the
+    generator step's render. Returns the step's outputs on the CPU."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops.render import render_from_config
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (DiscState, discriminator_optimizer,
+                                        generator_optimizer, init_train_state,
+                                        make_disc_logit_fn, make_discriminator_step,
+                                        make_registration_train_step)
+    from scream_tpu_torch.utils.checkpoint import load_discriminator
+
+    tcfg, rcfg = TrainConfig(use_gan=True), RenderConfig()
+    model = PointTransformer(ModelConfig(), device=device)
+    model.load_state_dict(init_state)
+    disc = load_discriminator(DISC, device)
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    step = make_registration_train_step(model, use_gan=tcfg.use_gan,
+                                        disc_apply=make_disc_logit_fn(), render_cfg=rcfg,
+                                        gan_weight=tcfg.gan_weight)
+    tb = to_device(batch, device)
+    _, metrics, fake_g = step(init_train_state(opt, sched), tb, disc)
+    gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters()))
+    with torch.no_grad():
+        real = render_from_config(gt_aligned(tb), tb["tgt"], rcfg, tb["src_mask"],
+                                  tb["tgt_mask"])
+    fake = fake_g if fake is None else fake.to(device)
+    dstate = DiscState(disc, discriminator_optimizer(disc.parameters(), tcfg))
+    _, d_loss = make_discriminator_step(rcfg)(dstate, fake, tb["src"], tb["tgt"],
+                                              tb["src_mask"], tb["tgt_mask"], tb["rot"],
+                                              tb["trans"])
+    out = {k: float(v) for k, v in metrics.items()}
+    out.update(grad_norm=float(gnorm), d_loss=float(d_loss), fake=fake_g.cpu(),
+               real=real.cpu(), bn3_var=disc.bn_3.running_var.cpu())
+    return out
+
+
+def phase_train_card_vs_cpu(init_state, batch):
+    """Path 3 on the card against the port's CPU path (bf16 plain bodies):
+    one GAN generator step and one discriminator step at full width on
+    2 pairs x 1,024 points. Bars: real renders (the same points, kernel vs
+    plain) 1e-4; the discriminator step on the same fake images: d_loss and
+    the BatchNorm running variance 1e-4 relative (fp32 convolutions without
+    TF32 on both); the generator step, whose bf16 forward rounds at other
+    places in the fused kernels than in the plain body (the forward's bar
+    is 5e-2): point_loss 2e-2 relative, g_loss within 5e-2 (1 + |g_loss|),
+    the gradient norm 5e-2 relative, the fake renders 5e-2 in mean."""
+    import torch
+
+    log(f"tf32: torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32} (set by scream_tpu_torch: the "
+        f"discriminator's fp32 convolutions run in full fp32)")
+    card = gan_steps(DEV, init_state, batch)
+    cpu = gan_steps("cpu", init_state, batch, fake=card["fake"])
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    real_err = float((card["real"] - cpu["real"]).abs().max())
+    fake_mean = float((card["fake"] - cpu["fake"]).abs().mean())
+    fake_max = float((card["fake"] - cpu["fake"]).abs().max())
+    var_err = float(((card["bn3_var"] - cpu["bn3_var"]).abs().max()
+                     / cpu["bn3_var"].abs().max()))
+    errs = dict(point_loss=rel(card["point_loss"], cpu["point_loss"]),
+                g_loss=abs(card["g_loss"] - cpu["g_loss"]) / (1 + abs(cpu["g_loss"])),
+                grad_norm=rel(card["grad_norm"], cpu["grad_norm"]),
+                d_loss=rel(card["d_loss"], cpu["d_loss"]))
+    finite = all(math.isfinite(v) for d in (card, cpu) for k, v in d.items()
+                 if isinstance(v, float))
+    check(finite and real_err <= 1e-4 and errs["d_loss"] <= 1e-4 and var_err <= 1e-4
+          and errs["point_loss"] <= 2e-2 and errs["g_loss"] <= 5e-2
+          and errs["grad_norm"] <= 5e-2 and fake_mean <= 5e-2,
+          f"path 3 card vs CPU path: real renders {real_err:.3g}, fake renders mean "
+          f"{fake_mean:.3g}, bn var {var_err:.3g}, {errs}, finite {finite}")
+    log(f"path 3 GAN step card vs CPU path (full width, 2 x 1,024): point_loss "
+        f"{card['point_loss']:.6f} / {cpu['point_loss']:.6f} (rel {errs['point_loss']:.2e}, "
+        f"bar 2e-2), g_loss {card['g_loss']:.6f} / {cpu['g_loss']:.6f} "
+        f"({errs['g_loss']:.2e}, bar 5e-2), grad norm {card['grad_norm']:.6f} / "
+        f"{cpu['grad_norm']:.6f} (rel {errs['grad_norm']:.2e}, bar 5e-2), d_loss "
+        f"{card['d_loss']:.6f} / {cpu['d_loss']:.6f} (rel {errs['d_loss']:.2e}, bar 1e-4), "
+        f"bn_3 running var rel {var_err:.2e} (bar 1e-4), real renders max "
+        f"{real_err:.2e} (bar 1e-4), fake renders mean {fake_mean:.2e} (bar 5e-2) max "
+        f"{fake_max:.2e}")
+
+
+def phase_disc_separation(model, batch):
+    """The shipped discriminator's mean logits (batch-stats mode, as the
+    generator step queries it) on real renders (GT-aligned source) and fake
+    renders (``model``'s prediction, computed once on the card) of 8 pairs
+    x 512 points, on the card and on the CPU path: the card within 1e-3 of
+    the CPU path; real > fake on the card wherever the CPU path shows it
+    (the JAX package shows it on the same pairs,
+    ``scripts/torch_port_disc_separation.py``)."""
+    import torch
+
+    from scream_tpu_torch.config import RenderConfig
+    from scream_tpu_torch.models import images_to_nhwc
+    from scream_tpu_torch.ops.render import render_from_config
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+    from scream_tpu_torch.utils.checkpoint import load_discriminator
+
+    tb = to_device(batch, DEV)
+    with torch.no_grad():
+        pred = model(tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                     gt_center_hint(tb["rot"], tb["trans"])).float()
+    out = {}
+    for device in (DEV, "cpu"):
+        b = to_device(batch, device)
+        disc = load_discriminator(DISC, device)
+        with torch.no_grad():
+            for kind, pts in (("real", gt_aligned(b)), ("fake", pred.to(device))):
+                imgs = render_from_config(pts, b["tgt"], RenderConfig(), b["src_mask"],
+                                          b["tgt_mask"])
+                logits = disc(images_to_nhwc(imgs), train=True, update_stats=False)
+                out[(device, kind)] = float(logits.mean())
+    diff = max(abs(out[(DEV, k)] - out[("cpu", k)]) for k in ("real", "fake"))
+    check(diff <= 1e-3, f"shipped discriminator card vs CPU path: mean logits {out}")
+    if out[("cpu", "real")] > out[("cpu", "fake")]:
+        check(out[(DEV, "real")] > out[(DEV, "fake")],
+              f"shipped discriminator: real <= fake on the card: {out}")
+    log(f"path 3 shipped discriminator (8 x 512, batch-stats mode): mean logit real "
+        f"{out[(DEV, 'real')]:.4f} vs fake {out[(DEV, 'fake')]:.4f} on the card, "
+        f"{out[('cpu', 'real')]:.4f} vs {out[('cpu', 'fake')]:.4f} on the CPU path "
+        f"(max diff {diff:.2e}, bar 1e-3)")
+
+
+def run_training(model, disc, batches, use_gan):
+    """Timed training iterations at full width on distinct batches (the
+    first a warm-up): generator steps with the GAN on, each followed by a
+    discriminator step, or generator steps alone. Losses come to the host
+    every iteration. Returns (pairs/s, launch counts, stage ms, losses)."""
+    import torch
+
+    from scream_tpu_torch.config import RenderConfig, TrainConfig
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (DiscState, discriminator_optimizer,
+                                        generator_optimizer, init_train_state,
+                                        make_disc_logit_fn, make_discriminator_step,
+                                        make_registration_train_step)
+
+    tcfg, rcfg = TrainConfig(use_gan=use_gan), RenderConfig()
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    state = init_train_state(opt, sched)
+    gstep = make_registration_train_step(model, use_gan=tcfg.use_gan,
+                                         disc_apply=make_disc_logit_fn(), render_cfg=rcfg,
+                                         gan_weight=tcfg.gan_weight)
+    dstate = DiscState(disc, discriminator_optimizer(disc.parameters(), tcfg))
+    dstep = make_discriminator_step(rcfg)
+    tbs = [to_device(b, DEV) for b in batches]
+    events = []
+
+    def one(tb, timed):
+        nonlocal state, dstate
+        ev = {"start": torch.cuda.Event(enable_timing=True)}
+        ev["start"].record()
+
+        def hook(name):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+
+        state, metrics, fake = gstep(state, tb, disc, hook)
+        losses = {k: float(v) for k, v in metrics.items()}
+        if tcfg.use_gan:
+            dstate, d_loss = dstep(dstate, fake, tb["src"], tb["tgt"], tb["src_mask"],
+                                   tb["tgt_mask"], tb["rot"], tb["trans"])
+            hook("d_step")
+            losses["d_loss"] = float(d_loss)
+        if timed:
+            events.append(ev)
+        return losses
+
+    one(tbs[0], False)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [one(tb, True) for tb in tbs[1:]]
+    elapsed = time.perf_counter() - t0
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    names = [n for n in events[0] if n != "start"]
+    stages = {}
+    for i, n in enumerate(names):
+        prev = "start" if i == 0 else names[i - 1]
+        stages[n] = sum(e[prev].elapsed_time(e[n]) for e in events) / len(events)
+    finite = all(math.isfinite(v) for d in losses for v in d.values()) and all(
+        bool(torch.isfinite(p).all()) for m in (model, disc) for p in m.parameters())
+    check(finite, f"training use_gan={use_gan}: a loss or a parameter is not finite")
+    return TRAIN_B * len(losses) / elapsed, counts, stages, losses
+
+
+def phase_training(model, disc, batches):
+    """Path 3's main path: timed GAN iterations (G + D), then timed G-only
+    steps (the default recipe), at 8 pairs x 4,096 points."""
+    n = TRAIN_ITERS + 1
+    pps, counts, stages, losses = run_training(model, disc, batches[:n], True)
+    iters = len(losses)
+    check(all(counts[k] > 0 for k in PATH3_KERNELS),
+          f"path 3: a kernel of the training path was not launched: {counts}")
+    per_iter = {k: v / iters for k, v in counts.items()}
+    log(f"path 3 training, GAN on, {TRAIN_B} x {TRAIN_CAP}, full width: {pps:.2f} pairs/s "
+        f"over {iters} iterations (G + D step) | stage ms (CUDA events) "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} | launches per "
+        f"iteration {json.dumps(per_iter)} | last losses {json.dumps(losses[-1])} | all finite")
+    pps_off, _, stages_off, losses_off = run_training(model, disc, batches[n:2 * n], False)
+    log(f"path 3 training, GAN off, {TRAIN_B} x {TRAIN_CAP}: {pps_off:.2f} pairs/s over "
+        f"{len(losses_off)} G steps | stage ms "
+        f"{json.dumps({k: round(v, 3) for k, v in stages_off.items()})} | last losses "
+        f"{json.dumps(losses_off[-1])}")
+    return counts, dict(train_pairs_per_s_gan=pps, train_pairs_per_s_no_gan=pps_off,
+                        train_stage_ms_gan=stages, train_stage_ms_no_gan=stages_off,
+                        train_launches_per_iteration_gan=per_iter)
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -784,19 +1131,41 @@ def main():
     phase_cli(hf, normalize, pairs[1])
     serving = phase_serving_times(hf, normalize, pairs_512, pairs_4096)
 
+    # Path 3: the GAN training step at full width with the shipped
+    # discriminator, from path 1's seeded random init.
+    from scream_tpu_torch.utils.checkpoint import load_discriminator
+
+    gen = PointTransformer(ModelConfig(), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().cpu().clone() for k, v in gen.state_dict().items()}
+    train_batches = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
+                                 cap=TRAIN_CAP)
+    kitti = make_batches(1, seed=600, batch=TRAIN_B, n_src=8000, n_tgt=8000, cap=KITTI_CAP)
+    records += phase_kernels_train(gen, train_batches[-1])
+    records += phase_splat(train_batches[-1], kitti[0])
+    small = {k: v[:2, :1024] if v.ndim > 1 and v.shape[1] == TRAIN_CAP else v[:2]
+             for k, v in train_batches[-1].items()}
+    phase_train_card_vs_cpu(init_state, small)
+    phase_disc_separation(gen, make_batches(1, seed=700, batch=TRAIN_B, n_src=512,
+                                            n_tgt=512, cap=512)[0])
+    train_counts, training = phase_training(gen, load_discriminator(DISC, DEV),
+                                            train_batches[:-1])
+
     # Launches: each row from the run of the path that gives it its shape.
-    path_of = {"attn_stats": counts, "attn_apply": counts, "nn_exact": counts,
-               "nn_bounded": counts}
-    wrapper_of = {"attn_stats_d128": "attn_stats", "attn_apply_d128": "attn_apply",
-                  "nn_bounded_single": "nn_bounded_single"}
+    launches_of = {
+        "attn_stats": counts["attn_stats"], "attn_apply": counts["attn_apply"],
+        "nn_exact": counts["nn_exact"], "nn_bounded": counts["nn_bounded"],
+        "attn_stats_d128": serve_counts["attn_stats"],
+        "attn_apply_d128": serve_counts["attn_apply"],
+        "nn_bounded_single": serve_counts["nn_bounded_single"],
+        "attn_stats_train": train_counts["attn_stats"],
+        "attn_apply_train": train_counts["attn_apply"],
+        "max_splat": train_counts["max_splat"]}
     kernels = []
     for r in records:
-        if r["name"] in path_of:
-            launches = path_of[r["name"]][r["name"]]
-        elif r["name"] in wrapper_of:
-            launches = serve_counts[wrapper_of[r["name"]]]
-        else:
-            continue  # extra shapes (the ICP subsample, B=1 at 4,096), logged above
+        if r["name"] not in launches_of:
+            continue  # extra shapes (the ICP subsample, B=1 at 4,096, KITTI GAN), logged above
+        launches = launches_of[r["name"]]
         kernels.append({
             "name": r["name"], "status": "ported, within its bar",
             "route": r["route"], "source": r["source"],
@@ -806,7 +1175,8 @@ def main():
         })
     log(json.dumps({"pairs_per_s": pps, "pairs_per_s_icp_subsampled": pps_sub,
                     "launches_icp_subsampled": counts_sub,
-                    "launches_gt_free_serving": serve_counts, **serving}))
+                    "launches_gt_free_serving": serve_counts, **serving,
+                    "launches_training_gan": train_counts, **training}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

@@ -29,12 +29,7 @@ from torch import nn
 
 from scream_tpu_torch.ops import attn_cuda
 from scream_tpu_torch.ops.ffn import jax_fusable_tail, tail_plain
-
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    """The routing predicate of :meth:`AttentionBlock._use_fused`: whether a
-    block's input lies on a CUDA device (the CPU tests patch it)."""
-    return x.is_cuda
+from scream_tpu_torch.utils import device as device_util
 
 
 def sinusoidal_pe(
@@ -157,7 +152,7 @@ class AttentionBlock(nn.Module):
                      and k.shape[-1] == self.d_model)
         if self.fused_attn and shared_kv:
             return True
-        if self.fused_attn is False or not _on_cuda(q):
+        if self.fused_attn is False or not device_util.on_cuda(q):
             return False
         hid = self.d_model * self.ffn_mult
         if self.fused_attn is None and shared_kv and attn_cuda.jax_fusable_block(

@@ -23,6 +23,7 @@ from torch import nn
 from scream_tpu_torch.config import ModelConfig
 from scream_tpu_torch.models.attention import AttentionBlock, sinusoidal_pe
 from scream_tpu_torch.ops.ffn import _ln
+from scream_tpu_torch.pipeline.register import gt_aligned_src
 from scream_tpu_torch.utils.device import resolve_device
 
 
@@ -130,3 +131,15 @@ class PointTransformer(nn.Module):
             src_center = (src * m).sum(1, keepdim=True) / torch.clamp_min(
                 m.sum(1, keepdim=True), 1.0)
         return self.trunk(src, tgt, src_mask, tgt_mask, src_center)
+
+    @staticmethod
+    def loss(src_pred, src, rot_gt, trans_gt, src_mask=None):
+        """Masked mean per-point L1 to the GT-transformed source: sum |.|
+        over xyz, mean over valid points, mean over the batch (reference
+        ``models/pointnet.py:93-99``)."""
+        l1 = torch.abs(src_pred - gt_aligned_src(src, rot_gt, trans_gt)).sum(-1)  # (B, N)
+        if src_mask is None:
+            return l1.mean()
+        m = src_mask.to(l1.dtype)
+        per_item = (l1 * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
+        return per_item.mean()

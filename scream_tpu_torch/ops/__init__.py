@@ -3,16 +3,19 @@
 * ``attn_cuda``: the fused attention block (stats + apply kernels).
 * ``nn_cuda``: exact NN (pose solve), batched bounded NN (batched ICP) and
   its unbatched launch (single-pair ICP).
+* ``splat_cuda``: the depth renderer's two-channel Gaussian max-splat
+  (``render`` is the renderer around it).
 * ``ffn``: the plain block tail the unfused attention body uses.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); :func:`reset_launch_counts` zeroes them all.
 """
 
-from scream_tpu_torch.ops import attn_cuda, nn_cuda
+from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda
 
 WRAPPERS = (attn_cuda.attn_stats, attn_cuda.attn_apply,
-            nn_cuda.nn_exact, nn_cuda.nn_bounded, nn_cuda.nn_bounded_single)
+            nn_cuda.nn_exact, nn_cuda.nn_bounded, nn_cuda.nn_bounded_single,
+            splat_cuda.max_splat)
 
 
 def reset_launch_counts() -> None:

@@ -97,6 +97,7 @@ def _declare(lib) -> None:
         "scream_attn_apply": [P] * 13 + [I, I, I, I, F, F, P],
         "scream_nn_exact": [P, P, P, P, I, I, I, P],
         "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
+        "scream_max_splat": [P, P, P, P, I, I, I, F, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -107,6 +107,26 @@ def solve_pose(src, src_pred, tgt, src_mask, tgt_mask, scale, center,
     return PoseSolution(T, valid.sum(-1))
 
 
+def in_forward_transform(src, src_pred, filt, src_mask, filt_mask, scale,
+                         dis_thresh: float = 0.075) -> torch.Tensor:
+    """The training-time pose estimate in the *normalized* frame (reference
+    ``models/pointnet.py:67-74``): exact NN of ``src_pred/s`` in ``filt/s``
+    (the GT-aligned source), valid iff the squared distance is below
+    ``dis_thresh``, then Kabsch of ``src[valid]`` onto the winners scaled
+    back by ``s``. Returns ``(B, 4, 4)``."""
+    inv_s = (1.0 / scale)[:, None, None]
+    nn_d2, _, nn_xyz = nearest_neighbor_full(src_pred * inv_s, filt * inv_s, filt_mask)
+    valid = (nn_d2 < dis_thresh) & src_mask
+    partner = nn_xyz * scale[:, None, None]
+    return kabsch(src, partner, weights=valid.float())
+
+
+def gt_aligned_src(src, rot, trans):
+    """The source under its GT transform, ``R src + t`` ``(B, N, 3)``: the
+    point loss's target and what the discriminator step renders as real."""
+    return torch.einsum("bij,bnj->bni", rot, src) + trans.transpose(-1, -2)
+
+
 def gt_center_hint(rot, trans, mode: str = "trans"):
     """The GT-derived ``src_center`` hint the protocols feed the model,
     ``(B, 1, 3)``: ``t`` for 3DMatch (``"trans"``, reference

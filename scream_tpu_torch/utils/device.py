@@ -18,3 +18,10 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """The auto routes' predicate, shared by the attention blocks and the
+    renderer: whether ``x`` lies on a CUDA device (the CPU tests patch it
+    to build CUDA routing)."""
+    return x.is_cuda

@@ -9,10 +9,19 @@ goes to numpy, ``scream_tpu_torch.utils.convert.params_from_jax`` flattens
 the tree, and the port's ``save_params`` writes it in fp32 with the sidecar
 copied unchanged.
 
+``--discriminator`` converts the shipped PatchGAN instead: its orbax
+checkpoint (``params`` + ``batch_stats``) is read into the tree of a
+``PatchDiscriminator(input_nc=2)``, and
+``scream_tpu_torch.utils.convert.discriminator_from_jax`` maps it to the
+port's names and torch's conv layout; the sidecar holds the constructor
+arguments.
+
 Usage (from the repository root):
     python scripts/torch_port_convert_params.py \
         [--src params/point-generator-hintfree] \
         [--dst scream_tpu_torch/weights/point-generator-hintfree]
+    python scripts/torch_port_convert_params.py --discriminator \
+        [--src params/discriminator] [--dst scream_tpu_torch/weights/discriminator]
 """
 
 from __future__ import annotations
@@ -49,19 +58,48 @@ def convert(src: str):
     return params_from_jax(tree), sidecar
 
 
+DISC_ARGS = {"input_nc": 2, "ndf": 64, "n_layers": 3}
+
+
+def convert_discriminator(src: str):
+    """``(state_dict, sidecar)`` of the orbax discriminator at ``src``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from scream_tpu.models.gan import PatchDiscriminator
+    from scream_tpu.utils.checkpoint import load_params
+    from scream_tpu_torch.utils.convert import discriminator_from_jax
+
+    disc = PatchDiscriminator(**DISC_ARGS)
+    init = disc.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, DISC_ARGS["input_nc"])),
+                     train=False)
+    variables = load_params(src, {"params": init["params"],
+                                  "batch_stats": init["batch_stats"]})
+    tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), variables)
+    return discriminator_from_jax(tree), dict(DISC_ARGS)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default="params/point-generator-hintfree",
-                    help="orbax checkpoint directory with model_config.json")
-    ap.add_argument("--dst", default="scream_tpu_torch/weights/point-generator-hintfree",
-                    help="output directory of the torch checkpoint")
+    ap.add_argument("--discriminator", action="store_true",
+                    help="convert the PatchGAN discriminator")
+    ap.add_argument("--src", default=None,
+                    help="orbax checkpoint directory (default params/point-generator-"
+                         "hintfree, or params/discriminator)")
+    ap.add_argument("--dst", default=None,
+                    help="output directory of the torch checkpoint (default under "
+                         "scream_tpu_torch/weights/)")
     args = ap.parse_args(argv)
+    name = "discriminator" if args.discriminator else "point-generator-hintfree"
+    args.src = args.src or os.path.join("params", name)
+    args.dst = args.dst or os.path.join("scream_tpu_torch", "weights", name)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from scream_tpu_torch.utils.checkpoint import save_params
 
-    state, sidecar = convert(args.src)
+    state, sidecar = (convert_discriminator if args.discriminator else convert)(args.src)
     save_params(args.dst, state, sidecar)
     n = sum(v.numel() for v in state.values())
     print(json.dumps({"src": args.src, "dst": args.dst, "tensors": len(state),

@@ -5,6 +5,7 @@ Usage, from the repository root on a machine with an NVIDIA GPU:
 
     python3 scripts/torch_port_profile.py [--icp-subsample 1024]
     python3 scripts/torch_port_profile.py --gt-free
+    python3 scripts/torch_port_profile.py --train
 
 Default: ``register_batch`` at the bench shape (16 pairs x 4,096 points,
 full-width model from a seeded random init, 30 ICP iterations). It prints,
@@ -18,6 +19,15 @@ for one batch after a warm-up:
 ``register_pair(passes=2)`` of a 448-point pair and one ``register_pairs``
 batch of 8 such pairs (capacity 512), each profiled the same way after a
 warm-up.
+
+``--train``: one GAN training iteration at full width (the 3DMatch preset
+with ``use_gan``: 8 pairs x 4,096 points, seeded random generator, the
+shipped discriminator): the generator step then the discriminator step,
+stage times by CUDA events and the host wall time of one iteration, the
+kernel breakdown of the next under the profiler, after a warm-up iteration,
+each on its own batch; and the device's busy share of an unprofiled
+iteration: the profiled iteration's device time over the unprofiled one's
+wall time (the profiler's own per-launch cost inflates its wall).
 
 It writes the profiler tables to ``chiprun_out/torch_port_profile.txt``.
 """
@@ -34,7 +44,8 @@ B, CAP, N_SRC, N_TGT = 16, 4096, 3840, 4032
 
 def kernel_table(prof, wall_ms, label):
     """Print the device time by kernel name, the busy share of ``wall_ms``
-    and the launch count; append the profiler table to the output file."""
+    and the launch count; append the profiler table to the output file.
+    Returns the busy time in ms."""
     import torch
 
     # Kernels only: an operator row's "self" device time repeats the time of
@@ -58,6 +69,7 @@ def kernel_table(prof, wall_ms, label):
         f.write(f"{label}\n")
         f.write(prof.key_averages().table(row_limit=40))
         f.write("\n")
+    return busy
 
 
 def profile_gt_free():
@@ -97,10 +109,77 @@ def profile_gt_free():
         kernel_table(prof, wall_ms, label)
 
 
+def profile_train():
+    """One GAN training iteration (G step + D step) at full width."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (DiscState, discriminator_optimizer,
+                                        generator_optimizer, init_train_state,
+                                        make_disc_logit_fn, make_discriminator_step,
+                                        make_registration_train_step)
+    from scream_tpu_torch.utils.checkpoint import load_discriminator
+
+    b_train = 8
+    ds = SyntheticPairDataset(length=3 * b_train, n_src=N_SRC, n_tgt=N_TGT, seed=1)
+    batches = [to_device(b, "cuda") for b in
+               PairLoader(ds, batch_size=b_train, src_capacity=CAP, num_workers=8)]
+    model = PointTransformer(ModelConfig(), device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    disc = load_discriminator(os.path.join("scream_tpu_torch", "weights", "discriminator"),
+                              "cuda")
+    tcfg, rcfg = TrainConfig(use_gan=True), RenderConfig()
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    state = init_train_state(opt, sched)
+    gstep = make_registration_train_step(model, use_gan=True,
+                                         disc_apply=make_disc_logit_fn(), render_cfg=rcfg)
+    dstate = DiscState(disc, discriminator_optimizer(disc.parameters(), tcfg))
+    dstep = make_discriminator_step(rcfg)
+
+    def iteration(tb, hook=None):
+        nonlocal state, dstate
+        state, metrics, fake = gstep(state, tb, disc, hook)
+        dstate, d_loss = dstep(dstate, fake, tb["src"], tb["tgt"], tb["src_mask"],
+                               tb["tgt_mask"], tb["rot"], tb["trans"])
+        if hook is not None:
+            hook("d_step")
+        return float(metrics["loss"]), float(d_loss)  # losses to the host
+
+    iteration(batches[0])  # warm-up
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def hook(name):
+        events.append((name, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    t0 = time.perf_counter()
+    iteration(batches[1], hook)  # ends with the losses on the host
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"device: {torch.cuda.get_device_name(0)} | GAN training iteration, "
+          f"{b_train} x {CAP}, full width")
+    print("stages (ms, CUDA events): " + ", ".join(
+        f"{n} {a.elapsed_time(b):.2f}" for (_, a), (n, b) in zip(events, events[1:])))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        iteration(batches[2])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = kernel_table(prof, wall_ms, "GAN training iteration (G step + D step)")
+    print(f"unprofiled iteration wall {plain_wall_ms:.2f} ms: device busy share "
+          f"{100 * busy / plain_wall_ms:.1f} % (profiled device time over it)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--icp-subsample", type=int, default=None)
     ap.add_argument("--gt-free", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -116,6 +195,9 @@ def main():
         raise SystemExit("torch_port_profile: needs a CUDA GPU")
     if args.gt_free:
         profile_gt_free()
+        return
+    if args.train:
+        profile_train()
         return
     ds = SyntheticPairDataset(length=3 * B, n_src=N_SRC, n_tgt=N_TGT, seed=1)
     batches = list(PairLoader(ds, batch_size=B, src_capacity=CAP, num_workers=8))

@@ -191,7 +191,7 @@ class TestPackageRules:
         assert resolve_device("cpu") == torch.device("cpu")
 
     def test_kernel_wrappers_reject_other_devices(self):
-        from scream_tpu_torch.ops import attn_cuda, nn_cuda
+        from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda
 
         x = torch.empty((1, 4, 3), device="meta")
         with pytest.raises(ValueError):
@@ -203,6 +203,8 @@ class TestPackageRules:
         with pytest.raises(ValueError):
             attn_cuda.attn_stats(torch.empty((1, 4, 256), device="meta"),
                                  None, None, None, num_heads=8)
+        with pytest.raises(ValueError):
+            splat_cuda.max_splat(x[..., :2], x[..., :2], 24.0, 64)
 
 
 class TestBuild:
@@ -222,7 +224,7 @@ class TestBuild:
         assert p == _build.library_path()
         assert p.parent == _build.BUILD_DIR
         assert "build" in p.parts and p.suffix == ".so"
-        assert {s.name for s in _build._sources()} == {"attn.cu", "nn.cu"}
+        assert {s.name for s in _build._sources()} == {"attn.cu", "nn.cu", "splat.cu"}
 
     def test_launch_counters_reset(self):
         from scream_tpu_torch import ops
@@ -232,5 +234,5 @@ class TestBuild:
         ops.reset_launch_counts()
         assert set(ops.launch_counts().values()) == {0}
         assert sorted(ops.launch_counts()) == ["attn_apply", "attn_stats",
-                                               "nn_bounded", "nn_bounded_single",
-                                               "nn_exact"]
+                                               "max_splat", "nn_bounded",
+                                               "nn_bounded_single", "nn_exact"]

@@ -238,9 +238,9 @@ class TestCudaRouting:
 
     @pytest.fixture
     def cuda_like(self, monkeypatch):
-        from scream_tpu_torch.models import attention
+        from scream_tpu_torch.utils import device as device_util
 
-        monkeypatch.setattr(attention, "_on_cuda", lambda x: True)
+        monkeypatch.setattr(device_util, "on_cuda", lambda x: True)
         calls = []
         monkeypatch.setattr(attn_cuda, "attention_block_fused",
                             lambda *a, **k: calls.append(k["num_heads"]) or a[0])
