@@ -42,7 +42,19 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     logits on real and fake renders (8 pairs x 512 points) on both; then
     timed training at 8 pairs x 4,096 points, G + D iterations and G-only
     steps, pairs/s, stage times and launches (splat, stats, apply > 0);
-11. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+11. path 4, OpenGF training (``opengf_presets()`` at d_model 512: 8 heads
+    of 64, 6 + 6 layers, separate stems, seeded random init, GAN off), where
+    every attention block runs the tail kernel: ``csrc/tail.cu`` against its
+    plain version on the first DSM and coarse-DEM stem blocks' real tail
+    inputs (8 x 8,192 and 8 x 1,024), forward and gradients, and at d 256 on
+    path 1's batch through ``ModelConfig(fused_attention=False)``; the
+    kernel forward against the literal plain forward; one
+    ``make_dem_train_step`` on the card and on the CPU path (2 x 1,024);
+    timed training through ``DEMTrainer.train_epoch`` at 8 x 8,192
+    (patches/s, stage times, launches: ``block_tail`` > 0), ``evaluate``,
+    save / restore / one more step on both; then the ``train`` CLI in
+    subprocesses (``opengf --d-model 512``, its ``--resume``, ``3dmatch``);
+12. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -73,6 +85,11 @@ TRAIN_B, TRAIN_CAP, KITTI_CAP = 8, 4096, 8192
 TRAIN_ITERS = 5  # timed iterations per mode, after one warm-up
 DISC = os.path.join("scream_tpu_torch", "weights", "discriminator")
 PATH3_KERNELS = ("attn_stats", "attn_apply", "max_splat")
+# Path 4: opengf_presets() (batch 8, max_points 8,192) at d_model 512; the
+# coarse DEM at the CLI's max(cap // 8, 64) capacity.
+DEM_D, DEM_B, DEM_CAP, DEM_COARSE = 512, 8, 8192, 1024
+DEM_ITERS = 5  # timed iterations, after one warm-up
+WORK_DIR = os.path.join("build", "chip_smoke_work")  # checkpoints; removed at the end
 # fp32 operations per (point, pixel) pair of the splat: cross 3, d^2 4
 # (add, 2x, sub, max), scale 1, exp 1, two products, two compares.
 SPLAT_OPS_PER_PAIR = 13
@@ -414,7 +431,7 @@ def phase_forward(model, batch):
     from scream_tpu_torch.models import PointTransformer
     from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
 
-    plain = PointTransformer(ModelConfig(fused_attention=False),
+    plain = PointTransformer(ModelConfig(fused_attention=False, fused_block_tail=False),
                              device="cuda")
     plain.load_state_dict(model.state_dict())
     tb = to_device({k: v[:2, :1024] if v.ndim > 1 and v.shape[1] == CAP else v[:2]
@@ -1100,6 +1117,396 @@ def phase_training(model, disc, batches):
                         train_launches_per_iteration_gan=per_iter)
 
 
+def dem_config():
+    """``opengf_presets()`` at d_model 512: the model config and the train
+    config (batch 8, GAN off)."""
+    import dataclasses
+
+    from scream_tpu_torch.config import opengf_presets
+
+    model_cfg, train_cfg, _, _ = opengf_presets()
+    return dataclasses.replace(model_cfg, d_model=DEM_D), train_cfg
+
+
+def make_dem_items(n_batches, seed, batch=DEM_B, points=DEM_CAP):
+    """``n_batches`` lists of ``batch`` ``make_dem_patch`` patches (``points``
+    DSM/DEM points, points // 16 coarse), made on the host."""
+    import numpy as np
+
+    from scream_tpu_torch.data import make_dem_patch
+
+    rng = np.random.default_rng(seed)
+    return [[make_dem_patch(rng, n_dsm=points, n_dem=points) for _ in range(batch)]
+            for _ in range(n_batches)]
+
+
+def dem_batch(items, cap=DEM_CAP, coarse=DEM_COARSE):
+    from scream_tpu_torch.data import collate_dem
+
+    return collate_dem(items, cap, cap, coarse)
+
+
+def tail_inputs(model, block, args):
+    """The tail input (x, q) and the row mask of ``block`` on ``model(*args)``:
+    a pre-hook takes the block's input q and mask; x is the block's plain
+    attention message of it."""
+    import torch
+
+    seen = []
+    hook = block.register_forward_pre_hook(
+        lambda mod, a: seen.append((a[0].detach(), a[3])) if not seen else None)
+    try:
+        with torch.no_grad():
+            model(*args)
+            q, m_bool = seen[0]
+            x = block.message(q, q, q, m_bool, m_bool)
+    finally:
+        hook.remove()
+    return x, q, m_bool
+
+
+def check_tail(block, x, q, m_bool, suffix=""):
+    """The tail kernel against its plain version on the card, on the block's
+    weights and the real input (x, q): the forward within 1e-2 of the
+    largest output on the valid rows (one bf16 ulp at the output scale, the
+    apply kernel's bar); the gradients with respect to x, q and the seven
+    weights through ``_FusedTail`` against those through ``tail_plain``,
+    same upstream gradient, each within 3e-2 of its largest (the TPU
+    selftest's tail bar). Returns a record."""
+    import torch
+
+    from scream_tpu_torch.ops import tail_cuda
+    from scream_tpu_torch.ops.ffn import tail_plain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    w = [t.detach() for t in (block.merge.kernel, block.norm1.scale, block.norm1.bias,
+                              block.ffn_in.kernel, block.ffn_out.kernel,
+                              block.norm2.scale, block.norm2.bias)]
+    kern = lambda *a: tail_cuda.block_tail(*a, dtype=bf, norm_dtype=f32)
+    plain = lambda *a: tail_plain(*a, cd=bf, nd=f32, eps=1e-5)
+    with torch.no_grad():
+        out, ref = kern(x, q, *w), plain(x, q, *w)
+    torch.cuda.synchronize()
+    err = rel_err(out, ref, rows=m_bool)
+    abs_err = float((out.float() - ref.float())[m_bool].abs().max())
+    g = torch.Generator(device=DEV).manual_seed(4)
+    up = (torch.randn(out.shape, generator=g, device=DEV) * m_bool[..., None]).to(bf)
+    grads = []
+    for fn in (kern, plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, q, *w)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, up))
+    torch.cuda.synchronize()
+    g_err = max(rel_err(a, b) for a, b in zip(*grads))
+    check(err <= 1e-2 and g_err <= 3e-2 and bool(torch.isfinite(out.float()).all()),
+          f"block_tail{suffix}: forward relative error {err:.3g} (bar 1e-2), gradient "
+          f"relative error {g_err:.3g} (bar 3e-2)")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kern(x, q, *w))
+        pms = cuda_ms(lambda: plain(x, q, *w))
+    d, hid = x.shape[-1], w[3].shape[1]
+    R = x.numel() // d
+    b_ms, b_by = bound((3 * R * d + d * d + 2 * d * hid) * 2 + 4 * d * 4,
+                       [(2 * R * d * (d + 2 * hid), PEAK_BF16)])
+    log(f"kernel block_tail{suffix} (d {d}, {tuple(x.shape[:-1])} rows): gradient rel err "
+        f"{g_err:.3e} (bar 3e-2)")
+    return dict(name="block_tail" + suffix, err=err, max_abs_err=abs_err, ms=ms,
+                plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="1e-2 rel", route="cuda",
+                source="scream_tpu_torch/csrc/tail.cu",
+                replaces="scream_tpu/ops/ffn_pallas.py:86")
+
+
+def phase_kernels_dem(model, batch, path1_model, path1_batch):
+    """The tail kernel on the first DSM stem block's real tail input
+    (8 x 8,192, d 512) and the first coarse-DEM stem block's (8 x 1,024);
+    then at d 256 through ``ModelConfig(fused_attention=False)`` with path
+    1's weights on path 1's batch, whose forward must run the tail kernel in
+    all 24 blocks (the JAX package's rule) and the fused kernels in none."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+
+    tb = to_device(batch, DEV)
+    args = (tb["dsm"], tb["dem_coarse"], tb["dsm_mask"], tb["dem_coarse_mask"])
+    records = [check_tail(model.trunk.stem_src_0, *tail_inputs(
+                   model, model.trunk.stem_src_0, args)),
+               check_tail(model.trunk.stem_tgt_0, *tail_inputs(
+                   model, model.trunk.stem_tgt_0, args), suffix="_coarse")]
+
+    unfused = PointTransformer(ModelConfig(fused_attention=False), device=DEV)
+    unfused.load_state_dict(path1_model.state_dict())
+    pb = to_device(path1_batch, DEV)
+    pargs = (pb["src"], pb["tgt"], pb["src_mask"], pb["tgt_mask"],
+             gt_center_hint(pb["rot"], pb["trans"]))
+    reset_launch_counts()
+    with torch.no_grad():
+        unfused(*pargs)
+    counts = launch_counts()
+    check(counts["block_tail"] == 24 and counts["attn_apply"] == 0,
+          f"ModelConfig(fused_attention=False) at d 256: launches {counts}, expected "
+          "24 tail kernels and no fused block")
+    records.append(check_tail(unfused.trunk.stem_0, *tail_inputs(
+        unfused, unfused.trunk.stem_0, pargs), suffix="_d256"))
+    log(f"fused_attention=False at d 256 ({B} x {CAP}): one forward launched "
+        f"{counts['block_tail']} tail kernels, {counts['attn_apply']} fused blocks")
+    log_records(records)
+    return records
+
+
+def phase_dem_forward(model, batch):
+    """The DEM forward through the tail kernel (fused_block_tail None)
+    against the literal plain forward (fused_block_tail False), same
+    weights, bf16 on the card, on the valid DSM rows: 5e-2 (the fused-block
+    bar)."""
+    import dataclasses
+
+    import torch
+
+    from scream_tpu_torch.models import DEMTransformer
+    from scream_tpu_torch.pipeline.register import to_device
+
+    plain = DEMTransformer(dataclasses.replace(model.cfg, fused_block_tail=False),
+                           device=DEV)
+    plain.load_state_dict(model.state_dict())
+    tb = to_device(batch, DEV)
+    args = (tb["dsm"], tb["dem_coarse"], tb["dsm_mask"], tb["dem_coarse_mask"])
+    with torch.no_grad():
+        a, b = model(*args), plain(*args)
+    del plain
+    err = rel_err(a, b, rows=tb["dsm_mask"])
+    check(math.isfinite(err) and err <= 5e-2, f"DEM forward kernel vs plain: {err:.3g} > 5e-2")
+    log(f"path 4 DEM forward ({DEM_B} x {DEM_CAP}, d {DEM_D}): tail kernel vs plain body "
+        f"rel_err {err:.3e} (bar 5e-2)")
+
+
+def dem_step(device, init_state, batch):
+    """One ``make_dem_train_step`` (GAN off) on ``device`` from the weights
+    ``init_state``: (point_loss, gradient norm)."""
+    import torch
+
+    from scream_tpu_torch.models import DEMTransformer
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (generator_optimizer, init_train_state,
+                                        make_dem_train_step)
+
+    model_cfg, tcfg = dem_config()
+    model = DEMTransformer(model_cfg, device=device)
+    model.load_state_dict(init_state)
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    _, metrics, _ = make_dem_train_step(model)(init_train_state(opt, sched),
+                                               to_device(batch, device))
+    gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters()))
+    return float(metrics["point_loss"]), float(gnorm)
+
+
+def phase_dem_card_vs_cpu(init_state, batch):
+    """Path 4 on the card against the port's CPU path (plain bodies, bf16):
+    one DEM step at full depth, d 512, 2 x 1,024 (coarse 128). Bars, path
+    3's: point_loss 2e-2 relative, the gradient norm 5e-2 relative."""
+    t0 = time.perf_counter()
+    card = dem_step(DEV, init_state, batch)
+    cpu = dem_step("cpu", init_state, batch)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    e_loss, e_grad = rel(card[0], cpu[0]), rel(card[1], cpu[1])
+    check(all(math.isfinite(v) for v in card + cpu) and e_loss <= 2e-2 and e_grad <= 5e-2,
+          f"path 4 card vs CPU path: point_loss {card[0]} / {cpu[0]}, grad norm "
+          f"{card[1]} / {cpu[1]}")
+    log(f"path 4 DEM step card vs CPU path (d {DEM_D}, 2 x 1,024, coarse 128): point_loss "
+        f"{card[0]:.6f} / {cpu[0]:.6f} (rel {e_loss:.2e}, bar 2e-2), grad norm "
+        f"{card[1]:.6f} / {cpu[1]:.6f} (rel {e_grad:.2e}, bar 5e-2) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+class ListData:
+    """A map-style dataset over items made up front."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def dem_loader(groups):
+    """A DEMLoader over the patch lists ``groups``, one batch each, in order."""
+    from scream_tpu_torch.data import DEMLoader
+
+    return DEMLoader(ListData([it for g in groups for it in g]), batch_size=DEM_B,
+                     dsm_capacity=DEM_CAP, dem_capacity=DEM_CAP,
+                     coarse_capacity=DEM_COARSE)
+
+
+def phase_dem_training(trainer, groups):
+    """Path 4's main path: ``DEMTrainer.train_epoch`` over 1 warm-up batch,
+    then over its own loader of DEM_ITERS distinct batches, timed (the host
+    reads the losses every iteration: ``log_every`` 1), stage times by CUDA
+    events and the kernels' launches; ``evaluate`` on two batches; then
+    save_state, restore_state into a trainer from another seed, and one more
+    step on both: loss and parameters within 1e-5 relative. Returns (launch
+    counts, results)."""
+    import shutil
+
+    import torch
+
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import DEMTrainer
+
+    timed_loader = trainer.train_loader
+    trainer.train_loader = dem_loader(groups[:1])
+    trainer.train_epoch(0)  # warm-up
+    trainer.train_loader = timed_loader
+    torch.cuda.synchronize()
+    events = []
+    step = trainer.train_step
+
+    def timed_step(state, batch, disc=None):
+        ev = {"start": torch.cuda.Event(enable_timing=True)}
+        ev["start"].record()
+
+        def hook(name):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+
+        out = step(state, batch, disc, hook)
+        events.append(ev)
+        return out
+
+    trainer.train_step = timed_step
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_epoch(1)
+    elapsed = time.perf_counter() - t0
+    counts = launch_counts()
+    trainer.train_step = step
+    torch.cuda.synchronize()
+    names = [n for n in events[0] if n != "start"]
+    stages = {n: sum(e["start" if i == 0 else names[i - 1]].elapsed_time(e[n])
+                     for e in events) / len(events) for i, n in enumerate(names)}
+    pps = DEM_B * len(events) / elapsed
+    check(len(events) == DEM_ITERS and counts["block_tail"] > 0
+          and all(math.isfinite(v) for v in losses.values()),
+          f"path 4 training: {len(events)} iterations, launches {counts}, losses {losses}")
+    per_iter = {k: v / DEM_ITERS for k, v in counts.items() if v}
+    log(f"path 4 training, opengf d {DEM_D}, {DEM_B} x {DEM_CAP} (coarse {DEM_COARSE}): "
+        f"{pps:.2f} patches/s over {DEM_ITERS} iterations ({elapsed / DEM_ITERS * 1e3:.1f} "
+        f"ms each) | stage ms (CUDA events) "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} | launches per iteration "
+        f"{json.dumps(per_iter)} | mean losses {json.dumps(losses)}")
+
+    t0 = time.perf_counter()
+    val = trainer.evaluate()
+    check(all(math.isfinite(v) for v in val.values()), f"path 4 evaluate: {val}")
+    log(f"path 4 evaluate ({len(trainer.val_loader)} x {DEM_B} patches): {json.dumps(val)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    state_dir = os.path.join(WORK_DIR, "dem_state")
+    trainer.save_state(state_dir)
+    other = DEMTrainer(trainer.train_loader, trainer.val_loader, model_cfg=trainer.model_cfg,
+                       train_cfg=trainer.train_cfg, device=DEV)
+    other.init(seed=1)
+    other.restore_state(state_dir)
+    shutil.rmtree(state_dir)
+    tb = to_device(dem_batch(groups[-1]), DEV)
+    outs = [float(t.train_step(t.state, tb)[1]["loss"]) for t in (trainer, other)]
+    p_err = max(rel_err(a.detach(), b.detach()) for a, b in zip(
+        other.model.parameters(), trainer.model.parameters()))
+    l_err = abs(outs[1] - outs[0]) / max(abs(outs[0]), 1e-30)
+    check(l_err <= 1e-5 and p_err <= 1e-5 and other.state.step == trainer.state.step,
+          f"path 4 resume: loss {outs}, parameter error {p_err:.3g}, steps "
+          f"{other.state.step} / {trainer.state.step}")
+    log(f"path 4 save_state -> restore_state into a seed-1 trainer -> one more step on "
+        f"both: loss {outs[0]:.6f} / {outs[1]:.6f} (rel {l_err:.1e}, bar 1e-5), parameters "
+        f"rel {p_err:.1e} (bar 1e-5), step {trainer.state.step}")
+    del other
+    return counts, dict(dem_train_patches_per_s=pps, dem_train_stage_ms=stages,
+                        dem_train_launches_per_iteration=per_iter, dem_val=val)
+
+
+def run_cli(args, label):
+    """``python -m scream_tpu_torch <args>`` in a subprocess: (final_val,
+    stdout, wall seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", *args],
+                          capture_output=True, text=True, timeout=400, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    final = json.loads(proc.stdout.strip().splitlines()[-1])["final_val"]
+    check(bool(final) and all(math.isfinite(v) for v in final.values()),
+          f"{label}: final_val {final}")
+    return final, proc.stdout, wall
+
+
+def phase_train_cli():
+    """The ``train`` CLI on the card, synthetic data: ``opengf --d-model 512
+    --epochs 2`` (4 steps and validation), then ``--resume --epochs 3``
+    (must resume at epoch 2), then ``3dmatch --epochs 2 --synthetic-pairs
+    16`` at the default width (the fused attention kernels; validation runs
+    register_batch with ICP)."""
+    import shutil
+
+    ck = os.path.join(WORK_DIR, "cli_opengf")
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["train", "opengf", "--d-model", str(DEM_D), "--checkpoint-dir", ck]
+    final, _, wall = run_cli(base + ["--epochs", "2"], "train opengf")
+    log(f"cli: train opengf --d-model {DEM_D} --epochs 2 ({wall:.1f} s): final_val "
+        f"{json.dumps(final)}")
+    final, out, wall = run_cli(base + ["--epochs", "3", "--resume"], "train opengf --resume")
+    check("resuming at epoch 2" in out, f"train --resume did not resume at epoch 2:\n{out}")
+    log(f"cli: train opengf --resume --epochs 3 ({wall:.1f} s): resumed at epoch 2, "
+        f"final_val {json.dumps(final)}")
+    ck3 = os.path.join(WORK_DIR, "cli_3dmatch")
+    shutil.rmtree(ck3, ignore_errors=True)
+    final, _, wall = run_cli(["train", "3dmatch", "--epochs", "2", "--synthetic-pairs", "16",
+                              "--checkpoint-dir", ck3], "train 3dmatch")
+    log(f"cli: train 3dmatch --epochs 2 --synthetic-pairs 16 ({wall:.1f} s): final_val "
+        f"{json.dumps(final)}")
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+def path4(path1_model, path1_batch):
+    """Path 4: OpenGF training at d_model 512. Returns (records, launch
+    counts of the timed training, results)."""
+    import dataclasses
+
+    import torch
+
+    from scream_tpu_torch.train import DEMTrainer
+
+    t0 = time.perf_counter()
+    model_cfg, train_cfg = dem_config()
+    groups = make_dem_items(DEM_ITERS + 2, seed=800)
+    small = dem_batch(make_dem_items(1, seed=1000, batch=2, points=1024)[0], cap=1024,
+                      coarse=128)
+    trainer = DEMTrainer(dem_loader(groups[1:1 + DEM_ITERS]),
+                         dem_loader(make_dem_items(2, seed=900)),
+                         model_cfg=model_cfg,
+                         train_cfg=dataclasses.replace(train_cfg, log_every=1), device=DEV)
+    trainer.init(seed=0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"path 4 model: d {DEM_D}, {model_cfg.num_heads} heads, {model_cfg.self_layers} + "
+        f"{model_cfg.cross_layers} layers, separate stems, {n_params:,} parameters")
+    check_batch = dem_batch(groups[-1])
+    records = phase_kernels_dem(trainer.model, check_batch, path1_model, path1_batch)
+    phase_dem_forward(trainer.model, check_batch)
+    init_state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    phase_dem_card_vs_cpu(init_state, small)
+    counts, results = phase_dem_training(trainer, groups[:-1])
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_cli()
+    log(f"path 4 took {time.perf_counter() - t0:.1f} s")
+    return records, counts, results
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1150,6 +1557,12 @@ def main():
                                             n_tgt=512, cap=512)[0])
     train_counts, training = phase_training(gen, load_discriminator(DISC, DEV),
                                             train_batches[:-1])
+    del gen
+    torch.cuda.empty_cache()
+
+    # Path 4: OpenGF training at d_model 512, every block on the tail kernel.
+    dem_records, dem_counts, dem_training = path4(model, batches[-1])
+    records += dem_records
 
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
@@ -1160,11 +1573,13 @@ def main():
         "nn_bounded_single": serve_counts["nn_bounded_single"],
         "attn_stats_train": train_counts["attn_stats"],
         "attn_apply_train": train_counts["attn_apply"],
-        "max_splat": train_counts["max_splat"]}
+        "max_splat": train_counts["max_splat"],
+        "block_tail": dem_counts["block_tail"]}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
-            continue  # extra shapes (the ICP subsample, B=1 at 4,096, KITTI GAN), logged above
+            continue  # extra shapes (the ICP subsample, B=1 at 4,096, KITTI GAN,
+            # the coarse DEM stem, the tail at d 256), logged above
         launches = launches_of[r["name"]]
         kernels.append({
             "name": r["name"], "status": "ported, within its bar",
@@ -1176,7 +1591,8 @@ def main():
     log(json.dumps({"pairs_per_s": pps, "pairs_per_s_icp_subsampled": pps_sub,
                     "launches_icp_subsampled": counts_sub,
                     "launches_gt_free_serving": serve_counts, **serving,
-                    "launches_training_gan": train_counts, **training}))
+                    "launches_training_gan": train_counts, **training,
+                    "launches_dem_training": dem_counts, **dem_training}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

@@ -1,9 +1,12 @@
-"""SCREAM-TPU's registration paths in PyTorch, with hand-written Hopper kernels.
+"""SCREAM-TPU's registration and ground-generation paths in PyTorch, with
+hand-written Hopper kernels.
 
 The PyTorch/CUDA port of :mod:`scream_tpu`: the protocol path
-(``pipeline.register_batch``) and GT-free serving (``register_pair``,
+(``pipeline.register_batch``), GT-free serving (``register_pair``,
 ``register_pairs``, the robust search, ``python -m scream_tpu_torch
-register``) with the shipped hint-free checkpoint under ``weights/``. It
+register``) with the shipped hint-free checkpoint under ``weights/``, and
+training (the GAN steps, ``train.RegistrationTrainer``,
+``train.DEMTrainer`` and ``python -m scream_tpu_torch train``). It
 mirrors the JAX package's layout and names (``scream_tpu_torch/geometry/icp.py``
 is the port of ``scream_tpu/geometry/icp.py``), imports ``torch`` and never
 ``jax``, and keeps its own copies of what it needs from the JAX package.

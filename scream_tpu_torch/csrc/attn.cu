@@ -48,15 +48,11 @@
 // contiguous, bf16 activations and weights ((in, out) row-major), fp32
 // masks, LayerNorm params and statistics.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "wmma_tile.cuh"
 
 namespace {
+
+using namespace scream;
 
 constexpr int H = 8;          // heads (both widths)
 constexpr int NT = 256;       // threads per block (8 warps)
@@ -65,84 +61,9 @@ constexpr int TS = 64;        // stats: sequence rows per tile
 constexpr int TA = 64;        // apply: query rows per block
 constexpr int HC = 128;       // apply: FFN hidden columns per chunk
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // elu(x) + 1 as where(x > 0, x + 1, exp(x)), in fp32 (attn_pallas._elu1).
 __device__ __forceinline__ float elu1(float v) {
   return v > 0.f ? v + 1.f : expf(v);
-}
-
-// Sum over aligned groups of W lanes (W = 32: the whole warp; W = 16: each
-// half-warp, the lanes of one head at head_dim 16).
-template <int W>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One warp's share of C (+)= A @ B: RF row fragments x CF column fragments.
-// A: shared memory, row-major, lda (points at the warp's first row and k=0).
-// B: global memory (L2-resident weights), row-major, ldb (points at k=0 and
-// the warp's first column). K is a multiple of 16.
-template <int RF, int CF>
-__device__ __forceinline__ void warp_mma(FragC (&acc)[RF][CF], const bf16* A,
-                                         int lda, const bf16* B, int ldb,
-                                         int K) {
-  for (int k = 0; k < K; k += 16) {
-    FragB fb[CF];
-#pragma unroll
-    for (int j = 0; j < CF; ++j)
-      wmma::load_matrix_sync(fb[j], B + (size_t)k * ldb + j * 16, ldb);
-#pragma unroll
-    for (int i = 0; i < RF; ++i) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, A + (size_t)i * 16 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < CF; ++j) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
-    }
-  }
-}
-
-template <int RF, int CF>
-__device__ __forceinline__ void warp_zero(FragC (&acc)[RF][CF]) {
-#pragma unroll
-  for (int i = 0; i < RF; ++i)
-#pragma unroll
-    for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-template <int RF, int CF>
-__device__ __forceinline__ void warp_store(FragC (&acc)[RF][CF], float* C,
-                                           int ldc) {
-#pragma unroll
-  for (int i = 0; i < RF; ++i)
-#pragma unroll
-    for (int j = 0; j < CF; ++j)
-      wmma::store_matrix_sync(C + (size_t)i * 16 * ldc + j * 16, acc[i][j], ldc,
-                              wmma::mem_row_major);
-}
-
-// Copy `rows` x D bf16 rows from global (row r0 on) into shared memory,
-// zero-filling rows at or beyond `limit`.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int rows, int limit) {
-  constexpr int per_row = D / 8;  // uint4 = 8 bf16
-  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
-    const int r = i / per_row, c = i % per_row;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      v = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D)[c];
-    reinterpret_cast<uint4*>(dst)[i] = v;
-  }
 }
 
 // Stats tiling at width D (head dim HD = D / 8). The projection of a TS-row
@@ -194,7 +115,7 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   float ks = 0.f;  // warp KV_W: K_sum column `lane` (lane < HD)
 
   for (int s0 = 0; s0 < S; s0 += TS) {
-    load_rows<D>(xs, xb, s0, TS, S);
+    load_rows<D, NT>(xs, xb, s0, TS, S);
     __syncthreads();
 
     FragC pacc[C::RF][1];
@@ -258,26 +179,6 @@ struct Apply {
   static_assert(D >= HC && NT % D == 0 && 32 % HD == 0 && TA % RP == 0, "tiling");
 };
 
-// LayerNorm of one row held by one warp (lane owns columns lane + 32 k),
-// flax math: fp32 stats, var = max(0, E[x^2] - mu^2), rsqrt(var+eps)*g.
-template <int D>
-__device__ __forceinline__ void ln_row(float (&v)[D / 32], const float* g,
-                                       const float* bta, float eps, int lane) {
-  float s = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < D / 32; ++k) { s += v[k]; s2 += v[k] * v[k]; }
-  s = group_sum<32>(s);
-  s2 = group_sum<32>(s2);
-  const float mu = s / D;
-  const float var = fmaxf(0.f, s2 / D - mu * mu);
-  const float r = rsqrtf(var + eps);
-#pragma unroll
-  for (int k = 0; k < D / 32; ++k) {
-    const int c = lane + 32 * k;
-    v[k] = (v[k] - mu) * (r * g[c]) + bta[c];
-  }
-}
-
 // Apply: grid (ceil(L / TA), B), one block per TA query rows.
 template <int D>
 __global__ void __launch_bounds__(NT)
@@ -304,7 +205,7 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   const int b = blockIdx.y, r0 = blockIdx.x * TA;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  load_rows<D>(xs, x + (size_t)b * L * D, r0, TA, L);
+  load_rows<D, NT>(xs, x + (size_t)b * L * D, r0, TA, L);
   for (int i = tid; i < H * HD * HD; i += NT) kvs[i] = kv[(size_t)b * H * HD * HD + i];
   for (int i = tid; i < D; i += NT) kss[i] = ksum[(size_t)b * D + i];
   for (int i = tid; i < TA; i += NT) ms[i] = (r0 + i < L) ? mask[(size_t)b * L + r0 + i] : 0.f;

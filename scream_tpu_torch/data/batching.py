@@ -1,6 +1,6 @@
 """Static-shape batching: pad-to-capacity clouds with validity masks
 (port of ``scream_tpu/data/batching.py``). Batches are dicts of numpy
-arrays; ``register_batch`` moves them to the device in one step."""
+arrays; the pipeline and the trainers move them to the device in one step."""
 
 from __future__ import annotations
 
@@ -67,4 +67,36 @@ def collate_pairs(
             batch["idx"][i] = it["idx"]
             batch["covariance"][i] = it["covariance"]
             batch["scene"][i] = it.get("scene", 0)
+    return batch
+
+
+def collate_dem(
+    items: List[dict], dsm_capacity: int, dem_capacity: int, coarse_capacity: int
+) -> Dict[str, np.ndarray]:
+    """Stack OpenGF items (``dsm, dem, dem_coarse``, optional ``center``)
+    into one padded batch with ``dsm_mask``, ``dem_mask`` and
+    ``dem_coarse_mask``."""
+    b = len(items)
+    batch = {
+        "dsm": np.zeros((b, dsm_capacity, 3), np.float32),
+        "dem": np.zeros((b, dem_capacity, 3), np.float32),
+        "dem_coarse": np.zeros((b, coarse_capacity, 3), np.float32),
+        "dsm_mask": np.zeros((b, dsm_capacity), bool),
+        "dem_mask": np.zeros((b, dem_capacity), bool),
+        "dem_coarse_mask": np.zeros((b, coarse_capacity), bool),
+    }
+    # All-or-none, as collate_pairs' sidecars: a mixed batch would zero some
+    # rows' centres.
+    with_center = ["center" in it for it in items]
+    if any(with_center) and not all(with_center):
+        raise ValueError("either every item carries 'center' or none does")
+    if with_center[0]:
+        batch["center"] = np.zeros((b, 2), np.float32)
+    for i, it in enumerate(items):
+        batch["dsm"][i], batch["dsm_mask"][i] = pad_cloud(it["dsm"], dsm_capacity)
+        batch["dem"][i], batch["dem_mask"][i] = pad_cloud(it["dem"], dem_capacity)
+        batch["dem_coarse"][i], batch["dem_coarse_mask"][i] = pad_cloud(
+            it["dem_coarse"], coarse_capacity)
+        if "center" in it:
+            batch["center"][i] = np.asarray(it["center"], np.float32).reshape(-1)[:2]
     return batch

@@ -1,6 +1,7 @@
-"""Batched, prefetching host-side pair loader (port of ``PairLoader`` in
-``scream_tpu/data/loader.py``). It yields numpy batches in the loader schema
-``register_batch`` reads: src, tgt, masks, rot, trans, scale, center."""
+"""Batched, prefetching host-side loaders (port of ``PairLoader`` and
+``DEMLoader`` in ``scream_tpu/data/loader.py``). They yield numpy batches:
+the pair schema ``register_batch`` reads (src, tgt, masks, rot, trans,
+scale, center) and the OpenGF schema (dsm, dem, dem_coarse and masks)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from scream_tpu_torch.data.batching import collate_pairs
+from scream_tpu_torch.data.batching import collate_dem, collate_pairs
 
 
 class PairLoader:
@@ -67,6 +68,32 @@ class PairLoader:
             self.num_workers,
             self.prefetch,
         )
+
+
+class DEMLoader(PairLoader):
+    """OpenGF variant: pads dsm / dem / dem_coarse.
+
+    ``dsm_capacity`` and ``dem_capacity`` must be equal: DSM and DEM points
+    correspond index for index (``process_open_gf.py:217-231``), so unequal
+    paddings would misalign the L1 loss and the masks. Only the coarse
+    DEM's capacity is independent.
+    """
+
+    def __init__(self, dataset, batch_size: int, dsm_capacity: int,
+                 dem_capacity: int, coarse_capacity: int, **kw):
+        if dem_capacity != dsm_capacity:
+            raise ValueError(
+                f"dsm_capacity ({dsm_capacity}) and dem_capacity "
+                f"({dem_capacity}) must be equal: DSM and DEM points "
+                f"correspond index-for-index in the OpenGF protocol")
+        super().__init__(dataset, batch_size, src_capacity=dsm_capacity, **kw)
+        self.dsm_capacity = dsm_capacity
+        self.dem_capacity = dem_capacity
+        self.coarse_capacity = coarse_capacity
+
+    def _collate(self, items):
+        return collate_dem(items, self.dsm_capacity, self.dem_capacity,
+                           self.coarse_capacity)
 
 
 def _queue_iter(work, make_batch, num_workers: int, prefetch: int):

@@ -1,7 +1,9 @@
-"""Synthetic registration pairs (port of ``scream_tpu/data/synthetic.py``).
+"""Synthetic registration pairs and ground-generation patches (port of
+``scream_tpu/data/synthetic.py``).
 
 numpy only, and bit-identical to the JAX package for the same seed: scenes
-are unions of random Gaussian clusters over a bumpy ground plane.
+are unions of random Gaussian clusters over a bumpy ground plane; DEM
+patches are a smooth ground with raised clutter.
 """
 
 from __future__ import annotations
@@ -85,4 +87,40 @@ def make_pair(
         "tgt": tgt.astype(np.float32),
         "rot": T[:3, :3].astype(np.float32),
         "trans": T[:3, 3:4].astype(np.float32),
+    }
+
+
+def make_dem_patch(
+    rng: np.random.Generator, n_dsm: int = 1024, n_dem: int = 1024, extent: float = 1.0
+) -> Dict[str, np.ndarray]:
+    """A synthetic OpenGF-style patch ``{dsm, dem, dem_coarse}``: smooth
+    ground DEM and a DSM with clutter.
+
+    ``dsm[i]`` is the highest surface point above ``dem[i]`` (same xy up to a
+    small offset, z raised where buildings or vegetation sit), as in the
+    reference's patches (``process_open_gf.py:217-231``), so the per-index
+    L1 loss is well-posed. The coarse DEM is a sparse ground subsample.
+    """
+
+    def ground_z(xy):
+        return 0.15 * extent * (
+            np.sin(2.1 * xy[:, 0]) * np.cos(1.7 * xy[:, 1]) + 0.3 * np.sin(0.9 * xy[:, 0] + 1.0)
+        )
+
+    n = max(n_dsm, n_dem)
+    xy = rng.uniform(-extent, extent, (n, 2))
+    dem = np.concatenate([xy, ground_z(xy)[:, None]], axis=1)[:n_dem]
+
+    xy_dsm = xy[:n_dsm] + rng.standard_normal((n_dsm, 2)) * 0.01 * extent
+    z = ground_z(xy_dsm)
+    raised = rng.random(n_dsm) < 0.35
+    z = z + raised * rng.uniform(0.1, 0.6 * extent, n_dsm)
+    dsm = np.concatenate([xy_dsm, z[:, None]], axis=1)
+
+    n_coarse = max(16, n_dem // 16)
+    dem_coarse = dem[rng.choice(n_dem, n_coarse, replace=False)]
+    return {
+        "dsm": dsm.astype(np.float32),
+        "dem": dem.astype(np.float32),
+        "dem_coarse": dem_coarse.astype(np.float32),
     }

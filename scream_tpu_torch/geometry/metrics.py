@@ -1,15 +1,18 @@
-"""Registration metrics, batched (port of ``scream_tpu/geometry/metrics.py``):
-RE/TE (reference ``utils.py:181-189``) and the redwood RMSE
-(reference ``evaluate_3d_match.py:31-50``)."""
+"""Registration and ground-generation metrics, batched (port of
+``scream_tpu/geometry/metrics.py``): RE/TE (reference ``utils.py:181-189``),
+the redwood RMSE (reference ``evaluate_3d_match.py:31-50``), and the DEM
+metrics, chamfer distance and height MAE/MSE (reference
+``evaluate_open_gf.py:25-66``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from scream_tpu_torch.geometry import so3
+from scream_tpu_torch.geometry.pairwise import masked_square_distance
 
 
 def transformation_error(pred_trans: torch.Tensor, gt_trans: torch.Tensor
@@ -41,3 +44,33 @@ def registration_recall_rmse(pred_T: torch.Tensor, gt_T: torch.Tensor,
     p = redwood_rmse(residual, info)
     return torch.where(p < 0.0, torch.full_like(p, math.inf),
                        torch.sqrt(torch.clamp_min(p, 0.0)))
+
+
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return x.mean(-1)
+    m = mask.to(x.dtype)
+    return (x * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
+
+
+def chamfer_distance(f: torch.Tensor, f_: torch.Tensor,
+                     mask_f: Optional[torch.Tensor] = None,
+                     mask_f_: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both-direction mean of min squared distances, per batch element:
+    ``mean_i min_j d(i,j) + mean_j min_i d(i,j)`` (squared, no sqrt;
+    reference ``evaluate_open_gf.py:25-41``); the masked variant averages
+    over valid points only."""
+    dist = masked_square_distance(f, f_, mask_f, mask_f_)
+    return _masked_mean(dist.amin(-1), mask_f) + _masked_mean(dist.amin(-2), mask_f_)
+
+
+def height_mae(pred: torch.Tensor, gt: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean ``|z_pred - z_gt|`` (reference ``evaluate_open_gf.py:62-63``)."""
+    return _masked_mean(torch.abs(pred[..., 2] - gt[..., 2]), mask)
+
+
+def height_mse(pred: torch.Tensor, gt: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean ``(z_pred - z_gt)^2`` (reference ``evaluate_open_gf.py:65-66``)."""
+    return _masked_mean((pred[..., 2] - gt[..., 2]) ** 2, mask)

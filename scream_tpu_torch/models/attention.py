@@ -6,11 +6,12 @@
   normalizer accumulated in fp32 under bf16 compute.
 * :class:`AttentionBlock`: projections -> linear attention -> merge -> FFN,
   with the reference's double q-residual (``models/transformer.py:74-90``).
-  On CUDA tensors a block runs where the JAX package runs a Pallas kernel
-  on the TPU: the two fused kernels where its fused-block rule holds, and
-  it raises ``NotImplementedError`` where the kernels do not take that
-  shape or where the TPU would run the unported tail kernel. CPU tensors
-  run the plain body, as the JAX package does off the TPU.
+  :func:`route_block` picks its route by the JAX package's rules, a CUDA
+  tensor standing for the TPU: the two fused kernels where the fused-block
+  rule holds, else the plain attention and the tail kernel where the tail
+  rule holds, else the plain body; it raises ``NotImplementedError`` where
+  the port has no kernel for a shape the TPU runs one for. CPU tensors run
+  the plain body, as the JAX package does off the TPU.
 * :func:`sinusoidal_pe`: the continuous n-dim coordinate embedding
   (``models/transformer.py:135-179``).
 
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scream_tpu_torch.ops import attn_cuda
+from scream_tpu_torch.ops import attn_cuda, tail_cuda
 from scream_tpu_torch.ops.ffn import jax_fusable_tail, tail_plain
 from scream_tpu_torch.utils import device as device_util
 
@@ -85,6 +86,49 @@ def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
     return out.to(q.dtype)
 
 
+def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
+                fused_attn: Optional[bool], fused_tail: Optional[bool],
+                on_cuda: bool, shared_kv: bool) -> str:
+    """An attention block's route: ``"fused"`` (the two fused-block kernels),
+    ``"tail"`` (plain attention, then the tail kernel) or ``"plain"``.
+
+    The JAX package's rules (``models/attention.py:199-243`` with
+    ``ffn_pallas.block_tail``'s auto rule), a CUDA tensor standing for the
+    TPU backend: the fused block runs when ``fused_attn`` is True, or None
+    on CUDA with ``jax_fusable_block``, and k and v are one source
+    (``shared_kv``); otherwise the attention is plain and the tail runs its
+    kernel when ``fused_tail`` is True, or None on CUDA with
+    ``jax_fusable_tail``. So ``fused_attn=False`` leaves the tail on auto;
+    only ``fused_tail=False`` asks for the plain tail. On CUDA a route whose
+    kernel is not written for the shape raises ``NotImplementedError``
+    (no plain body in a kernel's place); on the CPU the kernels' plain
+    versions run.
+    """
+    if shared_kv and (fused_attn or (fused_attn is None and on_cuda and
+                                     attn_cuda.jax_fusable_block(d, hid, num_heads,
+                                                                 dtype))):
+        if on_cuda and not attn_cuda.kernels_take(d, hid, num_heads, dtype):
+            raise NotImplementedError(
+                f"fused attention block at d_model {d}, {num_heads} heads, "
+                f"{dtype}: the CUDA kernels take bf16, d_model in "
+                f"{attn_cuda.KERNEL_WIDTHS} and {attn_cuda.KERNEL_HEADS} heads; "
+                "other shapes and fp32 are queued in ROADMAP.md (TPU kernels "
+                "still to port); pass fused_attention=False for the plain "
+                "attention")
+        return "fused"
+    tail = fused_tail if fused_tail is not None else (
+        on_cuda and jax_fusable_tail(d, hid, dtype))
+    if tail:
+        if on_cuda and not tail_cuda.kernel_takes(d, hid, dtype):
+            raise NotImplementedError(
+                f"block tail at d_model {d}, hidden {hid}, {dtype}: the CUDA "
+                f"kernel takes bf16 at d_model in {tail_cuda.KERNEL_WIDTHS}; "
+                "fp32 is queued in ROADMAP.md (TPU kernels still to port); "
+                "pass fused_block_tail=False for the plain tail")
+        return "tail"
+    return "plain"
+
+
 class _Proj(nn.Module):
     """Bias-free ``(in, out)`` projection weight, xavier-uniform init (the
     layout of flax's ``{name: {"kernel": W}}``)."""
@@ -112,11 +156,9 @@ class AttentionBlock(nn.Module):
     ``q_proj, k_proj, v_proj, merge, ffn_in, ffn_out`` (``.kernel``,
     ``(in, out)``) and ``norm1, norm2`` (``.scale, .bias``).
 
-    ``fused_attn``: None = auto (see :meth:`_use_fused`); True = always the
-    fused path when ``v is k`` (plain versions of its kernels on CPU
-    tensors); False = the plain body, tail included. ``fused_tail``: False
-    lets an auto block on CUDA tensors run the plain tail where the TPU
-    would run its tail kernel.
+    ``fused_attn`` and ``fused_tail``: None = auto, True = the kernel (its
+    plain version on CPU tensors), False = plain code; :func:`route_block`
+    picks each call's route.
     """
 
     def __init__(self, d_model: int, num_heads: int = 8, ffn_mult: int = 4,
@@ -138,56 +180,12 @@ class AttentionBlock(nn.Module):
         self.ffn_out = _Proj(hid, d_model, generator)
         self.norm2 = _Norm(d_model)
 
-    def _use_fused(self, q, k, v) -> bool:
-        """Fused kernels or plain body, by the JAX package's TPU rules.
-
-        On CUDA tensors the plain body never stands in for a kernel the TPU
-        would run unless ``fused_attn`` is False. Where the fused-block rule
-        holds, the kernels run or the block raises (a shape they do not
-        take). Elsewhere the TPU runs its tail kernel wherever
-        ``jax_fusable_tail`` holds; the port has not got it, so the block
-        raises unless ``fused_tail`` is False.
-        """
-        shared_kv = (v is k and q.shape[-1] == self.d_model
-                     and k.shape[-1] == self.d_model)
-        if self.fused_attn and shared_kv:
-            return True
-        if self.fused_attn is False or not device_util.on_cuda(q):
-            return False
-        hid = self.d_model * self.ffn_mult
-        if self.fused_attn is None and shared_kv and attn_cuda.jax_fusable_block(
-                self.d_model, hid, self.num_heads, self.dtype):
-            if attn_cuda.kernels_take(self.d_model, hid, self.num_heads, self.dtype):
-                return True
-            raise NotImplementedError(
-                f"fused attention block at d_model {self.d_model}, "
-                f"{self.num_heads} heads, {self.dtype}: the CUDA kernels take "
-                f"bf16, d_model in {attn_cuda.KERNEL_WIDTHS} and "
-                f"{attn_cuda.KERNEL_HEADS} heads; other shapes and fp32 are "
-                "queued in ROADMAP.md (TPU kernels still to port); pass "
-                "fused_attention=False for the plain body")
-        if self.fused_tail is not False and jax_fusable_tail(
-                self.d_model, hid, self.dtype):
-            raise NotImplementedError(
-                f"block tail at d_model {self.d_model}: the TPU runs "
-                "ffn_pallas._tail_kernel here, which is not ported yet "
-                "(ROADMAP.md, TPU kernels still to port); pass "
-                "fused_block_tail=False for the plain tail")
-        return False
-
-    def forward(self, q, k, v, q_mask=None, kv_mask=None):
+    def message(self, q, k, v, q_mask=None, kv_mask=None):
+        """The unfused attention half: projections and linear attention,
+        ``(B, L, d)`` in the compute dtype (the tail's input ``x``)."""
         B, L, S = q.shape[0], q.shape[1], k.shape[1]
         hd = self.d_model // self.num_heads
         Wq, Wk, Wv = self.q_proj.kernel, self.k_proj.kernel, self.v_proj.kernel
-        tail = (self.merge.kernel, self.norm1.scale, self.norm1.bias,
-                self.ffn_in.kernel, self.ffn_out.kernel, self.norm2.scale,
-                self.norm2.bias)
-        if self._use_fused(q, k, v):
-            return attn_cuda.attention_block_fused(
-                q, k, q_mask, kv_mask, Wq, Wk, Wv, *tail,
-                num_heads=self.num_heads, dtype=self.dtype,
-                norm_dtype=self.norm_dtype)
-
         cd = self.dtype
         mm = lambda x, W: x.to(cd) @ W.to(cd)
         if k is q and v is q:
@@ -201,5 +199,25 @@ class AttentionBlock(nn.Module):
             query.reshape(B, L, self.num_heads, hd),
             key.reshape(B, S, self.num_heads, hd),
             value.reshape(B, S, self.num_heads, hd), q_mask, kv_mask)
-        return tail_plain(message.reshape(B, L, self.d_model), q, *tail,
-                          cd=cd, nd=self.norm_dtype, eps=1e-5)
+        return message.reshape(B, L, self.d_model)
+
+    def forward(self, q, k, v, q_mask=None, kv_mask=None):
+        tail = (self.merge.kernel, self.norm1.scale, self.norm1.bias,
+                self.ffn_in.kernel, self.ffn_out.kernel, self.norm2.scale,
+                self.norm2.bias)
+        shared_kv = (v is k and q.shape[-1] == self.d_model
+                     and k.shape[-1] == self.d_model)
+        route = route_block(self.d_model, self.d_model * self.ffn_mult,
+                            self.num_heads, self.dtype, self.fused_attn,
+                            self.fused_tail, device_util.on_cuda(q), shared_kv)
+        if route == "fused":
+            return attn_cuda.attention_block_fused(
+                q, k, q_mask, kv_mask, self.q_proj.kernel, self.k_proj.kernel,
+                self.v_proj.kernel, *tail, num_heads=self.num_heads,
+                dtype=self.dtype, norm_dtype=self.norm_dtype)
+        message = self.message(q, k, v, q_mask, kv_mask)
+        if route == "tail":
+            return tail_cuda.block_tail(message, q, *tail, dtype=self.dtype,
+                                        norm_dtype=self.norm_dtype, eps=1e-5)
+        return tail_plain(message, q, *tail, cd=self.dtype, nd=self.norm_dtype,
+                          eps=1e-5)

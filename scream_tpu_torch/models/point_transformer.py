@@ -1,19 +1,27 @@
-"""The registration transformer (port of ``PointTransformer`` in
+"""The registration / ground-generation transformer family (port of
 ``scream_tpu/models/point_transformer.py``; reference ``models/pointnet.py``).
 
-It predicts where the source cloud sits in the target frame (``src_pred``):
-sinusoidal PE + a Dense embedding of centred coordinates, LayerNorm, 6
-*shared* self-attention stem layers applied to both clouds, 6 cross blocks
-(self on src, then cross src<-tgt), and a 3-layer coordinate head. Compute
-runs in ``ModelConfig.dtype`` (bf16 by default) over fp32 parameters.
+* :class:`PointTransformer` predicts where the source cloud sits in the
+  target frame (``src_pred``): sinusoidal PE + a Dense embedding of centred
+  coordinates, LayerNorm, 6 *shared* self-attention stem layers applied to
+  both clouds, 6 cross blocks (self on src, then cross src<-tgt), and a
+  3-layer coordinate head.
+* :class:`DEMTransformer` (OpenGF ground generation, reference
+  ``:103-167``) is the same skeleton with *separate* stems for the DSM and
+  the coarse DEM and no source centring.
 
-Parameter names follow the flax tree (``trunk.stem_0.q_proj.kernel``, ...)
-with flax's ``(in, out)`` kernel layout, so
-``utils.convert.params_from_jax`` maps a JAX checkpoint one to one.
+Compute runs in ``ModelConfig.dtype`` (bf16 by default) over fp32
+parameters.
+
+Parameter names follow the flax tree (``trunk.stem_0.q_proj.kernel``, or
+``trunk.stem_src_0.q_proj.kernel`` with separate stems, ...) with flax's
+``(in, out)`` kernel layout, so ``utils.convert.params_from_jax`` maps a JAX
+checkpoint one to one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -49,8 +57,6 @@ class _Trunk(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None):
         super().__init__()
-        if cfg.separate_stems:
-            raise NotImplementedError("separate stems (DEMTransformer) are not ported yet")
         self.cfg = cfg
         d = cfg.d_model
         self.embedding = _Dense(3, d, generator)
@@ -61,8 +67,10 @@ class _Trunk(nn.Module):
             d, cfg.num_heads, cfg.ffn_mult, dtype=cfg.compute_dtype,
             norm_dtype=cfg.norm_compute_dtype, fused_attn=cfg.fused_attention,
             fused_tail=cfg.fused_block_tail, generator=generator)
+        stems = ("stem_src", "stem_tgt") if cfg.separate_stems else ("stem",)
         for i in range(cfg.self_layers):
-            self.add_module(f"stem_{i}", block())
+            for name in stems:
+                self.add_module(f"{name}_{i}", block())
         for i in range(cfg.cross_layers):
             self.add_module(f"cross_self_{i}", block())
             self.add_module(f"cross_attn_{i}", block())
@@ -83,11 +91,18 @@ class _Trunk(nn.Module):
                              torch.float32).to(dt)
         src_feats, tgt_feats = norm(src_feats), norm(tgt_feats)
 
-        # Shared self-attention stems (reference :18-20, :50-52).
+        # Self-attention stems: one stack shared by both clouds (reference
+        # :18-20, :50-52), or one per cloud in the DEM variant (:113-118).
         for i in range(cfg.self_layers):
-            blk = getattr(self, f"stem_{i}")
-            tgt_feats = blk(tgt_feats, tgt_feats, tgt_feats, tgt_mask, tgt_mask)
-            src_feats = blk(src_feats, src_feats, src_feats, src_mask, src_mask)
+            if cfg.separate_stems:
+                src_blk = getattr(self, f"stem_src_{i}")
+                tgt_blk = getattr(self, f"stem_tgt_{i}")
+                src_feats = src_blk(src_feats, src_feats, src_feats, src_mask, src_mask)
+                tgt_feats = tgt_blk(tgt_feats, tgt_feats, tgt_feats, tgt_mask, tgt_mask)
+            else:
+                blk = getattr(self, f"stem_{i}")
+                tgt_feats = blk(tgt_feats, tgt_feats, tgt_feats, tgt_mask, tgt_mask)
+                src_feats = blk(src_feats, src_feats, src_feats, src_mask, src_mask)
 
         # Cross stage: alternate (self on src, cross src<-tgt) (reference :53-57).
         for i in range(cfg.cross_layers):
@@ -141,5 +156,47 @@ class PointTransformer(nn.Module):
         if src_mask is None:
             return l1.mean()
         m = src_mask.to(l1.dtype)
+        per_item = (l1 * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
+        return per_item.mean()
+
+
+class DEMTransformer(nn.Module):
+    """OpenGF ground generator: ``(dsm, dem_coarse) -> dem_pred``.
+
+    Separate stems, no input centring (reference ``models/pointnet.py:103-161``):
+    the trunk sees a zero ``src_center``. A config without
+    ``separate_stems`` is taken with it, as in the JAX package. Parameters
+    are drawn from ``generator`` (seed 0 if None) on the CPU, then moved to
+    ``device``.
+    """
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(separate_stems=True), *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        if not cfg.separate_stems:
+            cfg = dataclasses.replace(cfg, separate_stems=True)
+        self.cfg = cfg
+        self.trunk = _Trunk(cfg, generator)
+        self.to(dev)
+
+    def forward(self, dsm, dem_coarse, dsm_mask=None, dem_mask=None):
+        if dsm_mask is None:
+            dsm_mask = torch.ones(dsm.shape[:2], dtype=torch.bool, device=dsm.device)
+        if dem_mask is None:
+            dem_mask = torch.ones(dem_coarse.shape[:2], dtype=torch.bool,
+                                  device=dem_coarse.device)
+        zero_center = torch.zeros((dsm.shape[0], 1, 3), dtype=dsm.dtype, device=dsm.device)
+        return self.trunk(dsm, dem_coarse, dsm_mask, dem_mask, zero_center)
+
+    @staticmethod
+    def loss(dem_pred, dem_gt, mask=None):
+        """Masked mean per-point L1 (reference ``models/pointnet.py:163-167``)."""
+        l1 = torch.abs(dem_pred - dem_gt).sum(-1)
+        if mask is None:
+            return l1.mean()
+        m = mask.to(l1.dtype)
         per_item = (l1 * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
         return per_item.mean()

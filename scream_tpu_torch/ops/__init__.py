@@ -5,17 +5,18 @@
   its unbatched launch (single-pair ICP).
 * ``splat_cuda``: the depth renderer's two-channel Gaussian max-splat
   (``render`` is the renderer around it).
-* ``ffn``: the plain block tail the unfused attention body uses.
+* ``tail_cuda``: the fused block tail, where the fused block does not
+  apply; ``ffn`` holds its plain version.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); :func:`reset_launch_counts` zeroes them all.
 """
 
-from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda
+from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda, tail_cuda
 
 WRAPPERS = (attn_cuda.attn_stats, attn_cuda.attn_apply,
             nn_cuda.nn_exact, nn_cuda.nn_bounded, nn_cuda.nn_bounded_single,
-            splat_cuda.max_splat)
+            splat_cuda.max_splat, tail_cuda.block_tail)
 
 
 def reset_launch_counts() -> None:

@@ -98,6 +98,7 @@ def _declare(lib) -> None:
         "scream_nn_exact": [P, P, P, P, I, I, I, P],
         "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
         "scream_max_splat": [P, P, P, P, I, I, I, F, P],
+        "scream_block_tail": [P] * 10 + [I, I, I, F, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

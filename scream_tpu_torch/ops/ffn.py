@@ -1,15 +1,13 @@
 """The attention-block tail in plain PyTorch (port of the plain half of
 ``scream_tpu/ops/ffn_pallas.py``): merge -> +q -> LN -> FFN(relu) -> +q -> LN.
 
-The TPU's fused tail kernel (``ffn_pallas._tail_kernel``) is not ported yet.
-The JAX package runs it wherever the fused attention block does not apply
-and :func:`jax_fusable_tail` holds (``d_model >= 512``, meshes sharded over
-seq or model). On CUDA tensors the port's attention block therefore raises
-there rather than run :func:`tail_plain` in the kernel's place, unless the
-caller asks for the plain tail (``ModelConfig(fused_block_tail=False)``) or
-the plain body (``ModelConfig(fused_attention=False)``).
-This module holds the tail's plain body, which the unfused attention block
-runs on CPU tensors and where the caller asked for it.
+:func:`tail_plain` is the plain version of the fused tail kernel
+(``ops/tail_cuda.py:block_tail``, replacing ``ffn_pallas._tail_kernel``): the
+CPU tests run it, the kernel's backward differentiates it, and the unfused
+attention block runs it on CPU tensors and where the caller asks for the
+plain tail (``ModelConfig(fused_block_tail=False)``). :func:`jax_fusable_tail`
+is the JAX package's rule for where the TPU runs the tail kernel; the
+attention block's routing (``models/attention.py:route_block``) reads it.
 """
 
 from __future__ import annotations

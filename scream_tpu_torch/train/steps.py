@@ -1,6 +1,7 @@
 """Training steps: generator (point loss + optional GAN) and discriminator
 (port of ``scream_tpu/train/steps.py``; reference
-``train_3d_match.py:166-205``).
+``train_3d_match.py:166-205``), and the OpenGF generator step
+(``train_open_gf.py:89-103``).
 
 One generator step is forward -> point loss -> (GAN: render the predicted
 source beside the target, score it with the frozen discriminator, hinge)
@@ -28,7 +29,7 @@ from scream_tpu_torch.config import RenderConfig
 from scream_tpu_torch.models.gan import images_to_nhwc
 from scream_tpu_torch.models.losses import (discriminator_hinge_loss,
                                             generator_hinge_loss)
-from scream_tpu_torch.models.point_transformer import PointTransformer
+from scream_tpu_torch.models.point_transformer import DEMTransformer, PointTransformer
 from scream_tpu_torch.ops.render import render_from_config
 from scream_tpu_torch.pipeline.register import gt_aligned_src, gt_center_hint
 
@@ -115,6 +116,60 @@ def make_registration_train_step(
         total, fake = point_loss, None
         if use_gan:
             fake = render_from_config(src_pred, tgt, render_cfg, src_mask, tgt_mask)
+            mark("render")
+            g_loss = generator_hinge_loss(disc_apply(disc, fake))
+            mark("discriminator")
+            total = point_loss + gan_weight * g_loss
+            metrics["g_loss"] = g_loss
+        metrics["loss"] = total
+        total.backward(inputs=params)
+        mark("backward")
+        state.optimizer.step()
+        if state.scheduler is not None:
+            state.scheduler.step()
+        state.step += 1
+        mark("optimizer")
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, metrics, None if fake is None else fake.detach()
+
+    return step
+
+
+def make_dem_train_step(
+    model: DEMTransformer,
+    use_gan: bool = False,
+    disc_apply: Optional[Callable] = None,
+    render_cfg: RenderConfig = RenderConfig(multi_view=False),
+    gan_weight: float = 0.1,
+):
+    """The generator step for OpenGF ground generation:
+    ``step(state, batch, disc=None, stage_hook=None) -> (state, metrics, fake)``
+    (reference ``train_open_gf.py:89-103``).
+
+    ``batch`` holds ``dsm``, ``dem``, ``dem_coarse`` and their masks. The
+    point loss is the per-index L1 between ``dem_pred`` (one point per DSM
+    point) and the DEM over points valid in both. With the GAN on, the
+    single-view renderer pairs ``dem_pred`` with the coarse DEM (reference
+    ``models/pointnet.py:156-159``). Stages and ``stage_hook`` as in
+    :func:`make_registration_train_step`."""
+    if use_gan and disc_apply is None:
+        raise ValueError("use_gan needs disc_apply (make_disc_logit_fn())")
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], disc=None,
+             stage_hook=None):
+        mark = stage_hook or (lambda name: None)
+        state.optimizer.zero_grad(set_to_none=True)
+        dem_pred = model(batch["dsm"], batch["dem_coarse"], batch["dsm_mask"],
+                         batch["dem_coarse_mask"]).float()
+        point_loss = DEMTransformer.loss(dem_pred, batch["dem"],
+                                         batch["dsm_mask"] & batch["dem_mask"])
+        mark("forward")
+        metrics = {"point_loss": point_loss}
+        total, fake = point_loss, None
+        if use_gan:
+            fake = render_from_config(dem_pred, batch["dem_coarse"], render_cfg,
+                                      batch["dsm_mask"], batch["dem_coarse_mask"])
             mark("render")
             g_loss = generator_hinge_loss(disc_apply(disc, fake))
             mark("discriminator")

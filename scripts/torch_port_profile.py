@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's registration paths, on one GPU.
+"""Where the time goes in the PyTorch port's paths, on one GPU.
 
 Usage, from the repository root on a machine with an NVIDIA GPU:
 
     python3 scripts/torch_port_profile.py [--icp-subsample 1024]
     python3 scripts/torch_port_profile.py --gt-free
     python3 scripts/torch_port_profile.py --train
+    python3 scripts/torch_port_profile.py --dem
 
 Default: ``register_batch`` at the bench shape (16 pairs x 4,096 points,
 full-width model from a seeded random init, 30 ICP iterations). It prints,
@@ -28,6 +29,12 @@ kernel breakdown of the next under the profiler, after a warm-up iteration,
 each on its own batch; and the device's busy share of an unprofiled
 iteration: the profiled iteration's device time over the unprofiled one's
 wall time (the profiler's own per-launch cost inflates its wall).
+
+``--dem``: the same for one OpenGF training iteration at ``chip_smoke.py``
+path 4's shape (``opengf_presets()`` at d_model 512: 8 patches of 8,192
+DSM/DEM points, coarse capacity 1,024, seeded random init, GAN off): the
+``make_dem_train_step`` stages (forward, backward, optimizer), where every
+attention block runs the tail kernel.
 
 It writes the profiler tables to ``chiprun_out/torch_port_profile.txt``.
 """
@@ -112,7 +119,6 @@ def profile_gt_free():
 def profile_train():
     """One GAN training iteration (G step + D step) at full width."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
     from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
@@ -149,6 +155,19 @@ def profile_train():
             hook("d_step")
         return float(metrics["loss"]), float(d_loss)  # losses to the host
 
+    profile_iteration(iteration, batches,
+                      f"GAN training iteration, {b_train} x {CAP}, full width",
+                      "GAN training iteration (G step + D step)")
+
+
+def profile_iteration(iteration, batches, title, label):
+    """``iteration(batch, hook)`` once per batch: a warm-up on the first,
+    stage times by CUDA events and the host wall time on the second, the
+    kernel breakdown under the profiler on the third; then the device's busy
+    share of the unprofiled iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     iteration(batches[0])  # warm-up
     events = [("start", torch.cuda.Event(enable_timing=True))]
     events[0][1].record()
@@ -161,8 +180,7 @@ def profile_train():
     iteration(batches[1], hook)  # ends with the losses on the host
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    print(f"device: {torch.cuda.get_device_name(0)} | GAN training iteration, "
-          f"{b_train} x {CAP}, full width")
+    print(f"device: {torch.cuda.get_device_name(0)} | {title}")
     print("stages (ms, CUDA events): " + ", ".join(
         f"{n} {a.elapsed_time(b):.2f}" for (_, a), (n, b) in zip(events, events[1:])))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -170,9 +188,46 @@ def profile_train():
         t0 = time.perf_counter()
         iteration(batches[2])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = kernel_table(prof, wall_ms, "GAN training iteration (G step + D step)")
+    busy = kernel_table(prof, wall_ms, label)
     print(f"unprofiled iteration wall {plain_wall_ms:.2f} ms: device busy share "
           f"{100 * busy / plain_wall_ms:.1f} % (profiled device time over it)")
+
+
+def profile_dem():
+    """One OpenGF training iteration at d_model 512 (chip_smoke.py path 4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.config import opengf_presets
+    from scream_tpu_torch.data import collate_dem, make_dem_patch
+    from scream_tpu_torch.models import DEMTransformer
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (generator_optimizer, init_train_state,
+                                        make_dem_train_step)
+
+    b_train, cap, coarse = 8, 8192, 1024
+    model_cfg, tcfg, _, _ = opengf_presets()
+    model_cfg = dataclasses.replace(model_cfg, d_model=512)
+    rng = np.random.default_rng(11)
+    batches = [to_device(collate_dem([make_dem_patch(rng, n_dsm=cap, n_dem=cap)
+                                      for _ in range(b_train)], cap, cap, coarse), "cuda")
+               for _ in range(3)]
+    model = DEMTransformer(model_cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    state = init_train_state(opt, sched)
+    step = make_dem_train_step(model)
+
+    def iteration(tb, hook=None):
+        nonlocal state
+        state, metrics, _ = step(state, tb, None, hook)
+        return float(metrics["loss"])  # the loss to the host
+
+    profile_iteration(iteration, batches,
+                      f"OpenGF training iteration, {b_train} x {cap} (coarse {coarse}), "
+                      "d_model 512", "OpenGF training iteration (G step, d 512)")
 
 
 def main():
@@ -180,6 +235,7 @@ def main():
     ap.add_argument("--icp-subsample", type=int, default=None)
     ap.add_argument("--gt-free", action="store_true")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--dem", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -198,6 +254,9 @@ def main():
         return
     if args.train:
         profile_train()
+        return
+    if args.dem:
+        profile_dem()
         return
     ds = SyntheticPairDataset(length=3 * B, n_src=N_SRC, n_tgt=N_TGT, seed=1)
     batches = list(PairLoader(ds, batch_size=B, src_capacity=CAP, num_workers=8))

@@ -191,7 +191,7 @@ class TestPackageRules:
         assert resolve_device("cpu") == torch.device("cpu")
 
     def test_kernel_wrappers_reject_other_devices(self):
-        from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda
+        from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda, tail_cuda
 
         x = torch.empty((1, 4, 3), device="meta")
         with pytest.raises(ValueError):
@@ -205,6 +205,10 @@ class TestPackageRules:
                                  None, None, None, num_heads=8)
         with pytest.raises(ValueError):
             splat_cuda.max_splat(x[..., :2], x[..., :2], 24.0, 64)
+        y = torch.empty((1, 4, 512), device="meta")
+        with pytest.raises(ValueError):
+            tail_cuda.block_tail(y, y, None, None, None, None, None, None, None,
+                                 dtype=torch.bfloat16, norm_dtype=torch.float32)
 
 
 class TestBuild:
@@ -224,7 +228,8 @@ class TestBuild:
         assert p == _build.library_path()
         assert p.parent == _build.BUILD_DIR
         assert "build" in p.parts and p.suffix == ".so"
-        assert {s.name for s in _build._sources()} == {"attn.cu", "nn.cu", "splat.cu"}
+        assert {s.name for s in _build._sources()} == {"attn.cu", "nn.cu", "splat.cu",
+                                                        "tail.cu"}
 
     def test_launch_counters_reset(self):
         from scream_tpu_torch import ops
@@ -234,5 +239,5 @@ class TestBuild:
         ops.reset_launch_counts()
         assert set(ops.launch_counts().values()) == {0}
         assert sorted(ops.launch_counts()) == ["attn_apply", "attn_stats",
-                                               "max_splat", "nn_bounded",
+                                               "block_tail", "max_splat", "nn_bounded",
                                                "nn_bounded_single", "nn_exact"]

@@ -24,7 +24,7 @@ from scream_tpu.ops.attn_pallas import attention_block as j_attention_block
 from scream_tpu_torch.config import ModelConfig
 from scream_tpu_torch.models import AttentionBlock, PointTransformer
 from scream_tpu_torch.models.attention import linear_attention, sinusoidal_pe
-from scream_tpu_torch.ops import attn_cuda
+from scream_tpu_torch.ops import attn_cuda, tail_cuda
 from scream_tpu_torch.utils.convert import params_from_jax
 
 REL = 1e-4
@@ -233,8 +233,9 @@ class TestAttentionBlock:
 class TestCudaRouting:
     """The block's decision on CUDA tensors, built here by patching the
     routing predicate: where the JAX package runs a Pallas kernel on the TPU
-    the port runs its CUDA kernels or raises, never the plain body in the
-    kernel's place, unless the caller asks for the plain body."""
+    the port runs its CUDA kernels or raises, never plain code in the
+    kernel's place, unless the caller asks for it. The fused kernels record
+    their head count, the tail kernel "tail"."""
 
     @pytest.fixture
     def cuda_like(self, monkeypatch):
@@ -244,6 +245,8 @@ class TestCudaRouting:
         calls = []
         monkeypatch.setattr(attn_cuda, "attention_block_fused",
                             lambda *a, **k: calls.append(k["num_heads"]) or a[0])
+        monkeypatch.setattr(tail_cuda, "block_tail",
+                            lambda *a, **k: calls.append("tail") or a[1])
         return calls
 
     @staticmethod
@@ -268,25 +271,32 @@ class TestCudaRouting:
         assert not cuda_like
 
     def test_tail_kernel_shapes_raise(self, cuda_like):
-        """d 512: the fused block is out of the JAX rule's budget, the TPU
-        runs its tail kernel, which is not ported."""
-        with pytest.raises(NotImplementedError, match="tail"):
-            self._run(512, 16)
-        # fused_attn=True with separate k and v: the unfused body, whose tail
-        # the TPU runs as its kernel.
+        """d 512: the fused block is out of the JAX rule's budget and the TPU
+        runs its tail kernel, so the port runs its tail kernel; fp32 at d 384,
+        where the TPU runs the tail kernel too, raises (no fp32 kernel)."""
+        self._run(512, 16)
+        # fused_attn=True with separate k and v: the plain attention, whose
+        # tail the TPU runs as its kernel.
         blk = AttentionBlock(256, 8, 4, dtype=torch.bfloat16, fused_attn=True)
         x = torch.zeros((1, 4, 256))
+        blk(x, x, x.clone())
+        assert cuda_like == ["tail", "tail"]
         with pytest.raises(NotImplementedError, match="tail"):
-            blk(x, x, x.clone())
-        assert not cuda_like
+            self._run(384, 8, torch.float32)
+        assert cuda_like == ["tail", "tail"]
 
     def test_explicit_plain_requests_run_the_plain_body(self, cuda_like):
         out = self._run(512, 16, fused_tail=False)
         assert out.shape == (1, 4, 512)
+        self._run(512, 16, fused_attn=False, fused_tail=False)
+        self._run(256, 8, fused_attn=False, fused_tail=False)
+        self._run(128, 8, torch.float32, fused_attn=False, fused_tail=False)
+        assert not cuda_like
+        # fused_attn=False alone asks for the plain attention and leaves the
+        # tail on auto, as in the JAX package: the tail kernel runs.
         self._run(512, 16, fused_attn=False)
         self._run(256, 8, fused_attn=False)
-        self._run(128, 8, torch.float32, fused_attn=False)
-        assert not cuda_like
+        assert cuda_like == ["tail", "tail"]
 
     def test_shapes_without_a_tpu_kernel_run_the_plain_body(self, cuda_like):
         """d 1024: neither JAX rule holds, so the TPU runs XLA there too."""
