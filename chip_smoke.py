@@ -41,12 +41,14 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     the CPU path (2 pairs x 1,024 points); the shipped discriminator's mean
     logits on real and fake renders (8 pairs x 512 points) on both; then
     timed training at 8 pairs x 4,096 points, G + D iterations and G-only
-    steps, pairs/s, stage times and launches (splat, stats, apply > 0);
+    steps, pairs/s, stage times and launches (splat, stats, apply > 0); the
+    stats and apply kernels also on that input cut to 4,000 rows a pair;
 11. path 4, OpenGF training (``opengf_presets()`` at d_model 512: 8 heads
     of 64, 6 + 6 layers, separate stems, seeded random init, GAN off), where
     every attention block runs the tail kernel: ``csrc/tail.cu`` against its
     plain version on the first DSM and coarse-DEM stem blocks' real tail
-    inputs (8 x 8,192 and 8 x 1,024), forward and gradients, and at d 256 on
+    inputs (8 x 8,192 and 8 x 1,024), forward and gradients, on the DSM
+    input cut to 65,536 - 37 and 8,192 + 5 rows, and at d 256 on
     path 1's batch through ``ModelConfig(fused_attention=False)``; the
     kernel forward against the literal plain forward; one
     ``make_dem_train_step`` on the card and on the CPU path (2 x 1,024);
@@ -89,6 +91,9 @@ PATH3_KERNELS = ("attn_stats", "attn_apply", "max_splat")
 # coarse DEM at the CLI's max(cap // 8, 64) capacity.
 DEM_D, DEM_B, DEM_CAP, DEM_COARSE = 512, 8, 8192, 1024
 DEM_ITERS = 5  # timed iterations, after one warm-up
+# Ragged row counts: apply at 4,000 rows a pair (8 pairs), the tail at
+# 65,536 - 37 and 8,192 + 5 rows.
+RAGGED_L, RAGGED_TAIL_ROWS = 4000, (65536 - 37, 8192 + 5)
 WORK_DIR = os.path.join("build", "chip_smoke_work")  # checkpoints; removed at the end
 # fp32 operations per (point, pixel) pair of the splat: cross 3, d^2 4
 # (add, 2x, sub, max), scale 1, exp 1, two products, two compares.
@@ -192,6 +197,26 @@ def oracle_pred(batch, noise, seed, device):
     return torch.as_tensor(pred.astype(np.float32), device=device)
 
 
+def check_pack(Wm, W1, W2, Wq=None, suffix=""):
+    """The weight pack of the tail and apply wrappers on the card
+    (``tail_cuda.pack_weights``, one launch of ``csrc/tail.cu:pack_kernel``)
+    against its plain version, the permuted copies on the CPU: bit-identical.
+    Its time is part of both wrappers' times."""
+    import torch
+
+    from scream_tpu_torch.ops import tail_cuda
+
+    pack = lambda *ws: tail_cuda.pack_weights(*ws[:3], Wq=ws[3] if Wq is not None else None)
+    ws = (Wm, W1, W2, Wq)
+    got = pack(*ws)
+    want = pack(*(None if w is None else w.cpu() for w in ws))
+    same = torch.equal(got.cpu(), want)
+    check(same, f"pack_weights{suffix}: the card's blob differs from the plain pack")
+    log(f"kernel pack_weights{suffix} ({W1.dtype}, d {W1.shape[0]}, hidden "
+        f"{W1.shape[1]}{', with Wq' if Wq is not None else ''}): identical to the plain "
+        f"pack {same} | {cuda_ms(lambda: pack(*ws)):.4f} ms")
+
+
 def check_attention(blk, m_bool, suffix="", x=None):
     """Kernels 1 and 2 against their plain versions on the card, for the
     attention block ``blk`` on the bf16 input ``x`` (B, L, d), seeded random
@@ -238,6 +263,7 @@ def check_attention(blk, m_bool, suffix="", x=None):
                         replaces="scream_tpu/ops/attn_pallas.py:117"))
 
     # Kernel 2: attention apply + block tail (fed the plain stats).
+    check_pack(Wm, W1, W2, Wq, suffix="_apply" + suffix)
     args = (x, m, KVp, ksp, Wq, Wm, g1, b1, W1, W2, g2, b2)
     kw = dict(attn_eps=1e-6, ln_eps=1e-5, norm_dtype=f32)
     out = attn_cuda.attn_apply(*args, **kw)
@@ -823,6 +849,10 @@ def phase_kernels_train(model, batch):
         hook.remove()
     x, m_bool = seen[0]
     records = check_attention(model.trunk.stem_0, m_bool, suffix="_train", x=x)
+    # Ragged rows: the same input cut to 4,000 rows a pair, so the apply
+    # kernel's last 128-row tile of each pair is part-filled.
+    records += check_attention(model.trunk.stem_0, m_bool[:, :RAGGED_L].contiguous(),
+                               suffix="_train_L4000", x=x[:, :RAGGED_L].contiguous())
     log_records(records)
     return records
 
@@ -1182,6 +1212,7 @@ def check_tail(block, x, q, m_bool, suffix=""):
     w = [t.detach() for t in (block.merge.kernel, block.norm1.scale, block.norm1.bias,
                               block.ffn_in.kernel, block.ffn_out.kernel,
                               block.norm2.scale, block.norm2.bias)]
+    check_pack(w[0], w[3], w[4], suffix="_tail" + suffix)
     kern = lambda *a: tail_cuda.block_tail(*a, dtype=bf, norm_dtype=f32)
     plain = lambda *a: tail_plain(*a, cd=bf, nd=f32, eps=1e-5)
     with torch.no_grad():
@@ -1230,10 +1261,17 @@ def phase_kernels_dem(model, batch, path1_model, path1_batch):
 
     tb = to_device(batch, DEV)
     args = (tb["dsm"], tb["dem_coarse"], tb["dsm_mask"], tb["dem_coarse_mask"])
-    records = [check_tail(model.trunk.stem_src_0, *tail_inputs(
-                   model, model.trunk.stem_src_0, args)),
+    x, q, m_bool = tail_inputs(model, model.trunk.stem_src_0, args)
+    records = [check_tail(model.trunk.stem_src_0, x, q, m_bool),
                check_tail(model.trunk.stem_tgt_0, *tail_inputs(
                    model, model.trunk.stem_tgt_0, args), suffix="_coarse")]
+    # Ragged rows: the DSM stem's input cut to row counts that leave the
+    # last 64-row tile part-filled.
+    d = x.shape[-1]
+    for rows in RAGGED_TAIL_ROWS:
+        records.append(check_tail(model.trunk.stem_src_0, x.reshape(-1, d)[:rows],
+                                  q.reshape(-1, d)[:rows], m_bool.reshape(-1)[:rows],
+                                  suffix=f"_r{rows}"))
 
     unfused = PointTransformer(ModelConfig(fused_attention=False), device=DEV)
     unfused.load_state_dict(path1_model.state_dict())

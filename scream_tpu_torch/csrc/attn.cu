@@ -15,39 +15,46 @@
 // What bounds it on the H100: at the main path's shape (16 x 4096 rows,
 // d = 256, hidden 1024) the apply kernel does ~86 GFLOP per call against
 // ~67 MB of activations in and out, ~1,300 FLOP per byte, so it is bound by
-// tensor-core operations, not by HBM. The stats kernel does ~17 GFLOP over a
+// tensor-core operations, not by HBM; short of that, by how many rows each
+// weight byte read from L2 feeds. The stats kernel does ~17 GFLOP over a
 // 33 MB input and is bound the same way. At the GT-free serving shapes
 // (d = 128, hidden 512, 8 x 512 rows) a call is ~1.3 GFLOP, a few
 // microseconds of tensor-core time, so launch latency and the few blocks
-// (8 B for stats, 8 x ceil(L / 64) B for apply) bound it instead. What the
-// design does about it:
-//   * The projections, the FFN and the merge run on the tensor cores
-//     (WMMA bf16 16x16x16 fragments, fp32 accumulators), not on CUDA cores.
+// bound it instead. What the design does about it:
+//   * apply (the Hopper pipeline of hopper_tile.cuh): the query
+//     projection, the merge and the FFN run on wgmma with the 128-row tile
+//     as A in shared memory and the weights streamed through a ring of
+//     shared-memory stages by bulk copies that complete on mbarriers (one
+//     producer warpgroup, two consumer warpgroups of 64 rows each). After the
+//     projection, the per-head contraction with the fp32 KV and the
+//     normalizer run on CUDA cores in fp32 (2 R H hd^2 operations, a few
+//     percent of the products'); the message overwrites the tile, and the
+//     merge, LayerNorms and FFN are tail_tile.cuh's, the code tail.cu runs.
+//   * stats (the first, simple version: WMMA bf16 16x16x16 fragments, fp32
+//     accumulators, weights read from global memory): the projections run
+//     on the tensor cores; the TPU kernel builds the full d x d KV and
+//     zeroes the cross-head blocks, here one block per (batch, head) builds
+//     only its hd x hd diagonal block, looping over the sequence: 8 B
+//     blocks (128 at B = 16), no atomics, deterministic. The TPU's bf16
+//     hi/lo split of KV is a Mosaic workaround; the apply kernel reads the
+//     fp32 KV directly.
 //   * Nothing intermediate goes to device memory: projected K/V, Q, the
-//     message and the rows x 1024 FFN hidden stay in shared memory; the
-//     hidden is produced and consumed in 128-column chunks whose second
-//     product accumulates in registers.
-//   * Each warp owns whole column groups of every product, so each weight
-//     fragment is read from L2 once per block.
-//   * The TPU kernel builds the full d x d KV and zeroes the cross-head
-//     blocks; here one block per (batch, head) builds only its hd x hd
-//     diagonal block, looping over the sequence: 8 B blocks (128 at
-//     B = 16), no atomics, deterministic. The TPU's bf16 hi/lo split of KV is a Mosaic
-//     workaround; the apply kernel reads the fp32 KV directly.
-// This is the first, simple version (WMMA, no TMA/wgmma pipeline).
+//     message and the FFN hidden stay in shared memory or registers.
 //
 // Widths: one source serves d_model 256 (head_dim 32, the full model) and
 // d_model 128 (head_dim 16, the hint-free GT-free checkpoint), both with 8
 // heads; every kernel is a template on D and the C entry points dispatch on
-// d. At head_dim 16 two heads share a warp in the apply kernel, so the
-// normalizer is a half-warp sum, and the stats kernel's per-(batch, head)
-// KV is a single 16 x 16 fragment.
+// d. In the apply kernel a row's head dims lie in one quad of lanes at both
+// widths; the stats kernel's per-(batch, head) KV is a single 16 x 16
+// fragment at head_dim 16.
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py):
 // d_model 128 or 256, 8 heads, hidden a multiple of 128, all tensors
-// contiguous, bf16 activations and weights ((in, out) row-major), fp32
-// masks, LayerNorm params and statistics.
+// contiguous, bf16 activations and weights ((in, out) row-major for stats;
+// packed by ops/tail_cuda.py:pack_weights for apply), fp32 masks,
+// LayerNorm params and statistics.
 
+#include "tail_tile.cuh"
 #include "wmma_tile.cuh"
 
 namespace {
@@ -58,8 +65,6 @@ constexpr int H = 8;          // heads (both widths)
 constexpr int NT = 256;       // threads per block (8 warps)
 constexpr int NW = NT / 32;   // warps per block
 constexpr int TS = 64;        // stats: sequence rows per tile
-constexpr int TA = 64;        // apply: query rows per block
-constexpr int HC = 128;       // apply: FFN hidden columns per chunk
 
 // elu(x) + 1 as where(x > 0, x + 1, exp(x)), in fp32 (attn_pallas._elu1).
 __device__ __forceinline__ float elu1(float v) {
@@ -159,152 +164,131 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
-// Apply tiling at width D: each warp owns WC = D / 8 output columns (CF
-// fragments) of every D-wide product; the per-head contraction gives each
-// thread one column and every RP-th row.
+// Apply: the query projection on the ring, the attention on CUDA cores, then
+// the tail of tail_tile.cuh on the message. Extra shared memory: the
+// batch's KV (8 x HD x HD fp32) and K_sum (D fp32).
 template <int D>
 struct Apply {
+  using C = tail::Cfg<D>;
   static constexpr int HD = D / H;
-  static constexpr int WC = D / NW;         // 32, 16
-  static constexpr int CF = WC / 16;        // 2, 1
-  static constexpr int RP = NT / D;         // 1, 2
-  static constexpr size_t SMEM = (size_t)TA * D * 2     // xs: block input
-                                 + (size_t)TA * D * 2   // as: Q' / msg / LN1 out
-                                 + (size_t)TA * D * 4   // st: fp32 staging
-                                 + (size_t)TA * HC * 2  // hs: FFN hidden chunk
-                                 + (size_t)H * HD * HD * 4  // KV
-                                 + (size_t)D * 4        // K_sum
-                                 + (size_t)TA * 4;      // row mask
-  // st also stages the TA x HC hidden chunk; a head's columns lie in one warp.
-  static_assert(D >= HC && NT % D == 0 && 32 % HD == 0 && TA % RP == 0, "tiling");
+  static constexpr int EXTRA = H * HD * HD * 4 + D * 4;
+  using L = tail::Layout<D, EXTRA>;
+  static_assert(C::COLS == 1 && HD % 8 == 0, "apply: one warpgroup owns whole rows");
 };
 
-// Apply: grid (ceil(L / TA), B), one block per TA query rows.
+// Q' = (elu(bf16(q)) + 1) * mask in bf16 from the projection's accumulators,
+// then per head msg = bf16(Q' KV / (Q'.K_sum + eps)) in fp32, written into the
+// tile as the merge input. A row's head dims lie in the 4 lanes of a quad;
+// each lane takes the row's Q' values from its quad by shuffles and makes
+// the message for its own columns.
+template <int D, class Consumer>
+__device__ __forceinline__ void attend(const Consumer& c, float (&acc)[D / 2],
+                                       const float* __restrict__ mrow, int nvalid,
+                                       const float* kvs, const float* kss, float eps) {
+  constexpr int HD = D / H, HJ = HD / 8;
+  float m[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) m[hh] = c.row(hh) < nvalid ? mrow[c.row(hh)] : 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i)
+    acc[i] = hopper::round_bf16(elu1(hopper::round_bf16(acc[i]))) * m[(i >> 1) & 1];
+  const int base = c.lane & ~3, q4 = c.lane & 3;
+  unsigned char* t = reinterpret_cast<unsigned char*>(c.tile);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float att[2][HJ][2], z[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int jj = 0; jj < HJ; ++jj) att[hh][jj][0] = att[hh][jj][1] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      // Q'[row][h HD + d] is register 4 (h HJ + d/8) + 2 hh + d%2 of lane
+      // base + (d%8)/2.
+      const int i = 4 * (h * HJ + d / 8) + (d & 1);
+      const int src = base | ((d & 7) >> 1);
+      const float q0 = __shfl_sync(0xffffffffu, acc[i], src);
+      const float q1 = __shfl_sync(0xffffffffu, acc[i + 2], src);
+      const float ks = kss[h * HD + d];
+      z[0] += q0 * ks;
+      z[1] += q1 * ks;
+#pragma unroll
+      for (int jj = 0; jj < HJ; ++jj) {
+        const float2 kv = *reinterpret_cast<const float2*>(kvs + (h * HD + d) * HD + 8 * jj +
+                                                           2 * q4);
+        att[0][jj][0] += q0 * kv.x;
+        att[0][jj][1] += q0 * kv.y;
+        att[1][jj][0] += q1 * kv.x;
+        att[1][jj][1] += q1 * kv.y;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float inv = 1.f / (z[hh] + eps);
+#pragma unroll
+      for (int jj = 0; jj < HJ; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(
+            t + hopper::core_off(c.row(hh), h * HD + 8 * jj + 2 * q4, D)) =
+            __floats2bfloat162_rn(att[hh][jj][0] * inv, att[hh][jj][1] * inv);
+    }
+  }
+}
+
+// Apply: persistent grid over (batch, 128-row tile) pairs; a tile never
+// spans two batches, whose KV differ.
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(tail::kThreads, 1)
 attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
-                  const bf16* __restrict__ wq, const float* __restrict__ kv,
-                  const float* __restrict__ ksum, const bf16* __restrict__ wm,
-                  const float* __restrict__ g1, const float* __restrict__ b1,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                  const float* __restrict__ g2, const float* __restrict__ b2,
-                  bf16* __restrict__ out, int L, int hid, float attn_eps,
-                  float ln_eps) {
-  using C = Apply<D>;
-  constexpr int HD = C::HD, WC = C::WC, CF = C::CF;
+                  const unsigned char* __restrict__ wpack, const float* __restrict__ kv,
+                  const float* __restrict__ ksum, const float* __restrict__ g1,
+                  const float* __restrict__ b1, const float* __restrict__ g2,
+                  const float* __restrict__ b2, bf16* __restrict__ out, int B, int L,
+                  int hid, float attn_eps, float ln_eps) {
+  using A = Apply<D>;
+  using C = typename A::C;
+  using Lay = typename A::L;
+  constexpr int HD = A::HD;
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  bf16* xs = reinterpret_cast<bf16*>(p);  p += (size_t)TA * D * 2;
-  bf16* as = reinterpret_cast<bf16*>(p);  p += (size_t)TA * D * 2;
-  float* st = reinterpret_cast<float*>(p); p += (size_t)TA * D * 4;
-  bf16* hs = reinterpret_cast<bf16*>(p);  p += (size_t)TA * HC * 2;
-  float* kvs = reinterpret_cast<float*>(p); p += (size_t)H * HD * HD * 4;
-  float* kss = reinterpret_cast<float*>(p); p += (size_t)D * 4;
-  float* ms = reinterpret_cast<float*>(p);
-
-  const int b = blockIdx.y, r0 = blockIdx.x * TA;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  load_rows<D, NT>(xs, x + (size_t)b * L * D, r0, TA, L);
-  for (int i = tid; i < H * HD * HD; i += NT) kvs[i] = kv[(size_t)b * H * HD * HD + i];
-  for (int i = tid; i < D; i += NT) kss[i] = ksum[(size_t)b * D + i];
-  for (int i = tid; i < TA; i += NT) ms[i] = (r0 + i < L) ? mask[(size_t)b * L + r0 + i] : 0.f;
+  const typename Lay::Ring ring = Lay::ring(smem);
+  const int tpb = (L + C::TM - 1) / C::TM, ntiles = B * tpb;
+  if (threadIdx.x == 0) ring.init(tail::kConsumers);
   __syncthreads();
 
-  // q = x @ Wq; warp owns columns warp*WC .. +WC over all TA rows.
-  {
-    FragC acc[TA / 16][CF];
-    warp_zero(acc);
-    warp_mma(acc, xs, D, wq + warp * WC, D, D);
-    warp_store(acc, st + warp * WC, D);
-  }
-  __syncthreads();
-  for (int i = tid; i < TA * D; i += NT) {
-    const float q = round_bf16(st[i]);
-    as[i] = __float2bfloat16(round_bf16(elu1(q)) * ms[i / D]);
-  }
-  __syncthreads();
+  if (threadIdx.x >= 128 * tail::kConsumers) {
+    hopper::setmaxnreg_dec<tail::kProducerRegs>();
+    if (threadIdx.x == 128 * tail::kConsumers)
+      tail::produce(ring, wpack, C::stages(2, hid), C::STAGE, ntiles);
+  } else {
+    hopper::setmaxnreg_inc<tail::kConsumerRegs>();
+    tail::Consumer<D, typename Lay::Ring> c(smem, ring, Lay::TILE, Lay::HID, Lay::STATS);
+    float* kvs = reinterpret_cast<float*>(smem + Lay::EXTRA_OFF);
+    float* kss = kvs + H * HD * HD;
+    constexpr int NC = 128 * tail::kConsumers;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int b = t / tpb, l0 = (t % tpb) * C::TM + 64 * c.rg;
+      const int nvalid = L - l0;
+      const size_t row0 = (size_t)b * L + l0;
+      hopper::named_sync(3, NC);  // both warpgroups are done with the last KV
+      for (int i = threadIdx.x; i < H * HD * HD / 4; i += NC)
+        reinterpret_cast<float4*>(kvs)[i] =
+            reinterpret_cast<const float4*>(kv + (size_t)b * H * HD * HD)[i];
+      for (int i = threadIdx.x; i < D / 4; i += NC)
+        reinterpret_cast<float4*>(kss)[i] =
+            reinterpret_cast<const float4*>(ksum + (size_t)b * D)[i];
+      c.load_rows(x + row0 * D, nvalid);
+      hopper::fence_proxy_async();
+      hopper::named_sync(3, NC);
 
-  // Per-head contraction and normalizer. Thread tid owns column tid % D of
-  // rows tid / D, + RP, ...; the HD lanes of one head are an aligned group
-  // inside one warp (a whole warp at HD 32, a half-warp at HD 16), and all
-  // lanes of a warp walk the same rows, so the normalizer is a group sum.
-  {
-    const int col = tid % D, h = col / HD, cc = col % HD;
-    float kvc[HD];
+      float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < HD; ++j) kvc[j] = kvs[h * HD * HD + j * HD + cc];
-    const float ksc = kss[col];
-    for (int r = tid / D; r < TA; r += C::RP) {
-      const bf16* qrow = as + (size_t)r * D + h * HD;
-      float att = 0.f;
-#pragma unroll
-      for (int j = 0; j < HD; ++j) att += __bfloat162float(qrow[j]) * kvc[j];
-      const float z = group_sum<HD>(__bfloat162float(as[(size_t)r * D + col]) * ksc);
-      __syncwarp();
-      as[(size_t)r * D + col] = __float2bfloat16(att * (1.f / (z + attn_eps)));
-    }
-  }
-  __syncthreads();
-
-  // Merge, + x, LN1 -> as (bf16).
-  {
-    FragC acc[TA / 16][CF];
-    warp_zero(acc);
-    warp_mma(acc, as, D, wm + warp * WC, D, D);
-    warp_store(acc, st + warp * WC, D);
-  }
-  __syncthreads();
-  for (int r = warp; r < TA; r += NW) {
-    float v[D / 32];
-#pragma unroll
-    for (int k = 0; k < D / 32; ++k) {
-      const int c = lane + 32 * k;
-      v[k] = round_bf16(round_bf16(st[(size_t)r * D + c]) +
-                        __bfloat162float(xs[(size_t)r * D + c]));
-    }
-    ln_row<D>(v, g1, b1, ln_eps, lane);
-#pragma unroll
-    for (int k = 0; k < D / 32; ++k)
-      as[(size_t)r * D + lane + 32 * k] = __float2bfloat16(v[k]);
-  }
-  __syncthreads();
-
-  // FFN in hidden chunks: f += relu(bf16(y @ W1[:, chunk])) @ W2[chunk, :].
-  // Each warp produces 16 of a chunk's HC columns.
-  FragC facc[TA / 16][CF];
-  warp_zero(facc);
-  for (int h0 = 0; h0 < hid; h0 += HC) {
-    {
-      FragC hacc[TA / 16][1];
-      warp_zero(hacc);
-      warp_mma(hacc, as, D, w1 + h0 + warp * (HC / NW), hid, D);
-      warp_store(hacc, st + warp * (HC / NW), HC);
-    }
-    __syncthreads();
-    for (int i = tid; i < TA * HC; i += NT)
-      hs[i] = __float2bfloat16(fmaxf(round_bf16(st[i]), 0.f));
-    __syncthreads();
-    warp_mma(facc, hs, HC, w2 + (size_t)h0 * D + warp * WC, D, HC);
-    __syncthreads();
-  }
-  warp_store(facc, st + warp * WC, D);
-  __syncthreads();
-
-  // + x, LN2 -> out.
-  for (int r = warp; r < TA; r += NW) {
-    float v[D / 32];
-#pragma unroll
-    for (int k = 0; k < D / 32; ++k) {
-      const int c = lane + 32 * k;
-      v[k] = round_bf16(__bfloat162float(xs[(size_t)r * D + c]) +
-                        round_bf16(st[(size_t)r * D + c]));
-    }
-    ln_row<D>(v, g2, b2, ln_eps, lane);
-    if (r0 + r < L) {
-      bf16* orow = out + ((size_t)b * L + r0 + r) * D;
-#pragma unroll
-      for (int k = 0; k < D / 32; ++k) orow[lane + 32 * k] = __float2bfloat16(v[k]);
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      hopper::ring_mma<D, 2>(acc, c.ring, C::S_D, hopper::smem_u32(c.tile), 16 * D, 0,
+                             32 * D, c.wt);
+      c.sync();  // every warp's wgmma on the tile has completed
+      attend<D>(c, acc, mask + row0, nvalid, kvs, kss, attn_eps);
+      hopper::fence_proxy_async();
+      c.sync();
+      c.run(x + row0 * D, out + row0 * D, nvalid, g1, b1, g2, b2, hid, ln_eps);
     }
   }
 }
@@ -324,21 +308,21 @@ int launch_stats(const void* x, const void* mask, const void* wk,
 }
 
 template <int D>
-int launch_apply(const void* x, const void* mask, const void* wq,
-                 const void* kv, const void* ksum, const void* wm,
-                 const void* g1, const void* b1, const void* w1,
-                 const void* w2, const void* g2, const void* b2, void* out,
-                 int B, int L, int hid, float attn_eps, float ln_eps,
-                 cudaStream_t stream) {
-  constexpr size_t smem = Apply<D>::SMEM;
+int launch_apply(const void* x, const void* mask, const void* wpack, const void* kv,
+                 const void* ksum, const void* g1, const void* b1, const void* g2,
+                 const void* b2, void* out, int B, int L, int hid, float attn_eps,
+                 float ln_eps, cudaStream_t stream) {
+  using C = tail::Cfg<D>;
+  constexpr int smem = Apply<D>::L::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_apply_kernel<D><<<dim3((L + TA - 1) / TA, B), NT, smem, stream>>>(
-      (const bf16*)x, (const float*)mask, (const bf16*)wq, (const float*)kv,
-      (const float*)ksum, (const bf16*)wm, (const float*)g1, (const float*)b1,
-      (const bf16*)w1, (const bf16*)w2, (const float*)g2, (const float*)b2,
-      (bf16*)out, L, hid, attn_eps, ln_eps);
+  const int ntiles = B * ((L + C::TM - 1) / C::TM);
+  const int grid = ntiles < tail::num_sms() ? ntiles : tail::num_sms();
+  attn_apply_kernel<D><<<grid, tail::kThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)mask, (const unsigned char*)wpack, (const float*)kv,
+      (const float*)ksum, (const float*)g1, (const float*)b1, (const float*)g2,
+      (const float*)b2, (bf16*)out, B, L, hid, attn_eps, ln_eps);
   return (int)cudaGetLastError();
 }
 
@@ -357,21 +341,20 @@ int scream_attn_stats(const void* x, const void* mask, const void* wk,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, L, d) bf16, d in {128, 256}, hidden a multiple of 128 -> out
-// (B, L, d) bf16.
-int scream_attn_apply(const void* x, const void* mask, const void* wq,
-                      const void* kv, const void* ksum, const void* wm,
-                      const void* g1, const void* b1, const void* w1,
-                      const void* w2, const void* g2, const void* b2, void* out,
-                      int B, int L, int d, int hid, float attn_eps,
-                      float ln_eps, void* stream) {
+// x (B, L, d) bf16, d in {128, 256}, hidden a multiple of 128, wpack the
+// packed Wq, Wm, W1, W2 (pack_weights) -> out (B, L, d) bf16.
+int scream_attn_apply(const void* x, const void* mask, const void* wpack, const void* kv,
+                      const void* ksum, const void* g1, const void* b1, const void* g2,
+                      const void* b2, void* out, int B, int L, int d, int hid,
+                      float attn_eps, float ln_eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || L <= 0 || hid <= 0 || hid % 128) return (int)cudaErrorInvalidValue;
   if (d == 256)
-    return launch_apply<256>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2,
-                             out, B, L, hid, attn_eps, ln_eps, s);
+    return launch_apply<256>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L, hid,
+                             attn_eps, ln_eps, s);
   if (d == 128)
-    return launch_apply<128>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2,
-                             out, B, L, hid, attn_eps, ln_eps, s);
+    return launch_apply<128>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L, hid,
+                             attn_eps, ln_eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
-// Tile helpers shared by the WMMA kernels (attn.cu, tail.cu): bf16 16x16x16
+// Tile helpers of the WMMA kernel (attn.cu's stats kernel): bf16 16x16x16
 // fragments with fp32 accumulators, a warp's share of a product with its A
 // operand in shared memory and its B operand (a weight) in global memory,
-// row loads with a zero-filled ragged edge, and the flax LayerNorm of one
-// row held by one warp.
+// and row loads with a zero-filled ragged edge. The apply and tail kernels
+// run on the Hopper pipeline of hopper_tile.cuh instead.
 
 #pragma once
 
@@ -23,15 +23,6 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// Sum over aligned groups of W lanes (W = 32: the whole warp; W = 16: each
-// half-warp).
-template <int W>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // One warp's share of C (+)= A @ B: RF row fragments x CF column fragments.
@@ -88,26 +79,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
     if (r0 + r < limit)
       v = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D)[c];
     reinterpret_cast<uint4*>(dst)[i] = v;
-  }
-}
-
-// LayerNorm of one row held by one warp (lane owns columns lane + 32 k),
-// flax math: fp32 stats, var = max(0, E[x^2] - mu^2), rsqrt(var+eps)*g.
-template <int D>
-__device__ __forceinline__ void ln_row(float (&v)[D / 32], const float* g,
-                                       const float* bta, float eps, int lane) {
-  float s = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < D / 32; ++k) { s += v[k]; s2 += v[k] * v[k]; }
-  s = group_sum<32>(s);
-  s2 = group_sum<32>(s2);
-  const float mu = s / D;
-  const float var = fmaxf(0.f, s2 / D - mu * mu);
-  const float r = rsqrtf(var + eps);
-#pragma unroll
-  for (int k = 0; k < D / 32; ++k) {
-    const int c = lane + 32 * k;
-    v[k] = (v[k] - mu) * (r * g[c]) + bta[c];
   }
 }
 

@@ -94,11 +94,12 @@ def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "scream_attn_stats": [P, P, P, P, P, P, I, I, I, P],
-        "scream_attn_apply": [P] * 13 + [I, I, I, I, F, F, P],
+        "scream_attn_apply": [P] * 10 + [I, I, I, I, F, F, P],
         "scream_nn_exact": [P, P, P, P, I, I, I, P],
         "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
         "scream_max_splat": [P, P, P, P, I, I, I, F, P],
-        "scream_block_tail": [P] * 10 + [I, I, I, F, P],
+        "scream_block_tail": [P] * 8 + [I, I, I, F, P],
+        "scream_pack_weights": [P, P, P, P, I, P, I, I, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -8,7 +8,9 @@ hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py
 * :func:`attn_apply` (kernel ``attn_apply_kernel``, replaces ``_apply_kernel``):
   per row tile, ``q = x @ Wq``, ``Q' = (elu(q)+1) * mask``, the per-head
   contraction with the fp32 KV, the fp32 normalizer ``1/(Q'.K_sum + eps)``,
-  then ``LN2(x + FFN(LN1(msg @ Wm + x)))``.
+  then ``LN2(x + FFN(LN1(msg @ Wm + x)))`` through the tail kernel's code
+  (``csrc/tail_tile.cuh``); its weights stream through a shared-memory ring,
+  packed by ``ops/tail_cuda.py:pack_weights``.
 
 The kernels take bf16 at d_model 128 and 256 with 8 heads (head dim 16 and
 32, ``KERNEL_WIDTHS``). Each wrapper launches its kernel for CUDA tensors
@@ -27,6 +29,7 @@ import torch
 
 from scream_tpu_torch.ops import _build
 from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
+from scream_tpu_torch.ops.tail_cuda import pack_weights
 
 # What the CUDA kernels take: d_model 128 or 256 split into 8 heads (head
 # dim 16 or 32), a hidden width in 128-column chunks, bf16 compute.
@@ -112,7 +115,7 @@ def attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
 
 
 def _check(t, name, dtype, shape):
-    # 32-byte alignment: the WMMA fragment loads need it.
+    # 32-byte alignment: the stats kernel's WMMA fragment loads need it.
     _build.check_tensor(t, name, dtype, shape, align=32)
 
 
@@ -172,10 +175,15 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     for name, p in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2)):
         _check(p, name, f32, (d,))
     out = torch.empty((B, L, d), device=x.device, dtype=bf)
+    if B * L == 0:
+        return out
+    # Wq, Wm, W1, W2 packed once per call for the kernel's weight ring
+    # (ops/tail_cuda.py:pack_weights).
+    wpack = pack_weights(Wm, W1, W2, Wq=Wq)
+    _check(wpack, "packed weights", bf, (2 * d * d + 2 * d * hid,))
     err = _build.kernels().scream_attn_apply(
-        x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(),
-        ksum.data_ptr(), Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-        W1.data_ptr(), W2.data_ptr(), g2.data_ptr(), b2.data_ptr(),
+        x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), KV.data_ptr(),
+        ksum.data_ptr(), g1.data_ptr(), b1.data_ptr(), g2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), B, L, d, hid, float(attn_eps), float(ln_eps),
         _build.stream_ptr(x))
     _build.check(err, "attn_apply")

@@ -13,6 +13,14 @@ The kernel takes bf16 at d_model 128, 256, 384 and 512 (every bf16 width at
 hidden 4d where the JAX package's tail rule holds) with a hidden width in
 128-column chunks (:func:`kernel_takes`). fp32 has no kernel yet (ROADMAP).
 
+The kernel streams its weights through a ring of shared-memory stages
+(``csrc/tail_tile.cuh``), one bulk copy a stage; :func:`pack_weights` lays
+the weights out once per call in the order and byte layout the stages are
+consumed in (the apply kernel of ``ops/attn_cuda.py`` uses it too, with
+``Wq`` in front): on the card in one launch of ``pack_kernel``
+(``csrc/tail.cu``), part of each wrapper's work, and for CPU tensors by
+permuted copies, its plain version.
+
 The backward recomputes :func:`tail_plain` from the saved inputs and
 differentiates it, as the JAX package's ``custom_vjp`` (``tail_bwd``) does;
 the JAX package has no backward kernel for the tail.
@@ -35,9 +43,74 @@ def kernel_takes(d: int, hid: int, dtype: torch.dtype) -> bool:
             and dtype == torch.bfloat16)
 
 
+def _kmajor(W, ks):
+    """View of ``W`` ``(K, N)`` as stages of ``ks`` k-rows in the wgmma
+    operand layout: dims (stage, k16 step, column group of 8, k half, column
+    in group, k in half), each innermost 8 k values one 16-byte core-matrix
+    row (``csrc/hopper_tile.cuh``)."""
+    K, N = W.shape
+    return W.reshape(K // ks, ks // 16, 2, 8, N // 8, 8).permute(0, 1, 4, 2, 5, 3)
+
+
+def pack_weights(Wm, W1, W2, Wq=None) -> torch.Tensor:
+    """The tail's weights (and the apply kernel's ``Wq``, first) as one flat
+    bf16 blob of ring stages in the order the kernels consume them:
+    ``[Wq], Wm``, then per hidden chunk of ``hc`` columns its W1 columns and
+    its W2 rows. Weights are ``(in, out)``, any float dtype (cast to bf16
+    here); raises on a shape the kernels do not take. CUDA weights go
+    through ``pack_kernel``, CPU weights through the permuted copies below,
+    which define the layout."""
+    if Wm.dim() != 2 or W1.dim() != 2 or W2.dim() != 2:
+        raise ValueError("pack_weights: Wm, W1 and W2 must be matrices")
+    d, hid = W1.shape
+    if d not in KERNEL_WIDTHS or hid <= 0 or hid % KERNEL_HID_CHUNK:
+        raise ValueError(f"pack_weights: d in {KERNEL_WIDTHS} and a hidden multiple "
+                         f"of {KERNEL_HID_CHUNK}; got W1 {tuple(W1.shape)}")
+    if tuple(Wm.shape) != (d, d) or tuple(W2.shape) != (hid, d):
+        raise ValueError(f"pack_weights: Wm {tuple(Wm.shape)} and W2 {tuple(W2.shape)} "
+                         f"do not match W1 {tuple(W1.shape)}")
+    # The ring's geometry (csrc/tail_tile.cuh:Cfg): at d > 256 two
+    # warpgroups split each row's columns and a hidden chunk is 128
+    # columns, else 64; a W1 stage holds ks_h k-rows of a chunk, any other
+    # stage 32 k-rows of a (., d) weight.
+    cols = 2 if d > 256 else 1
+    hc, ks_h, nch = 64 * cols, d // (2 * cols), hid // (64 * cols)
+    if Wq is not None and (tuple(Wq.shape) != (d, d) or cols != 1):
+        raise ValueError(f"pack_weights: Wq must be ({d}, {d}) at d <= 256 (the "
+                         f"apply kernel's widths), got {tuple(Wq.shape)}")
+    ws = ([Wq] if Wq is not None else []) + [Wm, W1, W2]
+    if any(not w.is_floating_point() or w.device != W1.device for w in ws):
+        raise ValueError("pack_weights: float weights on one device")
+    square = ws[:-2]
+    blob = torch.empty(len(square) * d * d + 2 * d * hid, dtype=torch.bfloat16,
+                       device=W1.device)
+    if _build.route(W1):
+        dt = W1.dtype if W1.dtype in (torch.float32, torch.bfloat16) else torch.bfloat16
+        src = [w.to(dt).contiguous() for w in ws]
+        ptr = [w.data_ptr() for w in src]
+        err = _build.kernels().scream_pack_weights(
+            ptr[0] if Wq is not None else None, *ptr[-3:], int(dt == torch.float32),
+            blob.data_ptr(), d, hid, _build.stream_ptr(W1))
+        _build.check(err, "pack_weights")
+        return blob
+    with torch.no_grad():
+        for i, W in enumerate(square):
+            blob[i * d * d:(i + 1) * d * d].view(d // 32, 2, d // 8, 2, 8, 8).copy_(
+                _kmajor(W, 32))
+        chunks = blob[len(square) * d * d:].view(nch, 2 * d * hc)
+        # W1 (d, hid): chunk n's columns, stages of ks_h k-rows.
+        chunks[:, :d * hc].view(nch, d // ks_h, ks_h // 16, hc // 8, 2, 8, 8).copy_(
+            W1.reshape(d // ks_h, ks_h // 16, 2, 8, nch, hc // 8, 8)
+            .permute(4, 0, 1, 5, 2, 6, 3))
+        # W2 (hid, d): chunk n's rows, stages of 32 k-rows.
+        chunks[:, d * hc:].view(nch, hc // 32, 2, d // 8, 2, 8, 8).copy_(
+            W2.reshape(nch, hc // 32, 2, 2, 8, d // 8, 8).permute(0, 1, 2, 5, 3, 6, 4))
+    return blob
+
+
 def _check(t, name, dtype, shape):
-    # 32-byte alignment: the WMMA fragment loads need it.
-    _build.check_tensor(t, name, dtype, shape, align=32)
+    # 16-byte alignment: the kernel loads rows in 16-byte vectors.
+    _build.check_tensor(t, name, dtype, shape, align=16)
 
 
 def _tail_forward(x, q, Wm, g1, b1, W1, W2, g2, b2, kw):
@@ -54,28 +127,26 @@ def _tail_forward(x, q, Wm, g1, b1, W1, W2, g2, b2, kw):
     if nd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"block_tail kernel: norm dtype {nd} unsupported")
     bf, f32 = torch.bfloat16, torch.float32
-    # Weights cast to bf16 once per call, outside the kernel
-    # (ffn_pallas.py:119-121).
     c = lambda t: t.to(bf).contiguous()
     p = lambda t: t.to(f32).contiguous()
     x2, q2 = c(x).reshape(-1, d), c(q).reshape(-1, d)
-    Wm, W1, W2 = c(Wm), c(W1), c(W2)
     g1, b1, g2, b2 = p(g1), p(b1), p(g2), p(b2)
     R = x2.shape[0]
     _check(x2, "x", bf, (R, d))
     _check(q2, "q", bf, (R, d))
-    _check(Wm, "Wm", bf, (d, d))
-    _check(W1, "W1", bf, (d, hid))
-    _check(W2, "W2", bf, (hid, d))
     for name, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2)):
         _check(t, name, f32, (d,))
     out = torch.empty((R, d), device=x.device, dtype=bf)
     if R == 0:
         return out.reshape(*lead, d)
+    # The weights cast to bf16 and packed for the ring once per call
+    # (ffn_pallas.py:119-121 casts once per call too).
+    wpack = pack_weights(Wm, W1, W2)
+    _check(wpack, "packed weights", bf, (d * d + 2 * d * hid,))
     err = _build.kernels().scream_block_tail(
-        x2.data_ptr(), q2.data_ptr(), Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-        W1.data_ptr(), W2.data_ptr(), g2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        R, d, hid, float(eps), _build.stream_ptr(x))
+        x2.data_ptr(), q2.data_ptr(), wpack.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+        g2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, d, hid, float(eps),
+        _build.stream_ptr(x))
     _build.check(err, "block_tail")
     block_tail.launches += 1
     return out.reshape(*lead, d)
