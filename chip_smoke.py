@@ -11,6 +11,12 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
 3. kernels @ d=256: each kernel against its plain PyTorch version on the
    card, at the ``register_batch`` path's shapes, with its time, the plain
    version's time and the least time the card could take for the same work;
+   the stats kernel also launched twice (bit identical) and with one batch's
+   mask all zero (exactly 0), gated at 0.25 ms; the bounded NN with the
+   tile boxes given (the boxes kernel against its plain version) and made
+   per call (identical), gated at 0.10 ms, and on exact ties (16 lanes, one
+   dead: the lowest index wins, bit for bit); the stats projection alone as
+   one ``torch.matmul`` (a reference line);
 4. path 1, ``register_batch`` at 16 pairs x 4,096 points, full-width
    ``ModelConfig`` from a seeded random init, 30 ICP iterations, distinct
    inputs per call, with and without ``icp_subsample=1024``; pairs/s, each
@@ -18,8 +24,11 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
 5. oracle pose: the pose solve and ICP fed the GT-posed source plus noise
    must recover the pose; the same solve on the CPU path must agree;
 6. kernels at the GT-free serving path's shapes against their plain
-   versions: d=128 (head dim 16) attention, the exact NN at B = 1, 7, 8,
-   the batched bounded NN at B = 7, 8, 14 and the unbatched one at B = 1;
+   versions: d=128 (head dim 16) attention (stats gated at 0.12 ms), the
+   exact NN at B = 1, 7, 8, the batched bounded NN at B = 7, 8, 14 and the
+   unbatched one at B = 1 (gated at 0.06 ms at 512 and 4,096 points, and
+   on exact ties); ICP's NN launches a step, read from the wrappers'
+   device-launch counts (one a step, one box launch a call);
 7. path 2, GT-free serving with the shipped hint-free checkpoint
    (``scream_tpu_torch/weights/point-generator-hintfree``): 16 fresh
    448-point pairs (seed 100, poses <= 30 deg) through
@@ -42,7 +51,8 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     logits on real and fake renders (8 pairs x 512 points) on both; then
     timed training at 8 pairs x 4,096 points, G + D iterations and G-only
     steps, pairs/s, stage times and launches (splat, stats, apply > 0); the
-    stats and apply kernels also on that input cut to 4,000 rows a pair;
+    stats and apply kernels also on that input cut to 4,000 rows a pair
+    (stats at 8 x 4,096 gated at 0.15 ms and below its plain version);
 11. path 4, OpenGF training (``opengf_presets()`` at d_model 512: 8 heads
     of 64, 6 + 6 layers, separate stems, seeded random init, GAN off), where
     every attention block runs the tail kernel: ``csrc/tail.cu`` against its
@@ -79,7 +89,7 @@ HINTFREE = os.path.join("scream_tpu_torch", "weights", "point-generator-hintfree
 GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED = 16, 448, 100  # measure_gt_free.py
 SERVE_BATCH, SERVE_PAIRS = 8, 64  # the README's serving shape: 8 x 512
 TRANSFORM_TOL = 5e-2  # card vs CPU path, per transform entry (bf16 forward)
-PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
+PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded", "nn_tile_boxes")
 PATH2_KERNELS = PATH1_KERNELS + ("nn_bounded_single",)
 # Path 3: threedmatch_presets() (batch 8, max_points 4,096) with use_gan;
 # KITTI's max_points 8,192 for the KITTI GAN render shape.
@@ -100,6 +110,15 @@ WORK_DIR = os.path.join("build", "chip_smoke_work")  # checkpoints; removed at t
 SPLAT_OPS_PER_PAIR = 13
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Time gates (ms): the stats kernel at each path's shape (the training
+# shape also below its plain version), the bounded NN as ICP calls it. A
+# gated kernel's ms and its plain version's are each the best of
+# TIME_ROUNDS timing rounds, so that one round slowed by the host's
+# neighbours does not decide it; every round is logged. Other rows time
+# one round on both sides.
+STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12}
+NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
+TIME_ROUNDS = 3
 OUT_DIR = "chiprun_out"
 DEV = "cuda"  # every phase runs on the card
 
@@ -136,6 +155,12 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn, rounds=TIME_ROUNDS, **kw):
+    """(best, all): ``rounds`` runs of :func:`cuda_ms`."""
+    t = [cuda_ms(fn, **kw) for _ in range(rounds)]
+    return min(t), t
 
 
 def rel_err(got, want, rows=None):
@@ -245,15 +270,37 @@ def check_attention(blk, m_bool, suffix="", x=None):
     g1, b1, g2, b2 = (p(blk.norm1.scale), p(blk.norm1.bias), p(blk.norm2.scale),
                       p(blk.norm2.bias))
 
-    # Kernel 1: attention statistics.
+    # Kernel 1: attention statistics, against the plain version; two
+    # launches bit identical (the sums add in row order); a batch
+    # whose mask is all zero gives exactly 0; the time gate of the shape.
     KV, ks = attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H)
     KVp, ksp = attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H)
     torch.cuda.synchronize()
     err = max(rel_err(KV, KVp), rel_err(ks, ksp))
     abs_err = max(float((KV - KVp).abs().max()), float((ks - ksp).abs().max()))
     check(err <= 5e-3, f"attn_stats{suffix}: relative error {err:.3g} > 5e-3")
-    ms = cuda_ms(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H))
-    pms = cuda_ms(lambda: attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H))
+    KV2, ks2 = attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H)
+    same = bool(torch.equal(KV, KV2) and torch.equal(ks, ks2))
+    m0 = m.clone()
+    m0[0] = 0.0
+    KV0, ks0 = attn_cuda.attn_stats(x, m0, Wk, Wv, num_heads=H)
+    zero = bool((KV0[0] == 0).all() and (ks0[0] == 0).all())
+    err0 = max(rel_err(KV0[1:], KVp[1:]), rel_err(ks0[1:], ksp[1:])) if Bx > 1 else 0.0
+    check(same and zero and err0 <= 5e-3,
+          f"attn_stats{suffix}: two launches identical {same}, all-masked batch zero "
+          f"{zero}, the other batches' relative error {err0:.3g}")
+    ms, ms_all = timed(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H))
+    pms, pms_all = timed(lambda: attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H))
+    gate = STATS_GATE_MS.get(suffix)
+    if gate is not None:
+        check(ms <= gate and (suffix != "_train" or ms < pms),
+              f"attn_stats{suffix}: {ms:.4f} ms (rounds {ms_all}) against the {gate} ms "
+              f"gate{' and its plain version ' + f'{pms:.4f} ms' if suffix == '_train' else ''}")
+    log(f"kernel attn_stats{suffix} ({Bx} x {L}, d {d}, {attn_cuda.stats_tiles(L)} tiles a "
+        f"batch): two launches bit identical {same}, all-masked batch exactly 0 {zero} | "
+        f"timing rounds {', '.join(f'{t:.4f}' for t in ms_all)} ms, plain "
+        f"{', '.join(f'{t:.4f}' for t in pms_all)} ms"
+        + (f" (gate {gate} ms on the best)" if gate is not None else ""))
     hd = d // H
     b_ms, b_by = bound(Bx * L * d * 2 + Bx * L * 4 + 2 * d * d * 2 + Bx * (H * hd * hd + d) * 4,
                        [(2 * Bx * L * d * 2 * d + 2 * Bx * L * H * hd * hd, PEAK_BF16)])
@@ -303,6 +350,22 @@ def check_attention(blk, m_bool, suffix="", x=None):
     return records
 
 
+def stats_matmul_reference():
+    """A reference line, not ``library_ms``: the stats kernel's projection
+    alone, one bf16 ``torch.matmul`` of (B S, d) x (d, 2 d), at path 1's
+    65,536 rows and path 3's 32,768 (d 256)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(5)
+    parts = []
+    for rows in (65536, 32768):
+        x = torch.randn((rows, 256), generator=g, device=DEV).to(torch.bfloat16)
+        W = torch.randn((256, 512), generator=g, device=DEV).to(torch.bfloat16)
+        parts.append(f"{rows} x 256 x 512 {cuda_ms(lambda: x @ W):.4f} ms")
+    log("reference (not library_ms): the stats projection alone as one bf16 torch.matmul: "
+        + ", ".join(parts))
+
+
 def log_records(records):
     for r in records:
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
@@ -348,26 +411,78 @@ def check_exact(src, dst, label):
 def check_bounded(fn, s_t, dst, thresh_sq, dead, label):
     """A bounded-NN wrapper ``fn`` against ``nn_bounded_plain``: exact
     distances (1e-6) and equal winners within the threshold, at least the
-    threshold outside it, the sentinel on dead lanes. Returns the largest
-    distance error."""
+    threshold outside it, the sentinel on dead lanes; the tile boxes kernel
+    equal to its plain version, and the call with those boxes given (as ICP
+    makes it) bit identical to the call that makes its own. Returns the
+    largest distance error."""
     import torch
 
     from scream_tpu_torch.ops import nn_cuda
 
     d2, xyz = fn(s_t, dst, thresh_sq, dead)
+    boxes = nn_cuda.nn_tile_boxes(dst)
+    d2b, xyzb = fn(s_t, dst, thresh_sq, dead, boxes=boxes)
     d2p, xyzp = nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, dead)
     torch.cuda.synchronize()
+    boxes_ok = bool(torch.equal(boxes, nn_cuda.tile_boxes(dst)))
+    given_ok = bool(torch.equal(d2b, d2) and torch.equal(xyzb, xyz))
     live = ~dead[:, None].expand_as(d2)
     within = (d2p < thresh_sq) & live
     abs_err = float((d2 - d2p)[within].abs().max())
     coords_equal = bool(torch.equal(xyz[within], xyzp[within]))
     dead_ok = bool((d2[~live] == nn_cuda.NO_HIT).all())
     outside_ok = bool((d2[live & ~within] >= thresh_sq).all())
-    check(abs_err <= 1e-6 and coords_equal and dead_ok and outside_ok
-          and int(within.sum()) > 0,
+    check(abs_err <= 1e-6 and coords_equal and dead_ok and outside_ok and boxes_ok
+          and given_ok and int(within.sum()) > 0,
           f"{label}: distance error {abs_err:.3g}, coords equal {coords_equal}, "
-          f"dead lanes ok {dead_ok}, outside ok {outside_ok}")
+          f"dead lanes ok {dead_ok}, outside ok {outside_ok}, boxes equal {boxes_ok}, "
+          f"given boxes identical {given_ok}")
     return abs_err
+
+
+def tie_scene(n_lanes, n_grid, device):
+    """Exact ties with distinct winners: src on a 1/4 grid (each point
+    twice), dst the grid moved by -1/32 in x (first half) and +1/32 (second
+    half). All values are short dyadic fractions, so both candidates' d2 are
+    equal bit for bit and the -1/32 copy, the lower index, must win."""
+    import numpy as np
+    import torch
+
+    k = np.arange(n_grid)
+    g = np.stack([(k % 16) / 4, (k // 16 % 16) / 4, (k // 256) / 4], -1).astype(np.float32)
+    e = np.array([1 / 32, 0, 0], np.float32)
+    rep = lambda a: torch.as_tensor(np.repeat(a[None], n_lanes, 0), device=device)
+    return rep(np.concatenate([g, g])), rep(np.concatenate([g - e, g + e]))
+
+
+def check_ties(n_lanes, n_grid, dead_lane=None):
+    """The bounded NN on exact ties (:func:`tie_scene`), ``nn_bounded_single``
+    at one lane, else ``nn_bounded``: distances and winners bit for bit
+    against the plain version, every winner the lowest dst index, dead lanes
+    at the sentinel. Returns a log fragment."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+
+    src, dst = tie_scene(n_lanes, n_grid, DEV)
+    dead = torch.zeros(n_lanes, dtype=torch.bool, device=DEV)
+    if dead_lane is not None:
+        dead[dead_lane] = True
+    fn = nn_cuda.nn_bounded_single if n_lanes == 1 else nn_cuda.nn_bounded
+    thresh_sq = float(torch.tensor(0.1, dtype=torch.float32) ** 2)
+    d2, xyz = fn(src, dst, thresh_sq, dead, boxes=nn_cuda.nn_tile_boxes(dst))
+    d2p, xyzp = nn_cuda.nn_bounded_plain(src, dst, thresh_sq, dead)
+    torch.cuda.synchronize()
+    live = ~dead
+    M = dst.shape[1]
+    exact = bool(torch.equal(d2[live], d2p[live]) and torch.equal(xyz[live], xyzp[live]))
+    lowest = bool(torch.equal(xyz[live], dst[:, :M // 2].repeat(1, 2, 1)[live]))
+    sentinel = bool((d2[dead] == nn_cuda.NO_HIT).all() and (xyz[dead] == 0).all())
+    splits = nn_cuda.bounded_splits(n_lanes, src.shape[1], M)
+    check(exact and lowest and sentinel,
+          f"bounded NN ties {n_lanes} x {src.shape[1]}: bit-identical {exact}, lowest "
+          f"index {lowest}, dead lanes at the sentinel {sentinel}")
+    return f"ties {n_lanes} x {src.shape[1]} ({splits} splits) exact, lowest index"
 
 
 def icp_view(src_dn, tgt_dn, src_mask, tgt_mask, T):
@@ -397,6 +512,7 @@ def phase_kernels(model, batch):
     tb = to_device(batch, dev)
     m_bool = tb["tgt_mask"]
     records = check_attention(model.trunk.stem_0, m_bool)
+    stats_matmul_reference()
 
     # Kernel 3: exact NN of the pose solve (src_pred/s against tgt/s).
     inv_s = (1.0 / tb["scale"])[:, None, None]
@@ -430,8 +546,22 @@ def phase_kernels(model, batch):
         abs_err = check_bounded(nn_cuda.nn_bounded, s_t, dst, thresh_sq, dead,
                                 f"nn_bounded n={n}")
         alive = torch.zeros(B, dtype=torch.bool, device=dev)
-        ms = cuda_ms(lambda: nn_cuda.nn_bounded(s_t, dst, thresh_sq, alive))
-        pms = cuda_ms(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, alive), reps=3)
+        boxes = nn_cuda.nn_tile_boxes(dst)
+        # Timed as ICP calls it: the boxes made once per ICP call, given.
+        ms, ms_all = timed(lambda: nn_cuda.nn_bounded(s_t, dst, thresh_sq, alive,
+                                                      boxes=boxes))
+        own = cuda_ms(lambda: nn_cuda.nn_bounded(s_t, dst, thresh_sq, alive))
+        pms, pms_all = timed(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, alive),
+                             reps=3)
+        if n == CAP:
+            check(ms <= NN_BATCHED_GATE_MS,
+                  f"nn_bounded {B} x {n}: {ms:.4f} ms (rounds {ms_all}) > "
+                  f"{NN_BATCHED_GATE_MS} ms")
+            log(f"kernel nn_bounded {B} x {n} ({nn_cuda.bounded_splits(B, n, CAP)} split): "
+                f"timing rounds {', '.join(f'{t:.4f}' for t in ms_all)} ms with the boxes "
+                f"given (gate {NN_BATCHED_GATE_MS} ms on the best), {own:.4f} ms making them; "
+                f"plain {', '.join(f'{t:.4f}' for t in pms_all)} ms")
+            check_boxes(dst)
         # Work this run's data needs: the live (sub-slab, tile) pairs.
         live, total = live_pairs(s_t, dst, thresh_sq)
         b_ms, b_by = bound(B * n * 12 + B * CAP * 12 + B * n * 16,
@@ -443,9 +573,29 @@ def phase_kernels(model, batch):
                    replaces="scream_tpu/ops/nn_pallas.py:376",
                    live_share=live / total)
         records.append(rec)
+    log("kernels at path 1's batch, bounded NN on exact ties: "
+        + ", ".join([check_ties(B, 2048, dead_lane=3)]))
 
     log_records(records)
     return records
+
+
+def check_boxes(dst):
+    """The tile boxes kernel (``nn_tile_boxes``, a helper of the bounded NN
+    that ports no TPU kernel; its launches are in the path's counts) at
+    ``dst``'s shape: equal to its plain version, timed, logged."""
+    import torch
+
+    from scream_tpu_torch.ops import nn_cuda
+
+    got = nn_cuda.nn_tile_boxes(dst)
+    want = nn_cuda.tile_boxes(dst)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    check(same, "nn_tile_boxes: boxes differ from the plain version")
+    log(f"kernel nn_tile_boxes {tuple(dst.shape[:2])}: equal to the plain version {same} | "
+        f"{cuda_ms(lambda: nn_cuda.nn_tile_boxes(dst)):.4f} ms, plain "
+        f"{cuda_ms(lambda: nn_cuda.tile_boxes(dst)):.4f} ms")
 
 
 def phase_forward(model, batch):
@@ -491,6 +641,9 @@ def run_path(model, batches, icp_subsample):
         outs.append(m)
     elapsed = time.perf_counter() - t0
     counts = launch_counts()
+    from scream_tpu_torch.ops import nn_cuda
+
+    nn_dev = nn_cuda.nn_bounded.device_launches
     pps = B * len(outs) / elapsed
     finite = all(bool(torch.isfinite(x).all()) for m in outs
                  for x in (m.transform, m.re_deg, m.te))
@@ -500,7 +653,8 @@ def run_path(model, batches, icp_subsample):
     re = torch.cat([m.re_deg for m in outs])
     log(f"main path register_batch B={B} cap={CAP} icp_iters={ICP_ITERS} "
         f"icp_subsample={icp_subsample}: {pps:.2f} pairs/s over {len(outs)} batches "
-        f"({elapsed / len(outs) * 1e3:.1f} ms/batch) | launches {json.dumps(counts)} | "
+        f"({elapsed / len(outs) * 1e3:.1f} ms/batch) | launches {json.dumps(counts)}, bounded "
+        f"NN device launches {nn_dev} | "
         f"all finite | median RE {float(re.median()):.2f} deg (random weights)")
     return pps, counts
 
@@ -629,8 +783,21 @@ def phase_kernels_gt_free(model, normalize, pairs, pair_4096):
         s_t, dst = icp_view(on(sp), on(tp), on(sm), on(tm), T)
         abs_err = check_bounded(nn_cuda.nn_bounded_single, s_t, dst, thresh_sq, no,
                                 f"nn_bounded_single n={cap}")
-        ms = cuda_ms(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq))
-        pms = cuda_ms(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, None), reps=3)
+        boxes = nn_cuda.nn_tile_boxes(dst)
+        # Timed as the single-pair ICP calls it: the boxes given.
+        ms, ms_all = timed(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq,
+                                                             boxes=boxes))
+        own = cuda_ms(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq))
+        pms, pms_all = timed(lambda: nn_cuda.nn_bounded_plain(s_t, dst, thresh_sq, None),
+                             reps=3)
+        check(ms <= NN_SINGLE_GATE_MS,
+              f"nn_bounded_single 1 x {cap}: {ms:.4f} ms (rounds {ms_all}) > "
+              f"{NN_SINGLE_GATE_MS} ms")
+        log(f"kernel nn_bounded_single 1 x {cap} "
+            f"({nn_cuda.bounded_splits(1, cap, cap)} splits): timing rounds "
+            f"{', '.join(f'{t:.4f}' for t in ms_all)} ms with the boxes given (gate "
+            f"{NN_SINGLE_GATE_MS} ms on the best), {own:.4f} ms making them; plain "
+            f"{', '.join(f'{t:.4f}' for t in pms_all)} ms")
         live, total = live_pairs(s_t, dst, thresh_sq)
         b_ms, b_by = bound(cap * 12 + cap * 12 + cap * 16,
                            [(9 * live * 128 * 256 + 5 * live * 256, PEAK_FP32)])
@@ -640,8 +807,47 @@ def phase_kernels_gt_free(model, normalize, pairs, pair_4096):
             bound_by=b_by, bar="exact within threshold", route="cuda",
             source="scream_tpu_torch/csrc/nn.cu",
             replaces="scream_tpu/ops/nn_pallas.py:162", live_share=live / total))
+    log("bounded NN on exact ties: " + ", ".join([check_ties(1, 256), check_ties(1, 2048)]))
+    log_icp_launches(model, normalize, pairs[0])
     log_records(records)
     return records
+
+
+def log_icp_launches(model, normalize, pair):
+    """ICP's NN launches read from the wrappers' counts: one single-pair and
+    one batched ICP call on the GT-free pass's inputs. Each must make its
+    tile boxes once (one ``nn_tile_boxes`` launch) and run one device launch
+    of the bounded NN per NN call (steps + the final measure)."""
+    import torch
+
+    from scream_tpu_torch.geometry.icp import registration_icp, registration_icp_batched
+    from scream_tpu_torch.ops import nn_cuda, reset_launch_counts
+    from scream_tpu_torch.pipeline import register as reg
+
+    b = reg._normalized_batch([(pair["src"], pair["tgt"])] * 2, normalize, 512, DEV)
+    with torch.no_grad():
+        sol, src_dn, tgt_dn = reg._gt_free_solve(model, b, 0.1, "tgt")
+    parts = []
+    for name, fn, run in (
+            ("registration_icp", nn_cuda.nn_bounded_single, lambda: registration_icp(
+                src_dn[0], tgt_dn[0], 0.1, init=sol.transform[0], src_mask=b["src_mask"][0],
+                tgt_mask=b["tgt_mask"][0])),
+            ("registration_icp_batched", nn_cuda.nn_bounded, lambda: registration_icp_batched(
+                src_dn, tgt_dn, 0.1, init=sol.transform, src_mask=b["src_mask"],
+                tgt_mask=b["tgt_mask"]))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        r = run()
+        iters = int(r.iterations.max())
+        calls, dev_launches = fn.launches, fn.device_launches
+        boxes = nn_cuda.nn_tile_boxes.launches
+        check(calls > 0 and dev_launches == calls and boxes == 1,
+              f"{name}: {calls} NN calls, {dev_launches} NN device launches, {boxes} box "
+              "launches (one a step and one box launch a call expected)")
+        parts.append(f"{name}: {iters} iterations, {calls} NN calls, {dev_launches} NN "
+                     f"device launches ({dev_launches / calls:.2f} a step), {boxes} box launch")
+    reset_launch_counts()
+    log("ICP NN launches (GT-free pass, 448 points): " + "; ".join(parts))
 
 
 def phase_gt_free(model, model_cpu, normalize, pairs):

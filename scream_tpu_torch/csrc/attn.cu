@@ -12,15 +12,18 @@
 //           msg = bf16(att*z), then LN2(x + relu(LN1(msg @ Wm + x) @ W1) @ W2)
 //           with fp32 LayerNorm statistics, var = max(0, E[x^2] - mu^2).
 //
-// What bounds it on the H100: at the main path's shape (16 x 4096 rows,
+// What bounds them on the H100: at the main path's shape (16 x 4096 rows,
 // d = 256, hidden 1024) the apply kernel does ~86 GFLOP per call against
 // ~67 MB of activations in and out, ~1,300 FLOP per byte, so it is bound by
 // tensor-core operations, not by HBM; short of that, by how many rows each
-// weight byte read from L2 feeds. The stats kernel does ~17 GFLOP over a
-// 33 MB input and is bound the same way. At the GT-free serving shapes
-// (d = 128, hidden 512, 8 x 512 rows) a call is ~1.3 GFLOP, a few
-// microseconds of tensor-core time, so launch latency and the few blocks
-// bound it instead. What the design does about it:
+// weight byte read from L2 feeds. The stats kernel does ~17 GFLOP (the
+// projection; the per-head K'^T V is ~1 GFLOP) over a 33.5 MB input that
+// takes 10 us of HBM, so it is bound by operations too; short of that, by
+// how many blocks share the sequence, the epilogue and the K'/V workspace's
+// round trip through HBM (~40 us at that shape). At
+// the GT-free serving shapes (d = 128, hidden 512, 8 x 512 rows) a call is
+// ~1.3 GFLOP, a few microseconds of tensor-core time, so launch latency and
+// the few blocks bound it instead. What the design does about it:
 //   * apply (the Hopper pipeline of hopper_tile.cuh): the query
 //     projection, the merge and the FFN run on wgmma with the 128-row tile
 //     as A in shared memory and the weights streamed through a ring of
@@ -30,137 +33,299 @@
 //     normalizer run on CUDA cores in fp32 (2 R H hd^2 operations, a few
 //     percent of the products'); the message overwrites the tile, and the
 //     merge, LayerNorms and FFN are tail_tile.cuh's, the code tail.cu runs.
-//   * stats (the first, simple version: WMMA bf16 16x16x16 fragments, fp32
-//     accumulators, weights read from global memory): the projections run
-//     on the tensor cores; the TPU kernel builds the full d x d KV and
-//     zeroes the cross-head blocks, here one block per (batch, head) builds
-//     only its hd x hd diagonal block, looping over the sequence: 8 B
-//     blocks (128 at B = 16), no atomics, deterministic. The TPU's bf16
+//   * stats, in two kernels. The projection runs on the same pipeline:
+//     the sequence is cut into 128-row tiles and a persistent grid walks
+//     the (batch, tile) items (the shape alone sets them, never the SM
+//     count). Each block loads its tile of x once into shared memory (x is
+//     read from HBM once per call, not once per head) and streams [Wk|Wv]
+//     past it through the ring, packed once per call (stats_pack_kernel)
+//     with its columns regrouped per head as [k_h | v_h]: a ring stage is
+//     64 columns by all d k-rows, one head at d 256 and two at d 128 (so
+//     every stage is one m64n64 product and N = 32 is never needed). Per
+//     stage each consumer warpgroup projects its 64 rows on wgmma, rounds
+//     to bf16, applies elu1 to the k half, masks, and writes K'_h and V_h
+//     through a shared-memory tile to a bf16 workspace, one contiguous run
+//     of rows per (batch, head): 67 MB at 16 x 4096, d 256, about 20 us of
+//     HBM each way. The second kernel (one block per (head, batch))
+//     streams those rows through a cp.async ring and sums them in row
+//     order over the whole sequence: KV_h = K'_h^T V_h on mma.sync
+//     (wmma m16n16k16, 16-row steps chained in one fp32 accumulator, ~6 %
+//     of the projection's operations) and K_sum row by row in fp32: the
+//     order of one block walking the sequence, the same at every shape,
+//     batch and grid. (Per-chunk partials added afterwards would change
+//     the last bits of KV, and GT-free serving's bistable pairs follow
+//     such bits: see PERF.md.) No float atomics:
+//     two launches on the same input are bit identical. The TPU's bf16
 //     hi/lo split of KV is a Mosaic workaround; the apply kernel reads the
 //     fp32 KV directly.
-//   * Nothing intermediate goes to device memory: projected K/V, Q, the
-//     message and the FFN hidden stay in shared memory or registers.
+//   * Nothing intermediate goes to device memory but the stats workspace
+//     (K' and V): Q, the message and the FFN hidden stay in shared memory
+//     or registers.
 //
 // Widths: one source serves d_model 256 (head_dim 32, the full model) and
 // d_model 128 (head_dim 16, the hint-free GT-free checkpoint), both with 8
 // heads; every kernel is a template on D and the C entry points dispatch on
 // d. In the apply kernel a row's head dims lie in one quad of lanes at both
-// widths; the stats kernel's per-(batch, head) KV is a single 16 x 16
-// fragment at head_dim 16.
+// widths.
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py):
 // d_model 128 or 256, 8 heads, hidden a multiple of 128, all tensors
-// contiguous, bf16 activations and weights ((in, out) row-major for stats;
-// packed by ops/tail_cuda.py:pack_weights for apply), fp32 masks,
-// LayerNorm params and statistics.
+// contiguous, bf16 activations and weights ((in, out) row-major, packed by
+// stats_pack_kernel for stats and by ops/tail_cuda.py:pack_weights for
+// apply), fp32 masks, LayerNorm params and statistics.
+
+#include <mma.h>
 
 #include "tail_tile.cuh"
-#include "wmma_tile.cuh"
 
 namespace {
 
+using namespace nvcuda;
 using namespace scream;
+using hopper::bf16;
 
 constexpr int H = 8;          // heads (both widths)
-constexpr int NT = 256;       // threads per block (8 warps)
-constexpr int NW = NT / 32;   // warps per block
-constexpr int TS = 64;        // stats: sequence rows per tile
+constexpr int TM = 128;       // stats: rows a tile (two warpgroups of 64)
 
 // elu(x) + 1 as where(x > 0, x + 1, exp(x)), in fp32 (attn_pallas._elu1).
 __device__ __forceinline__ float elu1(float v) {
   return v > 0.f ? v + 1.f : expf(v);
 }
 
-// Stats tiling at width D (head dim HD = D / 8). The projection of a TS-row
-// tile onto [k_h | v_h] (2 HD columns) is split into CFS column fragments
-// of 16 and RGS row groups of RPG rows, one warp each; KV_W warps hold the
-// KV block (KVF x KVF fragments), and warp KV_W sums K'.
+// Stats geometry at width D (head dim HD = D / 8). A ring stage is NSC = 64
+// columns of the packed [Wk|Wv] by all D k-rows: HPS heads' [k_h | v_h].
 template <int D>
 struct Stats {
-  static constexpr int HD = D / H;
-  static constexpr int W2 = 2 * HD;
-  static constexpr int CFS = W2 / 16;       // 4 at HD 32, 2 at HD 16
-  static constexpr int RGS = NW / CFS;      // 2, 4
-  static constexpr int RPG = TS / RGS;      // 32, 16
-  static constexpr int RF = RPG / 16;       // 2, 1
-  static constexpr int KVF = HD / 16;       // 2, 1
-  static constexpr int KV_W = KVF * KVF;    // 4, 1
-  static constexpr size_t SMEM =
-      (size_t)TS * D * 2 + (size_t)TS * W2 * 4 + (size_t)TS * W2 * 2;
-  static_assert(NW % CFS == 0 && TS % (16 * RGS) == 0 && KV_W < NW, "tiling");
+  static constexpr int HD = D / H;            // 32, 16
+  static constexpr int W2 = 2 * HD;           // a head's [K'_h | V_h] row
+  static constexpr int NSC = 64;              // columns of a ring stage
+  static constexpr int HPS = NSC / W2;        // heads a stage: 1, 2
+  static constexpr int NS = 2 * D / NSC;      // stages a tile: 8, 4
+  static constexpr int STAGE = NSC * D * 2;   // bytes a stage: 32 KB, 16 KB
+  static constexpr int TILE_BYTES = TM * D * 2;
+  static constexpr int OLD = NSC + 8;         // out tile row stride (bf16), bank-shifted
+  static constexpr int OUT_BYTES = 64 * OLD * 2;  // per warpgroup
+  static constexpr int REST = TILE_BYTES + 2 * OUT_BYTES + 16 * tail::kMaxStages;
+  static constexpr int FIT = (tail::kSmemMax - REST) / STAGE;
+  static constexpr int NST = FIT < tail::kMaxStages ? FIT : tail::kMaxStages;
+  static constexpr int TILE = NST * STAGE;    // the x tile, after the ring
+  static constexpr int OUTB = TILE + TILE_BYTES;
+  static constexpr int BARS = OUTB + 2 * OUT_BYTES;
+  static constexpr int BYTES = BARS + 16 * NST;
+  // Pass 2: SUM_ROWS-row tiles of one head's [K'_h | V_h] rows, SUM_ST in
+  // flight, rows SUM_LD bf16 apart in shared memory (bank-shifted).
+  static constexpr int KVF = HD / 16;         // 16 x 16 KV fragments a side: 2, 1
+  static constexpr int KV_W = KVF * KVF;      // warps of the KV product: 4, 1
+  static constexpr int SUM_THREADS = 32 * (KV_W + 1);  // + the K_sum warp
+  static constexpr int SUM_ROWS = 128;
+  static constexpr int SUM_ST = 4;
+  static constexpr int SUM_LD = W2 + 8;
+  static constexpr int SUM_TILE = SUM_ROWS * SUM_LD * 2;  // bytes: 18 KB, 10 KB
+  static_assert(NS * NSC == 2 * D && NST >= 2 && BYTES <= tail::kSmemMax &&
+                TM % SUM_ROWS == 0, "stats layout");
+  using Ring = hopper::Ring<NST, STAGE, BARS>;
 };
 
-// Stats: grid (H, B), one block per (head, batch), looping over S.
+// Stats, pass 1: the projection. A persistent grid walks the (batch, tile)
+// items, item it = b * T + t; warpgroup w of the block takes rows
+// 64 w .. 64 w + 63 of the tile. Per ring stage it projects its rows onto
+// the stage's heads on wgmma, rounds to bf16, applies elu1 to k (rounded
+// again) and the mask, and writes K'_h and V_h row by row to kvw, laid out
+// (B, 8, Sp, 2 HD) bf16 with Sp = 128 T (rows at or past S are zeros).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(tail::kThreads, 1)
 attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
-                  const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                  float* __restrict__ kv, float* __restrict__ ksum, int S) {
+                  const unsigned char* __restrict__ wpack, bf16* __restrict__ kvw,
+                  int S, int nitems) {
   using C = Stats<D>;
   constexpr int HD = C::HD, W2 = C::W2;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                          // TS x D
-  float* st = reinterpret_cast<float*>(smem + (size_t)TS * D * 2);   // TS x W2
-  bf16* kvb = reinterpret_cast<bf16*>(smem + (size_t)TS * D * 2 +
-                                      (size_t)TS * W2 * 4);          // TS x W2
+  const typename C::Ring ring0(hopper::smem_u32(smem));
+  const int T = (S + TM - 1) / TM, Sp = T * TM;
+  if (threadIdx.x == 0) ring0.init(tail::kConsumers);
+  __syncthreads();
 
+  if (threadIdx.x >= 128 * tail::kConsumers) {
+    hopper::setmaxnreg_dec<tail::kProducerRegs>();
+    if (threadIdx.x == 128 * tail::kConsumers) {
+      typename C::Ring ring = ring0;
+      for (int it = blockIdx.x; it < nitems; it += gridDim.x)
+        for (int st = 0; st < C::NS; ++st) {
+          ring.fill(wpack + (size_t)st * C::STAGE);
+          ring.advance();
+        }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<tail::kConsumerRegs>();
+  typename C::Ring ring = ring0;
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const int bar = 1 + wg;                  // named barrier of the warpgroup
+  const int r0 = 16 * warp + (lane >> 2);  // rows r0, r0 + 8 of the warpgroup's 64
+  bf16* xt = reinterpret_cast<bf16*>(smem + C::TILE) + (size_t)wg * 64 * D;
+  bf16* ot = reinterpret_cast<bf16*>(smem + C::OUTB + wg * C::OUT_BYTES);
+  const uint32_t xa = hopper::smem_u32(xt);
+
+  // The projection's accumulators. They are zeroed only where no wgmma is
+  // in flight: a write to an accumulator register inside an open wgmma
+  // window makes ptxas serialize every wgmma of the kernel.
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  hopper::fence_acc(acc);
+
+  for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
+    const int b = it / T, row0 = (it % T) * TM + 64 * wg;
+    const int nvalid = S - row0;
+    hopper::named_sync(bar, 128);  // every read of the last tile is done
+    hopper::load_tile64<D>(xt, x + ((size_t)b * S + row0) * D, nvalid, wt, 128);
+    hopper::fence_proxy_async();
+    hopper::named_sync(bar, 128);
+    float m[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      m[hh] = r0 + 8 * hh < nvalid ? hopper::round_bf16(mask[(size_t)b * S + row0 + r0 + 8 * hh])
+                                   : 0.f;
+
+    for (int st = 0; st < C::NS; ++st) {
+      // [k_h | v_h] of this stage's heads for the warpgroup's 64 rows.
+      const uint32_t sa = ring.wait_full();
+      uint64_t da = hopper::desc(xa, 128, 16 * D);
+      uint64_t db = hopper::desc(sa, 128, 256);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        hopper::Wgmma<64>::mma(acc, da, db);
+        if (k + 1 < D / 16) {  // A 256 bytes on, B one k16 step (2,048 bytes) on
+          asm volatile("add.s64 %0, %0, 16;\n" : "+l"(da));
+          asm volatile("add.s64 %0, %0, 128;\n" : "+l"(db));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+      if (wt == 0) ring.release(ring.slot);
+      ring.advance();
+      // Round to bf16, elu1 on k (rounded again), mask, into the out tile
+      // (row-major, 64 stage columns). acc[4j + 2hh + e] is row r0 + 8hh,
+      // stage column 8j + 2(lane%4) + e.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool is_k = (8 * j) % W2 < HD;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = hopper::round_bf16(acc[4 * j + 2 * hh + e]);
+            if (is_k) v[e] = hopper::round_bf16(elu1(v[e]));
+            v[e] *= m[hh];
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ot + (r0 + 8 * hh) * C::OLD + 8 * j +
+                                             2 * (lane & 3)) = __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // for the next stage
+      hopper::fence_acc(acc);
+      hopper::named_sync(bar, 128);  // the out tile is written
+      // Out: 64 rows x HPS heads x W2 columns, 16 bytes a thread-step.
+#pragma unroll
+      for (int q = 0; q < 64 * C::NSC / 8 / 128; ++q) {
+        const int i = wt + 128 * q, r = i / (C::NSC / 8), c = 8 * (i % (C::NSC / 8));
+        const int h = st * C::HPS + c / W2;
+        *reinterpret_cast<uint4*>(kvw + (((size_t)b * H + h) * Sp + row0 + r) * W2 + c % W2) =
+            *reinterpret_cast<const uint4*>(ot + r * C::OLD + c);
+      }
+      hopper::named_sync(bar, 128);  // the out tile is read
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src));
+}
+
+// Stats, pass 2: KV and K_sum of head h of batch b, one block each (grid
+// (8, B)), in row order over the whole sequence. Warp w < KV_W chains its
+// 16 x 16 block of K'_h^T V_h through wmma (mma.sync m16n16k16, fp32
+// accumulator) over every 16-row step; the K_sum warp adds K'_h row by row
+// in fp32. Rows stream through SUM_ST tiles of SUM_ROWS rows by cp.async
+// (rows SUM_LD apart in shared memory, so the 8 rows of a fragment fall in
+// 8 bank groups); rows past S read the workspace's zeros, which leave both
+// sums as they are.
+template <int D>
+__global__ void __launch_bounds__(Stats<D>::SUM_THREADS)
+attn_stats_reduce_kernel(const bf16* __restrict__ kvw, float* __restrict__ kv,
+                         float* __restrict__ ksum, int S) {
+  using C = Stats<D>;
+  constexpr int HD = C::HD, W2 = C::W2, LD = C::SUM_LD, CH = C::SUM_ROWS * W2 / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* xb = x + (size_t)b * S * D;
-  const float* mb = mask + (size_t)b * S;
+  const int Sp = (S + TM - 1) / TM * TM, nt = (S + C::SUM_ROWS - 1) / C::SUM_ROWS;
+  const bf16* src = kvw + ((size_t)b * H + h) * Sp * W2;
+  auto fetch = [&](int t) {
+    if (t < nt)
+      for (int i = threadIdx.x; i < CH; i += C::SUM_THREADS)
+        cp_async16(smem + (t % C::SUM_ST) * C::SUM_TILE + (i / (W2 / 8)) * LD * 2 +
+                       16 * (i % (W2 / 8)),
+                   src + (size_t)t * C::SUM_ROWS * W2 + 8 * i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  for (int t = 0; t < C::SUM_ST - 1; ++t) fetch(t);
 
-  // Projection ownership: column fragment cf of [k_h | v_h] (the first
-  // CFS / 2 are k) and rows rg * RPG .. + RPG of the tile.
-  const int cf = warp % C::CFS, rg = warp / C::CFS;
-  const bf16* wcol = (cf < C::CFS / 2 ? wk + h * HD + cf * 16
-                                      : wv + h * HD + (cf - C::CFS / 2) * 16);
-
-  FragC kvacc;  // warps 0 .. KV_W-1: KV sub-block (warp / KVF, warp % KVF)
-  wmma::fill_fragment(kvacc, 0.f);
-  float ks = 0.f;  // warp KV_W: K_sum column `lane` (lane < HD)
-
-  for (int s0 = 0; s0 < S; s0 += TS) {
-    load_rows<D, NT>(xs, xb, s0, TS, S);
-    __syncthreads();
-
-    FragC pacc[C::RF][1];
-    warp_zero(pacc);
-    warp_mma(pacc, xs + (size_t)rg * C::RPG * D, D, wcol, D, D);
-    warp_store(pacc, st + (size_t)rg * C::RPG * W2 + cf * 16, W2);
-    __syncthreads();
-
-    // Round to bf16 (the projection's output dtype), feature map on k, mask.
-    for (int i = threadIdx.x; i < TS * W2; i += NT) {
-      const int r = i / W2, c = i % W2;
-      const float m = (s0 + r < S) ? mb[s0 + r] : 0.f;
-      float v = round_bf16(st[i]);
-      if (c < HD) v = round_bf16(elu1(v));
-      kvb[i] = __float2bfloat16(v * m);
-    }
-    __syncthreads();
-
-    if (warp < C::KV_W) {
-      const int bi = warp / C::KVF, bj = warp % C::KVF;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  wmma::fill_fragment(acc, 0.f);
+  float ks = 0.f;  // the K_sum warp: column `lane` (lane < HD)
+  const int bi = warp / C::KVF, bj = warp % C::KVF;
+  for (int t = 0; t < nt; ++t) {
+    fetch(t + C::SUM_ST - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(C::SUM_ST - 1));
+    __syncthreads();  // tile t is in
+    const bf16* tile = reinterpret_cast<const bf16*>(smem + (t % C::SUM_ST) * C::SUM_TILE);
+    if (warp < C::KV_W) {  // every operand of the tile first, then the chain
+      constexpr int KS = C::SUM_ROWS / 16;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[KS];  // K'^T
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[KS];
 #pragma unroll
-      for (int k = 0; k < TS; k += 16) {
-        FragAT fa;  // K'^T: column-major view of the K' rows
-        FragB fb;
-        wmma::load_matrix_sync(fa, kvb + k * W2 + bi * 16, W2);
-        wmma::load_matrix_sync(fb, kvb + k * W2 + HD + bj * 16, W2);
-        wmma::mma_sync(kvacc, fa, fb, kvacc);
+      for (int k = 0; k < KS; ++k) {
+        wmma::load_matrix_sync(fa[k], tile + 16 * k * LD + bi * 16, LD);
+        wmma::load_matrix_sync(fb[k], tile + 16 * k * LD + HD + bj * 16, LD);
       }
-    } else if (warp == C::KV_W && lane < HD) {
-      for (int r = 0; r < TS; ++r) ks += __bfloat162float(kvb[r * W2 + lane]);
+#pragma unroll
+      for (int k = 0; k < KS; ++k) wmma::mma_sync(acc, fa[k], fb[k], acc);
+    } else if (lane < HD) {
+#pragma unroll 16
+      for (int r = 0; r < C::SUM_ROWS; ++r) ks += __bfloat162float(tile[r * LD + lane]);
     }
-    __syncthreads();
+    __syncthreads();  // tile t is read before its slot is refilled
   }
-
-  if (warp < C::KV_W) {
-    const int bi = warp / C::KVF, bj = warp % C::KVF;
-    float* out = kv + ((size_t)(b * H + h) * HD + bi * 16) * HD + bj * 16;
-    wmma::store_matrix_sync(out, kvacc, HD, wmma::mem_row_major);
-  } else if (warp == C::KV_W && lane < HD) {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if (warp < C::KV_W)
+    wmma::store_matrix_sync(kv + (((size_t)b * H + h) * HD + bi * 16) * HD + bj * 16, acc, HD,
+                            wmma::mem_row_major);
+  else if (lane < HD)
     ksum[(size_t)b * D + h * HD + lane] = ks;
+}
+
+// [Wk|Wv] (d, d) bf16 each -> the stats ring's blob: stage s holds packed
+// columns 64 s .. 64 s + 63 by all d k-rows in the stage layout of
+// hopper_tile.cuh, where packed column c is column w of k_h (w < hd) or
+// column w - hd of v_h, h = c / (2 hd), w = c % (2 hd). One output element
+// a thread.
+__global__ void stats_pack_kernel(const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                                  bf16* __restrict__ out, unsigned d) {
+  const unsigned hd = d / H, n = 2 * d * d;
+  for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < n;
+       o += gridDim.x * blockDim.x) {
+    unsigned k, col;
+    hopper::kmajor_src(o % (64 * d), 64, d, k, col);
+    col += 64 * (o / (64 * d));
+    const unsigned h = col / (2 * hd), w = col % (2 * hd);
+    out[o] = w < hd ? wk[k * d + h * hd + w] : wv[k * d + h * hd + w - hd];
   }
 }
 
@@ -294,16 +459,24 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
 }
 
 template <int D>
-int launch_stats(const void* x, const void* mask, const void* wk,
-                 const void* wv, void* kv, void* ksum, int B, int S,
-                 cudaStream_t stream) {
-  constexpr size_t smem = Stats<D>::SMEM;
+int launch_stats(const void* x, const void* mask, const void* wpack, void* kvw, void* kv,
+                 void* ksum, int B, int S, cudaStream_t stream) {
+  using C = Stats<D>;
+  const int nitems = B * ((S + TM - 1) / TM);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return (int)err;
-  attn_stats_kernel<D><<<dim3(H, B), NT, smem, stream>>>(
-      (const bf16*)x, (const float*)mask, (const bf16*)wk, (const bf16*)wv,
-      (float*)kv, (float*)ksum, S);
+  const int grid = nitems < tail::num_sms() ? nitems : tail::num_sms();
+  attn_stats_kernel<D><<<grid, tail::kThreads, C::BYTES, stream>>>(
+      (const bf16*)x, (const float*)mask, (const unsigned char*)wpack, (bf16*)kvw, S, nitems);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = C::SUM_ST * C::SUM_TILE;
+  err = cudaFuncSetAttribute(attn_stats_reduce_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_stats_reduce_kernel<D><<<dim3(H, B), C::SUM_THREADS, smem, stream>>>(
+      (const bf16*)kvw, (float*)kv, (float*)ksum, S);
   return (int)cudaGetLastError();
 }
 
@@ -330,15 +503,28 @@ int launch_apply(const void* x, const void* mask, const void* wpack, const void*
 
 extern "C" {
 
-// x (B, S, d) bf16, d in {128, 256} -> KV (B, 8, d/8, d/8) fp32,
-// ksum (B, d) fp32.
-int scream_attn_stats(const void* x, const void* mask, const void* wk,
-                      const void* wv, void* kv, void* ksum, int B, int S,
-                      int d, void* stream) {
+// x (B, S, d) bf16, d in {128, 256}, wpack from scream_pack_stats, kvw a
+// bf16 workspace of B * 8 * Sp * 2 hd (Sp = S rounded up to 128) -> KV (B, 8,
+// hd, hd) fp32, ksum (B, d) fp32. Two launches: the projection into kvw,
+// then the per-head sums in row order.
+int scream_attn_stats(const void* x, const void* mask, const void* wpack, void* kvw,
+                      void* kv, void* ksum, int B, int S, int d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 256) return launch_stats<256>(x, mask, wk, wv, kv, ksum, B, S, s);
-  if (d == 128) return launch_stats<128>(x, mask, wk, wv, kv, ksum, B, S, s);
+  if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (d == 256) return launch_stats<256>(x, mask, wpack, kvw, kv, ksum, B, S, s);
+  if (d == 128) return launch_stats<128>(x, mask, wpack, kvw, kv, ksum, B, S, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Wk, Wv (d, d) bf16, (in, out), d in {128, 256} -> the stats blob out,
+// 2 d^2 bf16 (stats_pack_kernel). One launch.
+int scream_pack_stats(const void* wk, const void* wv, void* out, int d, void* stream) {
+  if (d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  const unsigned n = 2u * d * d;
+  const int grid = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  stats_pack_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)wk, (const bf16*)wv, (bf16*)out, (unsigned)d);
+  return (int)cudaGetLastError();
 }
 
 // x (B, L, d) bf16, d in {128, 256}, hidden a multiple of 128, wpack the

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for kernels that keep a row tile resident
-// in shared memory and stream their weights past it (tail.cu, the apply
-// kernel of attn.cu):
+// in shared memory and stream their weights past it (tail.cu, the stats and
+// apply kernels of attn.cu):
 //
 //   * mbarrier wait / arrive / expect-tx, and the 1-D bulk copy
 //     (cp.async.bulk, no tensor map) that completes on an mbarrier;
@@ -25,8 +25,9 @@
 //   * a weight stage of KS k-rows x NS columns: core (t, n/8, c) of k16
 //     step t, column group n/8 and k half c at ((t * NS/8 + n/8) * 2 + c)
 //     * 128 bytes, so SBO = 256, step t starts at 32 NS t and column n0 at
-//     32 n0 (tail.cu:pack_kernel writes it; ops/tail_cuda.py:pack_weights
-//     is its plain version).
+//     32 n0 (tail.cu:pack_kernel and attn.cu:stats_pack_kernel write it;
+//     ops/tail_cuda.py:pack_weights and ops/attn_cuda.py:pack_stats_weights
+//     are their plain versions).
 //
 // Accumulator fragment of m64nNk16 (fp32): thread t of the warpgroup holds
 // d[i] for row 16 (t/32) + (t%32)/4 + 8 ((i/2)%2) and column
@@ -385,6 +386,18 @@ __device__ __forceinline__ void ring_mma(float (&acc)[N / 2], RingT& ring, int s
   wgmma_wait<0>();
   fence_acc(acc);
   if (wt == 0 && prev >= 0) ring.release(prev);
+}
+
+// Element i of a (K, N) weight packed in stages of ks k-rows (the stage
+// layout above) comes from row k, column n: i runs over (stage s, k16 step
+// j, column group g, k half h, column in group c, k in half kk). The packs
+// of tail.cu and attn.cu write it.
+__device__ __forceinline__ void kmajor_src(unsigned i, unsigned N, unsigned ks,
+                                           unsigned& k, unsigned& n) {
+  const unsigned kk = i % 8, c = (i / 8) % 8, h = (i / 64) % 2, g = (i / 128) % (N / 8);
+  const unsigned j = (i / (16 * N)) % (ks / 16), s = i / (ks * N);
+  k = s * ks + j * 16 + h * 8 + kk;
+  n = g * 8 + c;
 }
 
 // Byte offset of element (row, col) in a K-major, no-swizzle tile of K

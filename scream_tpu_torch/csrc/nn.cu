@@ -11,13 +11,12 @@
 // scream_tpu/ops/nn_pallas.py:_nn_bounded_kernel (_bounded_impl, the
 // single-pair ICP's NN); the TPU's coarse (_nn_bounded_batched_kernel) and
 // grouped (_nn_bounded_batched_fine4_kernel) tilings compute the same
-// function. At B = 1 and 4,096 points a launch is only 32 blocks of 128
-// threads; splitting the dst tiles over blocks is later work. Contract: exact for every src
-// point whose true NN lies within the threshold; a (128-point src sub-slab,
-// 256-row dst tile) pair whose bounding boxes are farther apart than the
-// threshold (gap^2 > thresh^2, strict) is skipped, a dead lane skips every
-// tile, and a point with no live tile keeps (3e38, (0, 0, 0)). The winner's
-// xyz is written by the kernel, never gathered after it.
+// function. Contract: exact for every src point whose true NN lies within
+// the threshold; a (128-point src sub-slab, 256-row dst tile) pair whose
+// bounding boxes are farther apart than the threshold (gap^2 > thresh^2,
+// strict) is skipped, a dead lane skips every tile, and a point with no
+// live tile keeps (3e38, (0, 0, 0)). The winner's xyz is written by the
+// kernel, never gathered after it.
 //
 // Both use the distance expression of the TPU kernels, evaluated in this
 // order with round-to-nearest intrinsics so nvcc contracts nothing into
@@ -31,24 +30,43 @@
 // operations per (src, dst) pair against 12 bytes per point, so both are
 // bound by fp32 CUDA-core operations (TF32 tensor cores would change
 // distances and ties). The exact NN does 16 x 4096 x 4096 pairs at the main
-// path's shape; the bounded NN does only the pairs of live tiles. The design:
-// one thread owns one src point and keeps its running (min, index or xyz) in
-// registers; dst streams through shared memory in order, with |d|^2
-// computed once per staged row; the bounded kernel's box test is uniform
-// across its block, so a pruned tile costs one 6-float read and no
-// shared-memory traffic. The dst tile boxes come from a small kernel in the
-// same call, so a call is two launches. This is the first, simple version.
+// path's shape; the bounded NN does only the pairs of live tiles, which at
+// ICP's shapes is microseconds of work, so its call is bound by the launch
+// path instead. The design:
+//   * one thread owns one src point and keeps its running (min, index or
+//     xyz) in registers; dst streams through shared memory in order, with
+//     |d|^2 computed once per staged row; the bounded kernel's box test is
+//     uniform across its block, so a pruned tile costs one 6-float read and
+//     no shared-memory traffic;
+//   * one launch per ICP step: the dst tile boxes come from
+//     tile_boxes_kernel once per ICP call (ICP's dst does not change across
+//     its iterations) and are passed in; the dead flags are read as the bool
+//     tensor's bytes;
+//   * the bounded kernel's grid is (dst splits, src sub-slabs, B). Where
+//     B x sub-slabs would leave the card idle (B = 1) the dst tiles are
+//     split over up to 8 blocks, a number set by the shape
+//     (ops/nn_cuda.py:bounded_splits); each split scans its run of tiles in
+//     ascending order with a strict < and keeps a partial (min, xyz) in
+//     shared memory. The splits of one (b, sub-slab) form a thread-block
+//     cluster: after a cluster barrier, rank 0 reads the partials through
+//     distributed shared memory and merges them in ascending split order
+//     with a strict <, so ties keep the lowest dst index, as one scan would.
+//     One launch, no workspace, no counters, no atomics: deterministic.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int EX_THREADS = 256;   // exact: src points per block
 constexpr int EX_TILE = 1024;     // exact: dst rows staged per step
 constexpr int BD_THREADS = 128;   // bounded: src sub-slab (one point each)
 constexpr int BD_TILE = 256;      // bounded: dst rows per tile (box granularity)
+constexpr int BD_MAX_SPLITS = 8;  // bounded: dst splits, the portable cluster size
 constexpr float NO_HIT = 3.0e38f;
 constexpr float FAR_HALF = 1.0e17f;  // half the wrapper's FAR = 2e17
 
@@ -144,22 +162,28 @@ tile_boxes_kernel(const float* __restrict__ dst, float* __restrict__ boxes,
 }
 
 // boxes: (B, mt, 6) fp32 per dst tile (tile_boxes_kernel): lo xyz, hi xyz.
+// Grid (splits, sub-slabs, B), clusters of `splits` blocks along x; split
+// s scans tiles s tps .. s tps + tps - 1. dead: (B,) bytes, 0 = live, or
+// null for none.
 __global__ void __launch_bounds__(BD_THREADS)
 nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                   const float* __restrict__ boxes,
                   const uint8_t* __restrict__ dead, float thresh_sq,
                   float* __restrict__ min_out, float* __restrict__ xyz_out,
-                  int N, int M, int mt) {
+                  int N, int M, int mt, int tps) {
   __shared__ float tx[BD_TILE], ty[BD_TILE], tz[BD_TILE], tq[BD_TILE];
   __shared__ float red[BD_THREADS / 32];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * BD_THREADS + threadIdx.x;
+  __shared__ float4 part[BD_THREADS];  // this split's (min, x, y, z) per point
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
+  const int b = blockIdx.z;
+  const int i = blockIdx.y * BD_THREADS + threadIdx.x;
   const bool valid = i < N;
   const float* sp = src + ((size_t)b * N + (valid ? i : 0)) * 3;
   const float sx = sp[0], sy = sp[1], sz = sp[2];
 
   float best = NO_HIT, bx = 0.f, by = 0.f, bz = 0.f;
-  if (!dead[b]) {  // uniform across the block
+  if (!(dead && dead[b])) {  // uniform across the block
     const float ssq = sq3(sx, sy, sz);
     // The sub-slab's box over its in-range points.
     const float lox = block_reduce<BD_THREADS / 32>(valid ? sx : INFINITY, false, red);
@@ -170,7 +194,8 @@ nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     const float hiz = block_reduce<BD_THREADS / 32>(valid ? sz : -INFINITY, true, red);
     const float* db = dst + (size_t)b * M * 3;
     const float* bb = boxes + (size_t)b * mt * 6;
-    for (int t = 0; t < mt; ++t) {
+    const int t1 = min(mt, (split + 1) * tps);
+    for (int t = split * tps; t < t1; ++t) {
       const float* bt = bb + (size_t)t * 6;
       const float gx = fmaxf(fmaxf(lox - bt[3], bt[0] - hix), 0.f);
       const float gy = fmaxf(fmaxf(loy - bt[4], bt[1] - hiy), 0.f);
@@ -195,13 +220,23 @@ nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
       __syncthreads();
     }
   }
-  if (valid) {
-    const size_t o = (size_t)b * N + i;
-    min_out[o] = fmaxf(best, 0.f);
-    xyz_out[o * 3 + 0] = bx;
-    xyz_out[o * 3 + 1] = by;
-    xyz_out[o * 3 + 2] = bz;
+  part[threadIdx.x] = make_float4(best, bx, by, bz);
+  cluster.sync();  // every split's partial is in its shared memory
+  if (split == 0) {
+    float4 w = make_float4(NO_HIT, 0.f, 0.f, 0.f);
+    for (int r = 0; r < nsplit; ++r) {  // ascending split order, strict <
+      const float4 q = cluster.map_shared_rank(part, r)[threadIdx.x];
+      if (q.x < w.x) w = q;
+    }
+    if (valid) {
+      const size_t o = (size_t)b * N + i;
+      min_out[o] = fmaxf(w.x, 0.f);
+      xyz_out[o * 3 + 0] = w.y;
+      xyz_out[o * 3 + 1] = w.z;
+      xyz_out[o * 3 + 2] = w.w;
+    }
   }
+  cluster.sync();  // rank 0 has read every partial before any block exits
 }
 
 }  // namespace
@@ -218,22 +253,42 @@ int scream_nn_exact(const void* src, const void* dst, void* min_d2, void* idx,
   return (int)cudaGetLastError();
 }
 
-// src (B, N, 3), dst (B, M, 3) fp32 with masked rows at FAR, dead (B,)
-// uint8, boxes: scratch (B, ceil(M/256), 6) fp32 -> min_d2 (B, N), xyz (B, N, 3).
-// Two launches on the stream: the tile boxes, then the search.
-int scream_nn_bounded(const void* src, const void* dst, const void* dead,
-                      float thresh_sq, void* boxes, void* min_d2, void* xyz,
-                      int B, int N, int M, void* stream) {
+// dst (B, M, 3) fp32 with masked rows at FAR -> boxes (B, ceil(M/256), 6)
+// fp32: lo xyz, hi xyz of each tile's valid rows. One launch.
+int scream_nn_tile_boxes(const void* dst, void* boxes, int B, int M, void* stream) {
+  if (B <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   const int mt = (M + BD_TILE - 1) / BD_TILE;
   tile_boxes_kernel<<<dim3(mt, B), BD_TILE, 0, (cudaStream_t)stream>>>(
       (const float*)dst, (float*)boxes, M, mt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BD_THREADS - 1) / BD_THREADS, B);
-  nn_bounded_kernel<<<grid, BD_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (const float*)dst, (const float*)boxes,
-      (const uint8_t*)dead, thresh_sq, (float*)min_d2, (float*)xyz, N, M, mt);
   return (int)cudaGetLastError();
+}
+
+// src (B, N, 3), dst (B, M, 3) fp32 with masked rows at FAR, boxes from
+// scream_nn_tile_boxes, dead (B,) bytes or null -> min_d2 (B, N),
+// xyz (B, N, 3). The dst tiles split over `splits` blocks (1..8) per
+// sub-slab. One launch.
+int scream_nn_bounded(const void* src, const void* dst, const void* boxes,
+                      const void* dead, float thresh_sq, void* min_d2, void* xyz,
+                      int B, int N, int M, int splits, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || splits < 1 || splits > BD_MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  const int mt = (M + BD_TILE - 1) / BD_TILE;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + BD_THREADS - 1) / BD_THREADS, B);
+  cfg.blockDim = dim3(BD_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, nn_bounded_kernel, (const float*)src,
+                                 (const float*)dst, (const float*)boxes,
+                                 (const uint8_t*)dead, thresh_sq, (float*)min_d2,
+                                 (float*)xyz, N, M, mt, (mt + splits - 1) / splits);
 }
 
 }  // extern "C"

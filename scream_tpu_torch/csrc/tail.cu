@@ -90,17 +90,6 @@ tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ q,
   }
 }
 
-// Element i of a (K, N) weight packed in stages of ks k-rows (the stage
-// layout of hopper_tile.cuh) comes from row k, column n: i runs over (stage
-// s, k16 step j, column group g, k half h, column in group c, k in half kk).
-__device__ __forceinline__ void kmajor_src(unsigned i, unsigned N, unsigned ks,
-                                           unsigned& k, unsigned& n) {
-  const unsigned kk = i % 8, c = (i / 8) % 8, h = (i / 64) % 2, g = (i / 128) % (N / 8);
-  const unsigned j = (i / (16 * N)) % (ks / 16), s = i / (ks * N);
-  k = s * ks + j * 16 + h * 8 + kk;
-  n = g * 8 + c;
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
@@ -119,15 +108,15 @@ __global__ void pack_kernel(const T* __restrict__ wq, const T* __restrict__ wm,
     unsigned k, c;
     float v;
     if (o < nsq * sq) {
-      kmajor_src(o % sq, d, 32, k, c);
+      hopper::kmajor_src(o % sq, d, 32, k, c);
       v = to_f32((wq && o < sq ? wq : wm)[k * d + c]);
     } else {
       const unsigned ch = (o - nsq * sq) / per, t = (o - nsq * sq) % per;
       if (t < d * hc) {
-        kmajor_src(t, hc, ks_h, k, c);
+        hopper::kmajor_src(t, hc, ks_h, k, c);
         v = to_f32(w1[k * hid + ch * hc + c]);
       } else {
-        kmajor_src(t - d * hc, d, 32, k, c);
+        hopper::kmajor_src(t - d * hc, d, 32, k, c);
         v = to_f32(w2[(ch * hc + k) * d + c]);
       }
     }

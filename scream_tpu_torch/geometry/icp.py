@@ -41,7 +41,8 @@ import torch
 
 from scream_tpu_torch.geometry.kabsch import kabsch
 from scream_tpu_torch.geometry.metrics import transformation_error
-from scream_tpu_torch.ops.nn_cuda import mask_far, nn_bounded, nn_bounded_single
+from scream_tpu_torch.ops.nn_cuda import (mask_far, nn_bounded, nn_bounded_single,
+                                          nn_tile_boxes)
 
 
 def _spatial_sort(pts, mask, axis_dir: Optional[torch.Tensor] = None):
@@ -100,13 +101,15 @@ def _make_icp_fns(src, tgt, src_mask, tgt_mask, thresh_sq: float,
     """The per-iteration machinery ``(step, converged, measure)`` over the
     (sorted, fp32) batched clouds; ``nn`` is the bounded NN wrapper (the
     batched kernel, or ``nn_bounded_single`` for a one-lane batch), given
-    tgt with its masked rows at ``FAR``."""
+    tgt with its masked rows at ``FAR`` and its tile boxes, made once here:
+    tgt does not change across iterations, so a step is one NN launch."""
     n_valid_src = torch.clamp_min(src_mask.float().sum(-1), 1.0)
     dst = mask_far(tgt, tgt_mask)
+    boxes = nn_tile_boxes(dst)
 
     def measure(T, dead=None):
         src_t = src @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
-        nn_dist, corr_tgt = nn(src_t, dst, thresh_sq, dead)
+        nn_dist, corr_tgt = nn(src_t, dst, thresh_sq, dead, boxes=boxes)
         valid = (nn_dist < thresh_sq) & src_mask
         w = valid.float()
         n_inlier = w.sum(-1)

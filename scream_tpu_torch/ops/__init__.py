@@ -9,19 +9,23 @@
   apply; ``ffn`` holds its plain version.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``wrapper.launches``); :func:`reset_launch_counts` zeroes them all.
+(``wrapper.launches``); the bounded NN wrappers also count the device
+kernels of their calls (``device_launches``). :func:`reset_launch_counts`
+zeroes them all.
 """
 
 from scream_tpu_torch.ops import attn_cuda, nn_cuda, splat_cuda, tail_cuda
 
 WRAPPERS = (attn_cuda.attn_stats, attn_cuda.attn_apply,
             nn_cuda.nn_exact, nn_cuda.nn_bounded, nn_cuda.nn_bounded_single,
-            splat_cuda.max_splat, tail_cuda.block_tail)
+            nn_cuda.nn_tile_boxes, splat_cuda.max_splat, tail_cuda.block_tail)
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+        if hasattr(w, "device_launches"):
+            w.device_launches = 0
 
 
 def launch_counts() -> dict:

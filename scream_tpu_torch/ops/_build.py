@@ -94,9 +94,11 @@ def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "scream_attn_stats": [P, P, P, P, P, P, I, I, I, P],
+        "scream_pack_stats": [P, P, P, I, P],
         "scream_attn_apply": [P] * 10 + [I, I, I, I, F, F, P],
         "scream_nn_exact": [P, P, P, P, I, I, I, P],
-        "scream_nn_bounded": [P, P, P, F, P, P, P, I, I, I, P],
+        "scream_nn_tile_boxes": [P, P, I, I, P],
+        "scream_nn_bounded": [P, P, P, P, F, P, P, I, I, I, I, P],
         "scream_max_splat": [P, P, P, P, I, I, I, F, P],
         "scream_block_tail": [P] * 8 + [I, I, I, F, P],
         "scream_pack_weights": [P, P, P, P, I, P, I, I, P],

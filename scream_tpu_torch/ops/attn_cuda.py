@@ -1,10 +1,17 @@
 """Fused attention block: projections + linear attention + block tail in two
 hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py``.
 
-* :func:`attn_stats` (kernel ``attn_stats_kernel``, replaces the TPU's
-  ``_stats_kernel``): per (batch, head), ``K'^T V`` and ``K_sum`` over the
-  key/value rows, where ``[k|v] = x_kv @ [Wk|Wv]`` rounds to the compute
-  dtype, ``K' = (elu(k)+1) * mask`` and ``V = v * mask``.
+* :func:`attn_stats` (kernels ``attn_stats_kernel`` and
+  ``attn_stats_reduce_kernel``, replace the TPU's ``_stats_kernel``): per
+  (batch, head), ``K'^T V`` and ``K_sum`` over the key/value rows, where
+  ``[k|v] = x_kv @ [Wk|Wv]`` rounds to the compute dtype,
+  ``K' = (elu(k)+1) * mask`` and ``V = v * mask``. The projection splits
+  the sequence into 128-row tiles over the blocks and writes ``K'`` and
+  ``V`` per head to a bf16 workspace; the second kernel sums each head's
+  rows in row order, so the result depends on neither the card nor the
+  batch, and two launches on one input agree bit for bit. ``[Wk|Wv]``
+  streams through the projection's shared-memory ring, packed once per
+  call by :func:`pack_stats_weights` (one launch of ``stats_pack_kernel``).
 * :func:`attn_apply` (kernel ``attn_apply_kernel``, replaces ``_apply_kernel``):
   per row tile, ``q = x @ Wq``, ``Q' = (elu(q)+1) * mask``, the per-head
   contraction with the fp32 KV, the fp32 normalizer ``1/(Q'.K_sum + eps)``,
@@ -36,6 +43,10 @@ from scream_tpu_torch.ops.tail_cuda import pack_weights
 KERNEL_WIDTHS = (128, 256)
 KERNEL_HEADS = 8
 KERNEL_HID_CHUNK = 128
+# The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
+# (batch, tile) items, and the workspace holds S rounded up to it.
+STATS_TILE = 128
+STATS_STAGE_COLS = 64  # packed [Wk|Wv] columns a ring stage
 
 
 def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
@@ -115,8 +126,45 @@ def attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
 
 
 def _check(t, name, dtype, shape):
-    # 32-byte alignment: the stats kernel's WMMA fragment loads need it.
+    # 32-byte alignment: the kernels load rows and stats in 16-byte vectors.
     _build.check_tensor(t, name, dtype, shape, align=32)
+
+
+def stats_tiles(S: int) -> int:
+    """Row tiles of one batch in the stats projection: ``ceil(S / 128)``.
+    The shape alone sets the items, never the card; the rows of head ``h``
+    then add in row order, in 16-row steps of the ``K'^T V`` product."""
+    return -(-S // STATS_TILE)
+
+
+def pack_stats_weights(Wk, Wv) -> torch.Tensor:
+    """``Wk``, ``Wv`` ``(d, d)`` (``(in, out)``) as the stats kernel's ring
+    blob, flat bf16 of ``2 d^2``: ``[Wk|Wv]`` with its columns regrouped per
+    head as ``[k_h | v_h]``, then cut into stages of 64 columns by all ``d``
+    k-rows in the wgmma operand layout of ``csrc/hopper_tile.cuh``. On the
+    card one launch of ``stats_pack_kernel`` (bf16 weights); for CPU
+    weights the permuted copy below, which defines the layout."""
+    if Wk.dim() != 2 or tuple(Wk.shape) != tuple(Wv.shape) or Wk.shape[0] != Wk.shape[1]:
+        raise ValueError(f"pack_stats_weights: Wk {tuple(Wk.shape)} and Wv "
+                         f"{tuple(Wv.shape)} must be one square shape")
+    d = Wk.shape[0]
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"pack_stats_weights: d in {KERNEL_WIDTHS}, got {d}")
+    if _build.route(Wk):
+        for name, w in (("Wk", Wk), ("Wv", Wv)):
+            _check(w, name, torch.bfloat16, (d, d))
+        blob = torch.empty(2 * d * d, dtype=torch.bfloat16, device=Wk.device)
+        err = _build.kernels().scream_pack_stats(Wk.data_ptr(), Wv.data_ptr(),
+                                                 blob.data_ptr(), d, _build.stream_ptr(Wk))
+        _build.check(err, "pack_stats_weights")
+        return blob
+    hd, ns = d // KERNEL_HEADS, 2 * d // STATS_STAGE_COLS
+    with torch.no_grad():
+        W = torch.cat([Wk.reshape(d, KERNEL_HEADS, hd), Wv.reshape(d, KERNEL_HEADS, hd)],
+                      -1).reshape(d, 2 * d).to(torch.bfloat16)
+        # (stage, k16 step, column group, k half, column in group, k in half)
+        W = W.reshape(d // 16, 2, 8, ns, 8, 8).permute(3, 0, 4, 1, 5, 2)
+        return W.contiguous().reshape(-1)
 
 
 def attn_stats(x, mask, Wk, Wv, *, num_heads):
@@ -127,16 +175,18 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     if d not in KERNEL_WIDTHS or num_heads != KERNEL_HEADS:
         raise ValueError(f"attn_stats kernel takes d in {KERNEL_WIDTHS} with "
                          f"{KERNEL_HEADS} heads, got d={d}, heads={num_heads}")
-    bf = torch.bfloat16
-    _check(x, "x", bf, (B, S, d))
+    _check(x, "x", torch.bfloat16, (B, S, d))
     _check(mask, "mask", torch.float32, (B, S))
-    _check(Wk, "Wk", bf, (d, d))
-    _check(Wv, "Wv", bf, (d, d))
     hd = d // num_heads
-    KV = torch.empty((B, num_heads, hd, hd), device=x.device, dtype=torch.float32)
-    ksum = torch.empty((B, d), device=x.device, dtype=torch.float32)
+    nkv, per = num_heads * hd * hd, num_heads * hd * hd + d
+    sp = stats_tiles(S) * STATS_TILE
+    wpack = pack_stats_weights(Wk, Wv)
+    # One allocation: KV, K_sum, then the bf16 K'/V workspace (B, H, sp, 2 hd).
+    buf = torch.empty(B * per + B * sp * d, device=x.device, dtype=torch.float32)
+    KV = buf[:B * nkv].view(B, num_heads, hd, hd)
+    ksum = buf[B * nkv:B * per].view(B, d)
     err = _build.kernels().scream_attn_stats(
-        x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
+        x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), buf[B * per:].data_ptr(),
         KV.data_ptr(), ksum.data_ptr(), B, S, d, _build.stream_ptr(x))
     _build.check(err, "attn_stats")
     attn_stats.launches += 1

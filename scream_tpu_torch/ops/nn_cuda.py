@@ -20,13 +20,20 @@ of ``scream_tpu/ops/nn_pallas.py``.
   ``_nn_bounded_batched_fine4_kernel``) compute this function too.
 
 Both take dst with masked rows already moved to ``FAR`` (:func:`mask_far`).
-The bounded call builds its dst tile boxes in a small kernel of its own
-(plain version: :func:`tile_boxes`).
+The bounded NN reads per-tile boxes of dst: :func:`nn_tile_boxes` (kernel
+``tile_boxes_kernel``; plain version :func:`tile_boxes`) makes them, once
+per ICP call in ``geometry/icp.py``, and the wrappers take them as
+``boxes=`` or make them themselves when not given. Where B x sub-slabs
+would leave the card idle, the bounded kernel splits the dst tiles over up
+to 8 blocks (:func:`bounded_splits`) and merges the splits in one launch.
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version only for CPU tensors. The plain versions evaluate the
 kernels' distance expression elementwise in the same order, so the two agree
 bit for bit; the plain bounded NN is the exact NN (which meets the bounded
-contract), with dead lanes at the no-hit sentinel as in the kernel.
+contract), with dead lanes at the no-hit sentinel as in the kernel. Besides
+``launches`` (calls that launched), the bounded wrappers count the device
+kernels their calls launched in ``device_launches``: one a call when the
+boxes are given, two when the wrapper makes them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ FAR = 2.0e17
 # Min distance of a point that met no live tile of the bounded kernel.
 NO_HIT = 3.0e38
 BOUNDED_TILE = 256  # dst rows per box-tested tile (csrc/nn.cu BD_TILE)
+BOUNDED_SLAB = 128  # src points per block (csrc/nn.cu BD_THREADS)
+BOUNDED_MAX_SPLITS = 8  # dst splits per sub-slab: the portable cluster size
+BOUNDED_MIN_BLOCKS = 128  # split the dst tiles until this many blocks
 _PLAIN_CHUNK = 1024  # src rows per step of the plain versions' distance block
 
 
@@ -136,57 +146,108 @@ def tile_boxes(dst):
     return torch.cat([lo, hi], -1).contiguous()
 
 
-def _launch_bounded(src, dst, thresh_sq: float, dead):
-    """The bounded kernel on ``(B, N, 3)`` x ``(B, M, 3)`` CUDA tensors."""
+def bounded_splits(B: int, N: int, M: int) -> int:
+    """Dst splits per src sub-slab of the bounded kernel, from the shape
+    alone: doubled from 1 while the grid has fewer than
+    ``BOUNDED_MIN_BLOCKS`` blocks, up to 8 and to one tile a split
+    (1 at 16 x 4,096; 2 at 1 x 512; 4 at 1 x 4,096). Split ``s`` scans
+    tiles ``s * tps .. s * tps + tps - 1``, ``tps = ceil(tiles / splits)``."""
+    slabs, mt = -(-N // BOUNDED_SLAB), -(-M // BOUNDED_TILE)
+    s = 1
+    while (s < BOUNDED_MAX_SPLITS and 2 * s <= mt
+           and B * slabs * s < BOUNDED_MIN_BLOCKS):
+        s *= 2
+    return s
+
+
+def _boxes(dst):
+    """The tile boxes of a checked CUDA dst: one launch."""
+    B, M, _ = dst.shape
+    boxes = torch.empty((B, -(-M // BOUNDED_TILE), 6), device=dst.device,
+                        dtype=torch.float32)
+    err = _build.kernels().scream_nn_tile_boxes(dst.data_ptr(), boxes.data_ptr(), B, M,
+                                                _build.stream_ptr(dst))
+    _build.check(err, "nn_tile_boxes")
+    return boxes
+
+
+def nn_tile_boxes(dst):
+    """Per-tile boxes of ``dst`` ``(B, M, 3)`` (masked rows at ``FAR``) for
+    the bounded NN: ``(B, ceil(M/256), 6)``, one launch of
+    ``tile_boxes_kernel`` for a CUDA tensor, :func:`tile_boxes` for a CPU
+    one. ICP calls it once per call: its dst does not change across steps."""
+    if not _build.route(dst):
+        return tile_boxes(dst)
+    B, M, _ = dst.shape
+    _build.check_tensor(dst, "dst", torch.float32, (B, M, 3))
+    boxes = _boxes(dst)
+    nn_tile_boxes.launches += 1
+    return boxes
+
+
+nn_tile_boxes.launches = 0
+
+
+def _launch_bounded(src, dst, thresh_sq: float, dead, boxes):
+    """The bounded kernel on ``(B, N, 3)`` x ``(B, M, 3)`` CUDA tensors;
+    returns ``(min_d2, xyz, device launches)``."""
     B, N, _ = src.shape
     M = dst.shape[1]
-    _build.check_tensor(src, "src", torch.float32, (B, N, 3))
-    _build.check_tensor(dst, "dst", torch.float32, (B, M, 3))
-    if dead is None:
-        dead = torch.zeros((B,), dtype=torch.bool, device=src.device)
-    dead_u8 = dead.to(torch.uint8).contiguous()
-    _build.check_tensor(dead_u8, "dead", torch.uint8, (B,))
-    boxes = torch.empty((B, -(-M // BOUNDED_TILE), 6), device=src.device,
-                        dtype=torch.float32)
-    min_d2 = torch.empty((B, N), device=src.device, dtype=torch.float32)
-    xyz = torch.empty((B, N, 3), device=src.device, dtype=torch.float32)
+    f32 = torch.float32
+    _build.check_tensor(src, "src", f32, (B, N, 3))
+    _build.check_tensor(dst, "dst", f32, (B, M, 3))
+    launched = 1
+    if boxes is None:
+        boxes = _boxes(dst)
+        launched = 2
+    else:
+        _build.check_tensor(boxes, "boxes", f32, (B, -(-M // BOUNDED_TILE), 6))
+    if dead is not None:  # read as the bool tensor's bytes
+        _build.check_tensor(dead, "dead", torch.bool, (B,))
+    out = torch.empty(4 * B * N, device=src.device, dtype=f32)
+    min_d2, xyz = out[:B * N].view(B, N), out[B * N:].view(B, N, 3)
     err = _build.kernels().scream_nn_bounded(
-        src.data_ptr(), dst.data_ptr(), dead_u8.data_ptr(), float(thresh_sq),
-        boxes.data_ptr(), min_d2.data_ptr(), xyz.data_ptr(), B, N, M,
-        _build.stream_ptr(src))
+        src.data_ptr(), dst.data_ptr(), boxes.data_ptr(),
+        None if dead is None else dead.data_ptr(), float(thresh_sq), min_d2.data_ptr(),
+        xyz.data_ptr(), B, N, M, bounded_splits(B, N, M), _build.stream_ptr(src))
     _build.check(err, "nn_bounded")
-    return min_d2, xyz
+    return min_d2, xyz, launched
 
 
-def nn_bounded(src, dst, thresh_sq: float, dead=None):
+def nn_bounded(src, dst, thresh_sq: float, dead=None, boxes=None):
     """Batched threshold-bounded NN (kernel 4): ``(min_d2 (B, N), xyz
     (B, N, 3))``. ``dst`` has masked rows at ``FAR``; ``thresh_sq`` is a
-    Python float; ``dead`` an optional ``(B,)`` bool lane flag."""
+    Python float; ``dead`` an optional ``(B,)`` bool lane flag; ``boxes``
+    the optional :func:`nn_tile_boxes` of ``dst`` (made here if None)."""
     if not _build.route(src):
         return nn_bounded_plain(src, dst, thresh_sq, dead)
-    out = _launch_bounded(src, dst, thresh_sq, dead)
+    d2, xyz, launched = _launch_bounded(src, dst, thresh_sq, dead, boxes)
     nn_bounded.launches += 1
-    return out
+    nn_bounded.device_launches += launched
+    return d2, xyz
 
 
 nn_bounded.launches = 0
+nn_bounded.device_launches = 0
 
 
-def nn_bounded_single(src, dst, thresh_sq: float, dead=None):
+def nn_bounded_single(src, dst, thresh_sq: float, dead=None, boxes=None):
     """Threshold-bounded NN of one pair (kernel 6), the B = 1 launch of the
     bounded kernel: ``src`` ``(1, N, 3)``, ``dst`` ``(1, M, 3)`` with masked
-    rows at ``FAR``, ``dead`` an optional ``(1,)`` bool -> ``(min_d2 (1, N),
-    xyz (1, N, 3))``."""
+    rows at ``FAR``, ``dead`` an optional ``(1,)`` bool, ``boxes`` as in
+    :func:`nn_bounded` -> ``(min_d2 (1, N), xyz (1, N, 3))``."""
     if not _build.route(src):
         return nn_bounded_plain(src, dst, thresh_sq, dead)
     if src.shape[0] != 1:
         raise ValueError(f"nn_bounded_single takes one lane, got {src.shape[0]}")
-    out = _launch_bounded(src, dst, thresh_sq, dead)
+    d2, xyz, launched = _launch_bounded(src, dst, thresh_sq, dead, boxes)
     nn_bounded_single.launches += 1
-    return out
+    nn_bounded_single.device_launches += launched
+    return d2, xyz
 
 
 nn_bounded_single.launches = 0
+nn_bounded_single.device_launches = 0
 
 
 def nearest_neighbor_full(

@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""The stats kernels (``ops/attn_cuda.py:attn_stats``) at the paths' shapes:
+a digest of their output bits, their time and each kernel's device time.
+
+Usage, on a machine with an NVIDIA GPU:
+
+    python3 scripts/torch_port_stats_profile.py [TREE]
+
+``TREE`` (default: this checkout) is the root of the tree whose
+``scream_tpu_torch`` is imported, for example an unpacked ``git archive``
+of another commit: two trees give the same digests exactly when their
+stats kernels give the same bits on these inputs. Per shape (B x S, d;
+inputs made on the card from a seed, 20 % of the rows masked) it prints
+the SHA-256 of KV and K_sum, the ms of a call by CUDA events (best and all
+of 3 rounds of 10 calls) and the device time of each kernel a call
+launches under ``torch.profiler`` (10 calls). It gates nothing:
+``chip_smoke.py`` holds the kernels to their plain versions.
+"""
+
+import hashlib
+import os
+import sys
+
+SHAPES = [(16, 4096, 256), (8, 4096, 256), (8, 4000, 256), (8, 512, 128), (3, 129, 128),
+          (1, 448, 128), (2, 1, 256)]
+
+
+def main():
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                           os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_port_stats_profile: needs a CUDA GPU")
+    for B, S, d in SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
+        x = torch.randn((B, S, d), generator=g, device="cuda").to(torch.bfloat16)
+        m = (torch.rand((B, S), generator=g, device="cuda") > 0.2).float()
+        Wk, Wv = ((torch.randn((d, d), generator=g, device="cuda") / d ** 0.5).to(torch.bfloat16)
+                  for _ in range(2))
+        call = lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=8)
+        KV, ks = call()
+        digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
+        rounds = []
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(10):
+                call()
+            e1.record()
+            torch.cuda.synchronize()
+            rounds.append(e0.elapsed_time(e1) / 10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernels = []
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            if dt > 0:
+                name = ev.key.split("::")[-1].split("<")[0].split("(")[0]
+                kernels.append(f"{name} {dt / ev.count:.1f} us")
+        print(f"{B} x {S}, d {d}: sha256 {digest.hexdigest()[:16]} | "
+              f"{min(rounds):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in rounds)}) | "
+              f"device a call: {'; '.join(kernels)} | {torch.cuda.get_device_name(0)}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

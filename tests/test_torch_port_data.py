@@ -201,6 +201,8 @@ class TestPackageRules:
         with pytest.raises(ValueError):
             nn_cuda.nn_bounded_single(x, x, 0.01)
         with pytest.raises(ValueError):
+            nn_cuda.nn_tile_boxes(x)
+        with pytest.raises(ValueError):
             attn_cuda.attn_stats(torch.empty((1, 4, 256), device="meta"),
                                  None, None, None, num_heads=8)
         with pytest.raises(ValueError):
@@ -233,6 +235,7 @@ class TestBuild:
 
     def test_launch_counters_reset(self):
         from scream_tpu_torch import ops
+        from scream_tpu_torch.ops import nn_cuda
 
         for w in ops.WRAPPERS:
             w.launches = 3
@@ -240,4 +243,10 @@ class TestBuild:
         assert set(ops.launch_counts().values()) == {0}
         assert sorted(ops.launch_counts()) == ["attn_apply", "attn_stats",
                                                "block_tail", "max_splat", "nn_bounded",
-                                               "nn_bounded_single", "nn_exact"]
+                                               "nn_bounded_single", "nn_exact",
+                                               "nn_tile_boxes"]
+        for w in (nn_cuda.nn_bounded, nn_cuda.nn_bounded_single):
+            w.device_launches = 3
+        ops.reset_launch_counts()
+        assert nn_cuda.nn_bounded.device_launches == 0
+        assert nn_cuda.nn_bounded_single.device_launches == 0

@@ -260,3 +260,244 @@ class TestBoundedNNTilings:
         ed, _, ex = nn_cuda.nearest_neighbor_full(t(src), t(dst), t(mask))
         _assert_bounded_contract(gd.numpy(), gx.numpy(), np.asarray(wd), np.asarray(wx),
                                  src, ed.numpy(), ex.numpy(), thresh_sq, dead)
+
+
+# ---- The kernel's split-and-merge order (csrc/nn.cu:nn_bounded_kernel) ----
+
+def _sq3(p):
+    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) + p[..., 2] * p[..., 2]
+
+
+def split_ranges(M, splits):
+    """The dst tiles ``[t0, t1)`` each split of the kernel scans, in merge
+    order: ``tps = ceil(tiles / splits)`` tiles a split."""
+    mt = -(-M // nn_cuda.BOUNDED_TILE)
+    tps = -(-mt // splits)
+    return [(s * tps, min(mt, (s + 1) * tps)) for s in range(splits)]
+
+
+def emulate_bounded(src, dst, thresh_sq, dead=None, boxes=None):
+    """A numpy model of the bounded kernel, in fp32 with the kernel's
+    operation order: 128-point sub-slabs, the box test per (sub-slab,
+    256-row tile), the dst tiles split over ``bounded_splits`` blocks, each
+    split scanning its tiles in ascending order with a strict <, then the
+    splits merged in ascending order with a strict <. Returns ``(min_d2,
+    xyz, dst index or -1)``."""
+    B, N, _ = src.shape
+    M = dst.shape[1]
+    f32, thresh = np.float32, np.float32(thresh_sq)
+    if boxes is None:
+        boxes = nn_cuda.tile_boxes(t(dst)).numpy()
+    ranges = split_ranges(M, nn_cuda.bounded_splits(B, N, M))
+    no_hit = f32(nn_cuda.NO_HIT)
+    d2_out = np.full((B, N), no_hit, f32)
+    idx_out = np.full((B, N), -1, np.int64)
+    dsq = _sq3(dst)
+    for b in range(B):
+        if dead is not None and dead[b]:
+            continue
+        for s0 in range(0, N, nn_cuda.BOUNDED_SLAB):
+            sl = src[b, s0:s0 + nn_cuda.BOUNDED_SLAB]
+            lo, hi, ssq = sl.min(0), sl.max(0), _sq3(sl)
+            wb, wi = np.full(len(sl), no_hit, f32), np.full(len(sl), -1, np.int64)
+            for t0, t1 in ranges:
+                best, bi = np.full(len(sl), no_hit, f32), np.full(len(sl), -1, np.int64)
+                for tt in range(t0, t1):
+                    bt = boxes[b, tt]
+                    g = np.maximum(np.maximum(lo - bt[3:], bt[:3] - hi), f32(0))
+                    if not _sq3(g) <= thresh:
+                        continue
+                    m0 = tt * nn_cuda.BOUNDED_TILE
+                    dd = dst[b, m0:m0 + nn_cuda.BOUNDED_TILE]
+                    cross = (dd[None, :, 0] * sl[:, None, 0] + dd[None, :, 1] * sl[:, None, 1]) \
+                        + dd[None, :, 2] * sl[:, None, 2]
+                    d2 = (dsq[b, m0:m0 + len(dd)][None] + ssq[:, None]) - f32(2.0) * cross
+                    m, a = d2.min(1), d2.argmin(1)  # the first index attaining the min
+                    upd = m < best
+                    best[upd], bi[upd] = m[upd], m0 + a[upd]
+                upd = best < wb  # merge: ascending split order, strict <
+                wb[upd], wi[upd] = best[upd], bi[upd]
+            d2_out[b, s0:s0 + len(sl)] = np.maximum(wb, f32(0))
+            idx_out[b, s0:s0 + len(sl)] = wi
+    xyz = np.where((idx_out >= 0)[..., None],
+                   np.take_along_axis(dst, np.maximum(idx_out, 0)[..., None], 1), f32(0))
+    return d2_out, xyz.astype(f32), idx_out
+
+
+def _tie_scene(n_grid):
+    """Exact ties with distinct winners: src on a 1/4 grid, dst the same grid
+    moved by -1/32 (first half) and +1/32 (second half) in x. Every value is
+    a short dyadic fraction, so both candidates' d2 are equal bit for bit;
+    the lowest index, the -1/32 copy, must win."""
+    k = np.arange(n_grid)
+    g = np.stack([(k % 16) / 4, (k // 16 % 16) / 4, (k // 256) / 4], -1).astype(np.float32)
+    e = np.array([1 / 32, 0, 0], np.float32)
+    return g, np.concatenate([g - e, g + e])
+
+
+class TestBoundedSplitMerge:
+    """The bounded kernel splits the dst tiles over blocks where B x
+    sub-slabs would leave the card idle and merges the splits in ascending
+    order with a strict <. The numpy model of that order gives the plain
+    version's winners bit for bit: exact distances, the same dst index
+    (lowest on ties), the same xyz; dead lanes at the sentinel."""
+
+    @pytest.mark.parametrize("case", ["ties_1x512", "dup_1x1000x2300", "dead_3x300x700",
+                                      "ties_16x512"])
+    def test_emulated_kernel_equals_plain(self, rng, case):
+        dead = None
+        if case.startswith("ties"):
+            g, dst1 = _tie_scene(256)
+            B = 16 if case == "ties_16x512" else 1
+            src = np.repeat(g[None], 2, 1).repeat(B, 0)  # 512 points, every one tied
+            dst = np.repeat(dst1[None], B, 0)
+        elif case == "dup_1x1000x2300":
+            src, dst = _sorted_scene(rng, 1, 1000, 2300)
+            dst[:, 1200:2300] = dst[:, :1100]  # duplicated dst points, later splits
+        else:
+            src, dst = _sorted_scene(rng, 3, 300, 700)
+            dst[:, 400:] = dst[:, 100:400]
+            dead = np.array([False, True, False])
+        B, N, M = src.shape[0], src.shape[1], dst.shape[1]
+        splits = nn_cuda.bounded_splits(B, N, M)
+        thresh_sq = float(np.float32(0.1) ** 2)
+        d2, xyz, idx = emulate_bounded(src, dst, thresh_sq, dead)
+        pd, px = nn_cuda.nn_bounded_plain(t(src), t(dst), thresh_sq,
+                                          None if dead is None else t(dead))
+        _, pi = nn_cuda._exact_plain(t(src), t(dst))
+        pd, px, pi = pd.numpy(), px.numpy(), pi.numpy()
+        live = np.ones((B, N), bool) if dead is None else ~dead[:, None].repeat(N, 1)
+        within = (pd < thresh_sq) & live
+        assert within.sum() > 100
+        np.testing.assert_array_equal(d2[within], pd[within])
+        np.testing.assert_array_equal(idx[within], pi[within])
+        np.testing.assert_array_equal(xyz[within], px[within])
+        assert (d2[live & ~within] >= thresh_sq).all()
+        if dead is not None:
+            assert (d2[~live] == nn_cuda.NO_HIT).all() and (xyz[~live] == 0).all()
+            assert (pd[~live] == nn_cuda.NO_HIT).all()
+        if case.startswith("ties"):
+            assert splits == 2  # 4 and 64 sub-slabs: the tiles split in two
+            assert (idx < M // 2).all()  # the -1/32 copy, the lower index
+            np.testing.assert_array_equal(xyz, np.repeat(dst[:, :M // 2], 2, 1))
+        else:
+            assert splits > 1
+
+    def test_splits_from_shape(self):
+        """The split count depends on the shape alone: 1 at 16 x 4,096, 2 at
+        1 x 512, 4 at 1 x 4,096, never above 8 or one tile a split; the
+        split ranges cover every tile once, in ascending order."""
+        assert nn_cuda.bounded_splits(16, 4096, 4096) == 1
+        assert nn_cuda.bounded_splits(1, 512, 512) == 2
+        assert nn_cuda.bounded_splits(1, 4096, 4096) == 4
+        assert nn_cuda.bounded_splits(1, 4096, 40960) == 4
+        assert nn_cuda.bounded_splits(1, 100, 100) == 1
+        for B, N, M in [(1, 1000, 2300), (1, 128, 65536), (7, 448, 512), (3, 300, 700)]:
+            s = nn_cuda.bounded_splits(B, N, M)
+            mt = -(-M // nn_cuda.BOUNDED_TILE)
+            assert 1 <= s <= nn_cuda.BOUNDED_MAX_SPLITS and s <= mt
+            tiles = [tt for t0, t1 in split_ranges(M, s) for tt in range(t0, t1)]
+            assert tiles == list(range(mt))
+
+    def test_wrappers_take_given_boxes_on_the_cpu(self, rng):
+        """``boxes=`` changes nothing on the CPU path (the plain version is
+        the exact NN) and the dead flags stay bool."""
+        src, dst = _sorted_scene(rng, 2, 300, 400)
+        boxes = nn_cuda.nn_tile_boxes(t(dst))
+        np.testing.assert_array_equal(boxes.numpy(), nn_cuda.tile_boxes(t(dst)).numpy())
+        dead = torch.tensor([False, True])
+        a = nn_cuda.nn_bounded(t(src), t(dst), 0.01, dead, boxes=boxes)
+        b = nn_cuda.nn_bounded(t(src), t(dst), 0.01, dead)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        c = nn_cuda.nn_bounded_single(t(src[:1]), t(dst[:1]), 0.01, boxes=boxes[:1])
+        assert torch.equal(c[0][0], a[0][0])
+
+
+def _icp_pairs(B, N, M, seed):
+    """Synthetic pairs (padded, masked) and inits 0.05 rad / 0.05 off GT."""
+    from scream_tpu.data.synthetic import make_pair
+    from scream_tpu_torch.data.transforms import rodrigues
+
+    rng = np.random.default_rng(seed)
+    src, tgt = np.zeros((B, N, 3), np.float32), np.zeros((B, M, 3), np.float32)
+    init = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    for b in range(B):
+        p = make_pair(rng, N - 20, M - 10, overlap=0.8, noise=0.003)
+        src[b, :N - 20], tgt[b, :M - 10] = p["src"], p["tgt"]
+        axis = rng.standard_normal(3)
+        init[b, :3, :3] = rodrigues(axis / np.linalg.norm(axis) * 0.05) @ p["rot"]
+        init[b, :3, 3] = p["trans"][:, 0] + 0.05
+    sm = np.arange(N)[None].repeat(B, 0) < N - 20
+    tm = np.arange(M)[None].repeat(B, 0) < M - 10
+    return src, tgt, sm, tm, init
+
+
+class TestICPBoxesOncePerCall:
+    """ICP makes the dst tile boxes once per call and hands them to every
+    step's NN. With the NN replaced by the kernel's numpy model, the result
+    is the same with those boxes as with boxes made by each call, and stays
+    within the JAX package's ICP bars (the geometry tests' 2e-2)."""
+
+    @staticmethod
+    def _patch(monkeypatch, seen, per_call):
+        from scream_tpu_torch.geometry import icp as ticp
+
+        def nn(src_t, dst, thresh_sq, dead=None, boxes=None):
+            seen.append((boxes, dst))
+            d2, xyz, _ = emulate_bounded(
+                src_t.numpy(), dst.numpy(), thresh_sq,
+                None if dead is None else dead.numpy(),
+                None if boxes is None else boxes.numpy())
+            return t(d2), t(xyz)
+
+        make = ticp._make_icp_fns
+        monkeypatch.setattr(ticp, "_make_icp_fns",
+                            lambda *a, nn=None, **k: make(*a, nn=nn_model, **k))
+        nn_model = nn
+        if per_call:
+            monkeypatch.setattr(ticp, "nn_tile_boxes", lambda dst: None)
+        return ticp
+
+    @pytest.mark.parametrize("batched", [False, True])
+    def test_same_result_with_boxes_made_once(self, monkeypatch, batched):
+        from scream_tpu.geometry import icp as jicp
+
+        src, tgt, sm, tm, init = _icp_pairs(B=2, N=300, M=400, seed=11)
+        results = []
+        for per_call in (False, True):
+            seen = []
+            with monkeypatch.context() as mp:
+                ticp = self._patch(mp, seen, per_call)
+                if batched:
+                    r = ticp.registration_icp_batched(t(src), t(tgt), 0.1, init=t(init),
+                                                      max_iteration=8, src_mask=t(sm),
+                                                      tgt_mask=t(tm))
+                else:
+                    r = ticp.registration_icp(t(src[0]), t(tgt[0]), 0.1, init=t(init[0]),
+                                              max_iteration=8, src_mask=t(sm[0]),
+                                              tgt_mask=t(tm[0]))
+            assert len(seen) >= 2
+            if per_call:
+                assert all(b is None for b, _ in seen)
+            else:  # one boxes tensor for the whole call: dst's own boxes
+                assert all(b is seen[0][0] for b, _ in seen)
+                np.testing.assert_array_equal(seen[0][0].numpy(),
+                                              nn_cuda.tile_boxes(seen[0][1]).numpy())
+            results.append(r)
+        assert all(torch.equal(x, y) for x, y in zip(*results))
+        got = results[0]
+        if batched:
+            want = jicp.registration_icp_batched(
+                jnp.asarray(src), jnp.asarray(tgt), 0.1, init=jnp.asarray(init),
+                max_iteration=8, src_mask=jnp.asarray(sm), tgt_mask=jnp.asarray(tm),
+                force_xla=True)
+        else:
+            want = jicp.registration_icp(
+                jnp.asarray(src[0]), jnp.asarray(tgt[0]), 0.1, init=jnp.asarray(init[0]),
+                max_iteration=8, src_mask=jnp.asarray(sm[0]), tgt_mask=jnp.asarray(tm[0]))
+        np.testing.assert_allclose(got.transformation.numpy(), np.asarray(want.transformation),
+                                   atol=2e-2, rtol=0)
+        assert (np.abs(got.iterations.numpy() - np.asarray(want.iterations)) <= 1).all()
+        np.testing.assert_allclose(got.fitness.numpy(), np.asarray(want.fitness), atol=2e-2)
+        np.testing.assert_allclose(got.inlier_rmse.numpy(), np.asarray(want.inlier_rmse),
+                                   atol=2e-2)
