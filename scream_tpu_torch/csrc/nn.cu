@@ -26,18 +26,28 @@
 // plain agree bit for bit, and ties break to the lowest index as argmin does
 // (a sequential scan over dst with strict <).
 //
-// What bounds them on the H100: with K = 3 the distance is ~10 fp32
-// operations per (src, dst) pair against 12 bytes per point, so both are
-// bound by fp32 CUDA-core operations (TF32 tensor cores would change
-// distances and ties). The exact NN does 16 x 4096 x 4096 pairs at the main
-// path's shape; the bounded NN does only the pairs of live tiles, which at
-// ICP's shapes is microseconds of work, so its call is bound by the launch
-// path instead. The design:
-//   * one thread owns one src point and keeps its running (min, index or
-//     xyz) in registers; dst streams through shared memory in order, with
-//     |d|^2 computed once per staged row; the bounded kernel's box test is
-//     uniform across its block, so a pruned tile costs one 6-float read and
-//     no shared-memory traffic;
+// What bounds them on the H100: with K = 3 the distance is ~10 issued
+// fp32 instructions per (src, dst) pair (five products and adds for the
+// cross term, which no FMA may contract, |d|^2 + |s|^2, one fmaf, a compare
+// and two selects) against 12 bytes per point, so both are bound by the
+// CUDA cores' instruction rate (132 SMs x 128 lanes x 1.98 GHz; TF32
+// tensor cores would change distances and ties). The exact NN does 16 x 4096 x 4096
+// pairs at the main path's shape (~0.08 ms at that rate); the bounded NN
+// does only the pairs of live tiles, which at ICP's shapes is microseconds
+// of work, so its call is bound by the launch path instead. The designs:
+//   * exact: each thread keeps EX_R = 4 src points and their running (min,
+//     index) in registers, so one staged dst row serves four pairs; dst
+//     streams through shared memory in ascending order as float4 (x, y, z,
+//     |d|^2, computed once per staged row), one 16-byte broadcast load a
+//     row; the d2 expression's last step is fmaf(-2, cross, |d|^2 + |s|^2),
+//     the rounding of (|d|^2 + |s|^2) - 2 cross since 2 cross is exact.
+//     Where B x src slabs would leave SMs idle, dst is split over the blocks
+//     of a thread-block cluster (ops/nn_cuda.py:exact_splits: 8 at 16 x
+//     4,096 and at path 2's B = 1, 7, 8), so that ~4 blocks of 4 warps
+//     share an SM;
+//   * bounded: one thread owns one src point and keeps its running (min,
+//     xyz) in registers; the box test is uniform across its block, so a
+//     pruned tile costs one 6-float read and no shared-memory traffic;
 //   * one launch per ICP step: the dst tile boxes come from
 //     tile_boxes_kernel once per ICP call (ICP's dst does not change across
 //     its iterations) and are passed in; the dead flags are read as the bool
@@ -45,12 +55,13 @@
 //   * the bounded kernel's grid is (dst splits, src sub-slabs, B). Where
 //     B x sub-slabs would leave the card idle (B = 1) the dst tiles are
 //     split over up to 8 blocks, a number set by the shape
-//     (ops/nn_cuda.py:bounded_splits); each split scans its run of tiles in
-//     ascending order with a strict < and keeps a partial (min, xyz) in
-//     shared memory. The splits of one (b, sub-slab) form a thread-block
-//     cluster: after a cluster barrier, rank 0 reads the partials through
-//     distributed shared memory and merges them in ascending split order
-//     with a strict <, so ties keep the lowest dst index, as one scan would.
+//     (ops/nn_cuda.py:bounded_splits);
+//   * in both, each split scans its run of dst in ascending order with a
+//     strict < and keeps a partial winner per src point in shared memory.
+//     The splits of one (b, src slab) form a thread-block cluster: after a
+//     cluster barrier, rank 0 reads the partials through distributed shared
+//     memory and merges them in ascending split order with a strict <
+//     (merge_splits), so ties keep the lowest dst index, as one scan would.
 //     One launch, no workspace, no counters, no atomics: deterministic.
 
 #include <cooperative_groups.h>
@@ -58,15 +69,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int EX_THREADS = 256;   // exact: src points per block
-constexpr int EX_TILE = 1024;     // exact: dst rows staged per step
+constexpr int EX_THREADS = 128;   // exact: threads per block
+constexpr int EX_R = 4;           // exact: src points per thread, in registers
+constexpr int EX_SLAB = EX_THREADS * EX_R;  // exact: src points per block
+constexpr int EX_TILE = 512;      // exact: dst rows staged per step
 constexpr int BD_THREADS = 128;   // bounded: src sub-slab (one point each)
 constexpr int BD_TILE = 256;      // bounded: dst rows per tile (box granularity)
-constexpr int BD_MAX_SPLITS = 8;  // bounded: dst splits, the portable cluster size
+constexpr int MAX_SPLITS = 8;    // dst splits per cluster: the portable cluster size
 constexpr float NO_HIT = 3.0e38f;
 constexpr float FAR_HALF = 1.0e17f;  // half the wrapper's FAR = 2e17
 
@@ -81,40 +96,82 @@ __device__ __forceinline__ float dist2(float dsq, float ssq, float dx, float dy,
   return __fsub_rn(__fadd_rn(dsq, ssq), __fmul_rn(2.0f, cross));
 }
 
+// Rank 0's merge of the splits' partial winners of slot k: `part` holds a
+// split's winner per slot, its distance in .x; ascending split order with a
+// strict <. Between two cluster barriers (the partials written, then read).
+template <typename T>
+__device__ __forceinline__ T merge_splits(cg::cluster_group& cluster, T* part, int k) {
+  T w = part[k];
+  for (int r = 1; r < (int)cluster.num_blocks(); ++r) {
+    const T q = cluster.map_shared_rank(part, r)[k];
+    if (q.x < w.x) w = q;
+  }
+  return w;
+}
+
+// Grid (splits, src slabs, B), clusters of `splits` blocks along x; split s
+// scans dst rows s rps .. s rps + rps - 1. Src point r of thread t in a
+// slab is slab * EX_SLAB + r * EX_THREADS + t.
 __global__ void __launch_bounds__(EX_THREADS)
 nn_exact_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                 float* __restrict__ min_out, int64_t* __restrict__ idx_out,
-                int N, int M) {
-  __shared__ float tx[EX_TILE], ty[EX_TILE], tz[EX_TILE], tq[EX_TILE];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * EX_THREADS + threadIdx.x;
-  const bool valid = i < N;
-  const float* sp = src + ((size_t)b * N + (valid ? i : 0)) * 3;
-  const float sx = sp[0], sy = sp[1], sz = sp[2];
-  const float ssq = sq3(sx, sy, sz);
+                int N, int M, int rps) {
+  __shared__ float4 rows[EX_TILE];
+  __shared__ float2 part[EX_SLAB];  // this split's (min, index bits) per src point
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * EX_SLAB + threadIdx.x;
+  float sx[EX_R], sy[EX_R], sz[EX_R], ssq[EX_R], best[EX_R];
+  int bi[EX_R];
+#pragma unroll
+  for (int r = 0; r < EX_R; ++r) {
+    const int i = i0 + r * EX_THREADS;
+    const float* sp = src + ((size_t)b * N + (i < N ? i : 0)) * 3;
+    sx[r] = sp[0]; sy[r] = sp[1]; sz[r] = sp[2];
+    ssq[r] = sq3(sx[r], sy[r], sz[r]);
+    best[r] = INFINITY;
+    bi[r] = 0;
+  }
   const float* db = dst + (size_t)b * M * 3;
-
-  float best = INFINITY;
-  int64_t best_i = 0;
-  for (int m0 = 0; m0 < M; m0 += EX_TILE) {
-    const int cnt = min(EX_TILE, M - m0);
+  const int m_end = min(M, (split + 1) * rps);
+  for (int m0 = split * rps; m0 < m_end; m0 += EX_TILE) {
+    const int cnt = min(EX_TILE, m_end - m0);
     for (int j = threadIdx.x; j < cnt; j += EX_THREADS) {
       const float* dp = db + (size_t)(m0 + j) * 3;
       const float x = dp[0], y = dp[1], z = dp[2];
-      tx[j] = x; ty[j] = y; tz[j] = z;
-      tq[j] = sq3(x, y, z);
+      rows[j] = make_float4(x, y, z, sq3(x, y, z));
     }
     __syncthreads();
+#pragma unroll 8
     for (int j = 0; j < cnt; ++j) {
-      const float d2 = dist2(tq[j], ssq, tx[j], ty[j], tz[j], sx, sy, sz);
-      if (d2 < best) { best = d2; best_i = m0 + j; }
+      const float4 d = rows[j];
+#pragma unroll
+      for (int r = 0; r < EX_R; ++r) {
+        const float cross = __fadd_rn(
+            __fadd_rn(__fmul_rn(d.x, sx[r]), __fmul_rn(d.y, sy[r])), __fmul_rn(d.z, sz[r]));
+        const float d2 = __fmaf_rn(-2.0f, cross, __fadd_rn(d.w, ssq[r]));
+        if (d2 < best[r]) { best[r] = d2; bi[r] = m0 + j; }
+      }
     }
     __syncthreads();
   }
-  if (valid) {
-    min_out[(size_t)b * N + i] = fmaxf(best, 0.f);
-    idx_out[(size_t)b * N + i] = best_i;
+#pragma unroll
+  for (int r = 0; r < EX_R; ++r)
+    part[r * EX_THREADS + threadIdx.x] = make_float2(best[r], __int_as_float(bi[r]));
+  cluster.sync();  // every split's partials are in its shared memory
+  if (split == 0) {
+#pragma unroll
+    for (int r = 0; r < EX_R; ++r) {
+      const int i = i0 + r * EX_THREADS;
+      const float2 w = merge_splits(cluster, part, r * EX_THREADS + threadIdx.x);
+      if (i < N) {
+        min_out[(size_t)b * N + i] = fmaxf(w.x, 0.f);
+        idx_out[(size_t)b * N + i] = __float_as_int(w.y);
+      }
+    }
   }
+  cluster.sync();  // rank 0 has read every partial before any block exits
 }
 
 // Min or max of v over a block of NWARPS warps; every thread gets the result.
@@ -175,7 +232,7 @@ nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   __shared__ float red[BD_THREADS / 32];
   __shared__ float4 part[BD_THREADS];  // this split's (min, x, y, z) per point
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
   const int b = blockIdx.z;
   const int i = blockIdx.y * BD_THREADS + threadIdx.x;
   const bool valid = i < N;
@@ -223,11 +280,7 @@ nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   part[threadIdx.x] = make_float4(best, bx, by, bz);
   cluster.sync();  // every split's partial is in its shared memory
   if (split == 0) {
-    float4 w = make_float4(NO_HIT, 0.f, 0.f, 0.f);
-    for (int r = 0; r < nsplit; ++r) {  // ascending split order, strict <
-      const float4 q = cluster.map_shared_rank(part, r)[threadIdx.x];
-      if (q.x < w.x) w = q;
-    }
+    const float4 w = merge_splits(cluster, part, threadIdx.x);
     if (valid) {
       const size_t o = (size_t)b * N + i;
       min_out[o] = fmaxf(w.x, 0.f);
@@ -244,13 +297,15 @@ nn_bounded_kernel(const float* __restrict__ src, const float* __restrict__ dst,
 extern "C" {
 
 // src (B, N, 3), dst (B, M, 3) fp32 with masked rows at FAR ->
-// min_d2 (B, N) fp32 clamped at 0, idx (B, N) int64.
+// min_d2 (B, N) fp32 clamped at 0, idx (B, N) int64. dst splits over
+// `splits` blocks (1..8) per src slab. One launch.
 int scream_nn_exact(const void* src, const void* dst, void* min_d2, void* idx,
-                    int B, int N, int M, void* stream) {
-  dim3 grid((N + EX_THREADS - 1) / EX_THREADS, B);
-  nn_exact_kernel<<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (const float*)dst, (float*)min_d2, (int64_t*)idx, N, M);
-  return (int)cudaGetLastError();
+                    int B, int N, int M, int splits, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || splits < 1 || splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_clusters(nn_exact_kernel, dim3(splits, (N + EX_SLAB - 1) / EX_SLAB, B),
+                              EX_THREADS, splits, stream, (const float*)src, (const float*)dst,
+                              (float*)min_d2, (int64_t*)idx, N, M, (M + splits - 1) / splits);
 }
 
 // dst (B, M, 3) fp32 with masked rows at FAR -> boxes (B, ceil(M/256), 6)
@@ -270,25 +325,14 @@ int scream_nn_tile_boxes(const void* dst, void* boxes, int B, int M, void* strea
 int scream_nn_bounded(const void* src, const void* dst, const void* boxes,
                       const void* dead, float thresh_sq, void* min_d2, void* xyz,
                       int B, int N, int M, int splits, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || splits < 1 || splits > BD_MAX_SPLITS)
+  if (B <= 0 || N <= 0 || M <= 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   const int mt = (M + BD_TILE - 1) / BD_TILE;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (N + BD_THREADS - 1) / BD_THREADS, B);
-  cfg.blockDim = dim3(BD_THREADS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, nn_bounded_kernel, (const float*)src,
-                                 (const float*)dst, (const float*)boxes,
-                                 (const uint8_t*)dead, thresh_sq, (float*)min_d2,
-                                 (float*)xyz, N, M, mt, (mt + splits - 1) / splits);
+  return (int)launch_clusters(nn_bounded_kernel,
+                              dim3(splits, (N + BD_THREADS - 1) / BD_THREADS, B), BD_THREADS,
+                              splits, stream, (const float*)src, (const float*)dst,
+                              (const float*)boxes, (const uint8_t*)dead, thresh_sq,
+                              (float*)min_d2, (float*)xyz, N, M, mt, (mt + splits - 1) / splits);
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the last nvcc run in this process
-build_log = ""  # nvcc's output of that run (ptxas register/smem report)
+build_log = ""  # nvcc's output for the loaded library (ptxas register/smem report)
 
 
 def find_nvcc() -> str:
@@ -71,10 +71,13 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if this exact tree has no library yet."""
+    """Compile the sources if this exact tree has no library yet; nvcc's
+    report is kept beside the library and read back with it."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
+        log = out.with_suffix(".log")
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -86,6 +89,7 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+    out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -96,10 +100,11 @@ def _declare(lib) -> None:
         "scream_attn_stats": [P, P, P, P, P, P, I, I, I, P],
         "scream_pack_stats": [P, P, P, I, P],
         "scream_attn_apply": [P] * 10 + [I, I, I, I, F, F, P],
-        "scream_nn_exact": [P, P, P, P, I, I, I, P],
+        "scream_nn_exact": [P, P, P, P, I, I, I, I, P],
         "scream_nn_tile_boxes": [P, P, I, I, P],
         "scream_nn_bounded": [P, P, P, P, F, P, P, I, I, I, I, P],
-        "scream_max_splat": [P, P, P, P, I, I, I, F, P],
+        "scream_max_splat": [P, P, P, P, I, I, I, F, I, P, P],
+        "scream_splat_expf_check": [P, P],
         "scream_block_tail": [P] * 8 + [I, I, I, F, P],
         "scream_pack_weights": [P, P, P, P, I, P, I, I, P],
     }

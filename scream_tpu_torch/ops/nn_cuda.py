@@ -3,7 +3,9 @@ of ``scream_tpu/ops/nn_pallas.py``.
 
 * :func:`nn_exact` (replaces ``_nn_kernel``/``nearest_neighbor_pallas``):
   the pose solve's exact NN, per src point the min squared distance and the
-  first dst index attaining it.
+  first dst index attaining it. Four src points a thread; where B x src
+  slabs would leave the card idle, dst splits over up to 8 blocks
+  (:func:`exact_splits`) merged in one launch, as the bounded kernel's are.
 * :func:`nn_bounded` (replaces ``_nn_bounded_batched_fine_kernel``, reached
   through ``_bounded_batched``): the batched ICP's threshold-bounded NN,
   per src point the min squared distance and the winner's xyz, exact for
@@ -54,6 +56,9 @@ BOUNDED_TILE = 256  # dst rows per box-tested tile (csrc/nn.cu BD_TILE)
 BOUNDED_SLAB = 128  # src points per block (csrc/nn.cu BD_THREADS)
 BOUNDED_MAX_SPLITS = 8  # dst splits per sub-slab: the portable cluster size
 BOUNDED_MIN_BLOCKS = 128  # split the dst tiles until this many blocks
+EXACT_SLAB = 512  # src points per block of the exact kernel (csrc/nn.cu EX_SLAB)
+EXACT_MIN_BLOCKS = 528  # split dst until this many blocks: four per SM
+EXACT_MIN_ROWS = 64  # dst rows per split at least
 _PLAIN_CHUNK = 1024  # src rows per step of the plain versions' distance block
 
 
@@ -121,13 +126,27 @@ def nn_exact(src, dst):
     idx = torch.empty((B, N), device=src.device, dtype=torch.int64)
     err = _build.kernels().scream_nn_exact(
         src.data_ptr(), dst.data_ptr(), min_d2.data_ptr(), idx.data_ptr(),
-        B, N, M, _build.stream_ptr(src))
+        B, N, M, exact_splits(B, N, M), _build.stream_ptr(src))
     _build.check(err, "nn_exact")
     nn_exact.launches += 1
     return min_d2, idx
 
 
 nn_exact.launches = 0
+
+
+def exact_splits(B: int, N: int, M: int) -> int:
+    """Dst splits per src slab of the exact kernel, from the shape alone:
+    doubled from 1 while the grid has fewer than ``EXACT_MIN_BLOCKS`` blocks,
+    up to 8 and to ``EXACT_MIN_ROWS`` rows a split (8 at 16 x 4,096 and at
+    1 x 512). Split ``s`` scans rows ``s * rps .. s * rps + rps - 1``,
+    ``rps = ceil(M / splits)``."""
+    slabs = -(-N // EXACT_SLAB)
+    s = 1
+    while (s < BOUNDED_MAX_SPLITS and 2 * s * EXACT_MIN_ROWS <= M
+           and B * slabs * s < EXACT_MIN_BLOCKS):
+        s *= 2
+    return s
 
 
 def tile_boxes(dst):

@@ -10,7 +10,12 @@ lowest point index attaining it.
 * :func:`splat_forward` (kernel ``max_splat_kernel``, replaces the TPU's
   ``_splat_kernel`` through ``_splat_forward``): ``(img, arg)``, one launch
   for all images. It launches the kernel for CUDA tensors and runs
-  :func:`max_splat_plain` only for CPU tensors.
+  :func:`max_splat_plain` only for CPU tensors. The kernel evaluates only
+  the (point, pixel) pairs that could change a pixel's (max, argmax) and
+  proves the others cannot, so its result is the dense scan's bit for bit
+  (``csrc/splat.cu``); :func:`splat_cull_counts` launches it with its work
+  counters and :func:`expf_zero_check` checks on the card the property of
+  ``expf`` its proof rests on.
 * :func:`max_splat_plain`: the plain version, the same distance expression
   elementwise in the kernel's order (bit for bit on the card), streamed over
   pixel tiles so that the points x pixels block stays small. Its image is
@@ -21,8 +26,9 @@ lowest point index attaining it.
   backward (``_max_splat_bwd``, plain in the JAX package too) routes each
   pixel's cotangent to its argmax point with ``index_add_``.
 
-Contract, as on the TPU: ``vals`` are non-negative (the renderer's inverse
-depths lie in [0, 1]).
+Contract: any finite ``vals`` (the renderer's inverse depths lie in
+[0, 1], one channel 0 on every row) and ``xy`` whose squared norms are
+finite.
 """
 
 from __future__ import annotations
@@ -33,6 +39,11 @@ from torch.utils.checkpoint import checkpoint
 from scream_tpu_torch.ops import _build
 
 _PLAIN_TILE = 256  # pixels per step of the plain version
+SPLAT_TILE = 16  # the kernel's pixel tile edge (csrc/splat.cu SP_TW)
+SPLAT_WARPS = 8  # warps a tile, each on 8 x 4 pixels
+EXP_ZERO = -104.5  # expf(x) == 0 for every fp32 x <= this (csrc/splat.cu)
+SPLAT_MAX_SPLITS = 8  # point splits per tile: the portable cluster size
+SPLAT_SPLIT_POINTS = 2048  # points per split at least
 
 
 def pixel_grid(w: int, device=None) -> torch.Tensor:
@@ -104,15 +115,71 @@ def splat_forward(xy, vals, rho: float, width: int):
     f32 = torch.float32
     _build.check_tensor(xy, "xy", f32, (I, N, 2), align=8)
     _build.check_tensor(vals, "vals", f32, (I, N, 2), align=8)
+    img, arg = _launch(xy, vals, rho, width, None)
+    max_splat.launches += 1
+    return img, arg
+
+
+def splat_splits(N: int) -> int:
+    """Point splits per pixel tile of the splat kernel, from the point count
+    alone: one per ``SPLAT_SPLIT_POINTS`` points, a power of two up to 8
+    (4 at 8,192 points, 8 at 16,384, 1 below 4,096). The splits of a tile form
+    a thread-block cluster; split ``s`` scans points ``s * nps .. s * nps +
+    nps - 1``, ``nps = ceil(N / splits)``."""
+    s = 1
+    while s < SPLAT_MAX_SPLITS and 2 * s * SPLAT_SPLIT_POINTS <= N:
+        s *= 2
+    return s
+
+
+def _launch(xy, vals, rho, width, stats):
+    I, N = xy.shape[0], xy.shape[1]
     P = width * width
-    img = torch.empty((I, 2, P), device=xy.device, dtype=f32)
+    img = torch.empty((I, 2, P), device=xy.device, dtype=torch.float32)
     arg = torch.empty((I, 2, P), device=xy.device, dtype=torch.int32)
     err = _build.kernels().scream_max_splat(
         xy.data_ptr(), vals.data_ptr(), img.data_ptr(), arg.data_ptr(), I, N, width,
-        _neg_half_rho_sq(rho), _build.stream_ptr(xy))
+        _neg_half_rho_sq(rho), splat_splits(N), None if stats is None else stats.data_ptr(),
+        _build.stream_ptr(xy))
     _build.check(err, "max_splat")
-    max_splat.launches += 1
     return img, arg
+
+
+def splat_cull_counts(xy, vals, rho: float, width: int):
+    """The splat kernel's counting build on CUDA tensors: ``(img, arg,
+    counts)``, counts a dict of the (point, channel)s kept by the 16 x 16
+    tile test (``tile_kept``), the (point, channel, warp)s kept by the
+    8 x 4 warp test (``warp_kept``; each takes the per-pixel test at the
+    warp's 32 pixels) and the (point, pixel, channel)s that reached
+    ``expf`` (``exp_pairs``), beside the totals they are shares of
+    (``staged``: 2 N per tile, ``warp_staged``: 2 N per warp, ``pairs``:
+    2 N per pixel). A diagnostic; the path calls :func:`splat_forward`,
+    whose launch compiles the counters out."""
+    I, N = xy.shape[0], xy.shape[1]
+    _build.check_tensor(xy, "xy", torch.float32, (I, N, 2), align=8)
+    _build.check_tensor(vals, "vals", torch.float32, (I, N, 2), align=8)
+    stats = torch.zeros(3, device=xy.device, dtype=torch.int64)
+    img, arg = _launch(xy, vals, rho, width, stats)
+    max_splat.launches += 1
+    tiles = I * (-(-width // SPLAT_TILE)) ** 2
+    tile_kept, warp_kept, exp_pairs = (int(v) for v in stats.tolist())
+    return img, arg, dict(tile_kept=tile_kept, staged=2 * N * tiles,
+                          warp_kept=warp_kept, warp_staged=2 * N * tiles * SPLAT_WARPS,
+                          exp_pairs=exp_pairs,
+                          pairs=2 * N * tiles * SPLAT_TILE * SPLAT_TILE)
+
+
+def expf_zero_check(device="cuda"):
+    """``(not monotone, nonzero)`` over every non-positive fp32 x on the
+    card: the x where the kernels' ``expf`` exceeds its value at the next
+    float below, and the x <= ``EXP_ZERO`` where it is not 0. The splat
+    kernel's skip rule for pixels whose best is below 2^-100 needs the
+    second to be 0. One launch."""
+    bad = torch.zeros(2, device=device, dtype=torch.int64)
+    err = _build.kernels().scream_splat_expf_check(bad.data_ptr(),
+                                                   _build.stream_ptr(bad))
+    _build.check(err, "splat_expf_check")
+    return tuple(int(v) for v in bad.tolist())
 
 
 def _max_splat_bwd(xy, vals, arg, g, rho: float, width: int):
