@@ -20,8 +20,9 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
    wins, bit for bit); the stats projection alone as one ``torch.matmul``
    (a reference line); ptxas's lines, with no spill allowed in the splat
    and exact-NN kernels;
-4. path 1, ``register_batch`` at 16 pairs x 4,096 points, full-width
-   ``ModelConfig`` from a seeded random init, 30 ICP iterations, distinct
+4. path 1, ``register_batch`` at 16 pairs x 4,096 points, the shipped
+   full-width point-generator (``scream_tpu_torch/weights/point-generator``:
+   d 256, 6 + 6 layers), 30 ICP iterations, distinct
    inputs per call, with and without ``icp_subsample=1024``; pairs/s, each
    kernel's launches (all of the path's must be > 0) and finiteness;
 5. oracle pose: the pose solve and ICP fed the GT-posed source plus noise
@@ -44,7 +45,7 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
    8 x 4,096, ``register_pair`` latency at 512 and 4,096 points, the robust
    latency, and the stage times of one pass;
 10. path 3, the GAN training step (``threedmatch_presets`` with
-    ``use_gan``: full-width generator from the seeded random init, the
+    ``use_gan``: full-width generator from a seeded random init, the
     shipped discriminator ``scream_tpu_torch/weights/discriminator``):
     the splat kernel against its plain version at the 3DMatch shape
     (48 images x 8,192 points x 64 x 64, rho 24; gated at 1.6378 ms) and
@@ -76,11 +77,33 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     (patches/s, stage times, launches: ``block_tail`` > 0), ``evaluate``,
     save / restore / one more step on both; then the ``train`` CLI in
     subprocesses (``opengf --d-model 512``, its ``--resume``, ``3dmatch``);
-12. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+    its d 256 tail check runs a seeded random init on path 1's batch;
+12. path 5, the evaluate protocols and the bench with the shipped
+    checkpoints, on a split tree written with numpy under ``build/``
+    (3DMatch_test: 40 pairs over 8 scenes, clouds of 900-4,096 points
+    filling the 1,024, 2,048 and 4,096 buckets; KITTI_test: 8 pairs of up
+    to 8,192 points, extent 40; OpenGF_test: 8 patches): the host waits
+    inside one ``register_batch`` (``torch.cuda.set_sync_debug_mode``),
+    ``evaluate_registration`` (3dmatch) through ``BucketedPairLoader`` and
+    through ``collated_or_build`` (equal metrics), 3dzeromatch, the 1,024
+    bucket pair by pair on the card and the CPU path (recall equal, at most
+    2 pairs with RE or TE off by > 5e-2), ``python -m scream_tpu_torch
+    evaluate 3dmatch --bucketed`` in a subprocess (its JSON equal to the
+    in-process dict), ``evaluate_kitti`` with the hint-free KITTI
+    checkpoint and ``center_mode="none"``, fused and with ``icp_chunk=50``
+    (counts equal, one batch's transforms within 1e-5, the ICP steps taken
+    of the 1,000 allowed), ``evaluate_open_gf`` with the DEM generator
+    (finite, within 2e-2 of the CPU path on 2 patches, peak memory), and
+    ``bench`` and ``bench --suite`` in subprocesses (every metric > 0, the
+    shipped checkpoint named, median RE beside the CPU path's on 4 pairs,
+    the path's kernels launched: stats, apply, both NNs, and the splat in
+    the suite);
+13. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
-into a stack dump and exit code 1.
+into a stack dump and exit code 1. Every printed line also goes to
+``chiprun_out/chip_smoke.log``.
 
 ``python3 chip_smoke.py --only splat,nn_exact`` runs phases 1-2 and then
 only the named kernels' checks (the splat's of phase 10, the exact NN's of
@@ -121,6 +144,17 @@ DEM_ITERS = 5  # timed iterations, after one warm-up
 # 65,536 - 37 and 8,192 + 5 rows.
 RAGGED_L, RAGGED_TAIL_ROWS = 4000, (65536 - 37, 8192 + 5)
 WORK_DIR = os.path.join("build", "chip_smoke_work")  # checkpoints; removed at the end
+# Path 1's trained weights; path 5's KITTI and OpenGF checkpoints.
+POINT_GEN = os.path.join("scream_tpu_torch", "weights", "point-generator")
+KITTI_HINTFREE = os.path.join("scream_tpu_torch", "weights", "kitti-generator-hintfree")
+DEM_GEN = os.path.join("scream_tpu_torch", "weights", "dem-generator")
+# Path 5: the split tree (3DMatch_test 40 pairs over 8 scenes, clouds of
+# 900-4,096 points spread over the 1,024 / 2,048 / 4,096 buckets; KITTI_test
+# 8 pairs of up to 8,192 points, extent 40; OpenGF_test 8 patches), the
+# evaluate CLI's batch of 8, the KITTI chunk, and the card-vs-CPU bars.
+EVAL_PAIRS, EVAL_BATCH, KITTI_PAIRS, OPENGF_PATCHES, KITTI_CHUNK = 40, 8, 8, 8, 50
+PATH5_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
+OPENGF_CPU_PATCHES, OPENGF_TOL = 2, 2e-2
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
 # FMA counted as two operations), HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -162,7 +196,11 @@ DEV = "cuda"  # every phase runs on the card
 
 
 def log(msg):
+    """Print a line; every line also goes to ``chiprun_out/chip_smoke.log``,
+    so the whole log survives a runner that keeps only the end of stdout."""
     print(msg, flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
+        f.write(f"{msg}\n")
 
 
 def check(cond, msg):
@@ -749,7 +787,7 @@ def run_path(model, batches, icp_subsample):
         f"icp_subsample={icp_subsample}: {pps:.2f} pairs/s over {len(outs)} batches "
         f"({elapsed / len(outs) * 1e3:.1f} ms/batch) | launches {json.dumps(counts)}, bounded "
         f"NN device launches {nn_dev} | "
-        f"all finite | median RE {float(re.median()):.2f} deg (random weights)")
+        f"all finite | median RE {float(re.median()):.2f} deg (trained point-generator)")
     return pps, counts
 
 
@@ -1988,6 +2026,383 @@ def path4(path1_model, path1_batch):
     return records, counts, results
 
 
+def write_split_tree(root):
+    """The split tree of path 5 under ``root``, in the readers' layout
+    (``src%d/tgt%d/T%d.npy``, ``info/`` for 3DMatch; ``[dsm | dem]`` blocks
+    and ``centers/`` for OpenGF), from numpy seeds. 3DMatch: a third of the
+    pairs in each of the 1,024, 2,048 and 4,096 buckets, every fifth pair
+    with an idx gap of 1 (not counted by the protocol)."""
+    import numpy as np
+
+    from scream_tpu_torch.data.datasets import SCENE_NAME_TO_IDX
+    from scream_tpu_torch.data.synthetic import make_dem_patch, make_pair
+
+    def save(d, i, p):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = p["rot"]
+        T[:3, 3] = p["trans"].reshape(3)
+        np.save(os.path.join(d, f"src{i}.npy"), p["src"].astype(np.float32))
+        np.save(os.path.join(d, f"tgt{i}.npy"), p["tgt"].astype(np.float32))
+        np.save(os.path.join(d, f"T{i}.npy"), T)
+
+    rng = np.random.default_rng(1100)
+    d = os.path.join(root, "3DMatch_test")
+    os.makedirs(os.path.join(d, "info"))
+    scenes, ranges = list(SCENE_NAME_TO_IDX), ((900, 1025), (1025, 2049), (2049, 4097))
+    for i in range(EVAL_PAIRS):
+        lo, hi = ranges[i % 3]
+        p = make_pair(rng, n_src=int(rng.integers(lo, hi)), n_tgt=int(rng.integers(lo, hi)),
+                      overlap=float(rng.uniform(0.5, 0.9)), noise=0.002, extent=1.5)
+        save(d, i, p)
+        base = int(rng.integers(0, 500))
+        gap = 1 if i % 5 == 4 else int(rng.integers(2, 30))
+        a = rng.standard_normal((6, 6))
+        np.save(os.path.join(d, "info", f"idx{i}.npy"), np.array([base, base + gap], np.int64))
+        np.save(os.path.join(d, "info", f"covariance{i}.npy"),
+                a @ a.T * len(p["src"]) + np.eye(6) * len(p["src"]))
+    with open(os.path.join(d, "info", "scene_names.txt"), "w") as f:
+        f.write("\n".join(scenes[i % 8] for i in range(EVAL_PAIRS)) + "\n")
+
+    d = os.path.join(root, "KITTI_test")
+    os.makedirs(d)
+    for i in range(KITTI_PAIRS):
+        save(d, i, make_pair(rng, n_src=int(rng.integers(6000, 8193)),
+                             n_tgt=int(rng.integers(6000, 8193)),
+                             overlap=float(rng.uniform(0.5, 0.9)), noise=0.002, extent=40.0))
+
+    d = os.path.join(root, "OpenGF_test")
+    os.makedirs(os.path.join(d, "centers"))
+    for i in range(1, OPENGF_PATCHES + 1):
+        n = int(rng.integers(4096, 8193))
+        pt = make_dem_patch(rng, n_dsm=n, n_dem=n, extent=50.0)
+        np.save(os.path.join(d, f"{i}.npy"), np.concatenate([pt["dsm"], pt["dem"]], axis=1))
+        np.save(os.path.join(d, "centers", f"{i}.npy"), np.zeros(3, np.float32))
+
+
+def load_weights(path, device, cls=None):
+    """A shipped checkpoint as a model in eval mode on ``device``, and its
+    normalization."""
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.utils.checkpoint import load_params
+
+    cfg, normalize, state = load_params(path)
+    model = (cls or PointTransformer)(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    return model.eval(), normalize
+
+
+def log_syncs(model, batch):
+    """The host waits inside one steady-state ``register_batch`` on a staged
+    batch (``torch.cuda.set_sync_debug_mode("warn")``), counted by the line
+    that asked for them."""
+    import collections
+    import linecache
+    import warnings
+
+    import torch
+
+    from scream_tpu_torch.data import prefetch_to_device
+    from scream_tpu_torch.pipeline.register import register_batch
+
+    staged = next(prefetch_to_device([batch], device=DEV))
+    register_batch(model, staged, icp_max_iter=ICP_ITERS, device=DEV)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            register_batch(model, staged, icp_max_iter=ICP_ITERS, device=DEV)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # Waits asked for by the port's lines (not by the debug-mode switch itself).
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno} "
+        f"({linecache.getline(w.filename, w.lineno).strip()[:60]})" for w in caught
+        if "synchroniz" in str(w.message) and "scream_tpu_torch" in w.filename)
+    log(f"path 5 syncs in one steady-state register_batch ({B} x {CAP}, staged): "
+        f"{sum(where.values())} | {json.dumps(dict(where))}")
+    return sum(where.values())
+
+
+def phase_eval_3dmatch(model, model_cpu, root):
+    """3DMatch through the bucketed loader and the collated cache (equal
+    metrics), 3DZeroMatch once, the 1,024 bucket on the CPU path, and the
+    evaluate CLI in a subprocess (its dict equal to the in-process one)."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.cli import _buckets_for
+    from scream_tpu_torch.config import eval_preset
+    from scream_tpu_torch.data import BucketedPairLoader, PairDataset, collated_or_build
+    from scream_tpu_torch.eval import evaluate_registration
+    from scream_tpu_torch.pipeline.register import register_batch
+
+    ds = PairDataset(root, "3DMatch_test", normalize="unit_sphere", with_info=True,
+                     max_points=CAP)
+    buckets = _buckets_for(CAP, smallest=1024)
+    t0 = time.perf_counter()
+    bucketed = evaluate_registration(model, BucketedPairLoader(ds, EVAL_BATCH, buckets),
+                                     eval_preset("3dmatch"), device=DEV)
+    t_b = time.perf_counter() - t0
+    cache = os.path.join(root, "collated")
+    t0 = time.perf_counter()
+    collated_loader = collated_or_build(ds, cache, EVAL_BATCH, buckets)
+    t_build = time.perf_counter() - t0
+    caps = sorted({b["src"].shape[1] for b in collated_loader})
+    t0 = time.perf_counter()
+    collated = evaluate_registration(model, collated_loader, eval_preset("3dmatch"),
+                                     device=DEV)
+    t_c = time.perf_counter() - t0
+    check(caps == list(buckets), f"3DMatch buckets filled {caps}, want {list(buckets)}")
+    same = bucketed.keys() == collated.keys() and all(
+        math.isclose(bucketed[k], collated[k], rel_tol=1e-12, abs_tol=1e-12)
+        for k in bucketed)
+    check(same, f"bucketed vs collated metrics:\n{bucketed}\n{collated}")
+    t0 = time.perf_counter()
+    zero = evaluate_registration(model, BucketedPairLoader(ds, EVAL_BATCH, buckets),
+                                 eval_preset("3dzeromatch"), device=DEV)
+    t_z = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in zero.values()), f"3dzeromatch: {zero}")
+    log(f"path 5 evaluate 3dmatch ({bucketed['n_pairs']} pairs, buckets {caps}, batch "
+        f"{EVAL_BATCH}): bucketed {t_b:.2f} s ({bucketed['n_pairs'] / t_b:.2f} pairs/s), "
+        f"collated cache build {t_build:.2f} s, collated {t_c:.2f} s "
+        f"({collated['n_pairs'] / t_c:.2f} pairs/s); metrics equal (rel 1e-12) | "
+        f"{json.dumps(bucketed)}")
+    log(f"path 5 evaluate 3dzeromatch: {t_z:.2f} s ({zero['n_pairs'] / t_z:.2f} pairs/s) | "
+        f"{json.dumps(zero)}")
+
+    # The 1,024 bucket, pair by pair, on the card and on the CPU path.
+    card, cpu = [], []
+    kw = dict(icp_max_iter=ICP_ITERS)
+    for b in collated_loader:
+        if b["src"].shape[1] != buckets[0]:
+            continue
+        b = {k: np.array(v) for k, v in b.items()}
+        card.append(register_batch(model, b, device=DEV, **kw))
+        cpu.append(register_batch(model_cpu, b, device="cpu", **kw))
+    cat = lambda ms, f: torch.cat([getattr(m, f).cpu() for m in ms]).numpy()
+    rc, rx = cat(card, "rmse") < 0.2, cat(cpu, "rmse") < 0.2
+    d_re = np.abs(cat(card, "re_deg") - cat(cpu, "re_deg"))
+    d_te = np.abs(cat(card, "te") - cat(cpu, "te"))
+    off = int(((d_re > TRANSFORM_TOL) | (d_te > TRANSFORM_TOL)).sum())
+    check(int(rc.sum()) == int(rx.sum()) and off <= 2,
+          f"1,024 bucket, card vs CPU path: recall {int(rc.sum())} / {int(rx.sum())}, "
+          f"{off} pairs off by > {TRANSFORM_TOL}")
+    log(f"path 5 1,024 bucket ({len(rc)} pairs) card vs CPU path: pair recall "
+        f"{int(rc.sum())} / {int(rx.sum())} (equal), {off} pairs with RE or TE off by > "
+        f"{TRANSFORM_TOL} (bar 2), max dRE {float(d_re.max()):.3e} deg, max dTE "
+        f"{float(d_te.max()):.3e}")
+
+    root_repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root_repo + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "evaluate", "3dmatch",
+                           "--root", root, "--params", POINT_GEN, "--bucketed"],
+                          capture_output=True, text=True, timeout=300, cwd=root_repo, env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate CLI exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(cli == bucketed, f"evaluate CLI vs in-process:\n{cli}\n{bucketed}")
+    log(f"path 5 cli: python -m scream_tpu_torch evaluate 3dmatch --params {POINT_GEN} "
+        f"--bucketed ({wall:.1f} s wall, subprocess): JSON equal to the in-process dict")
+    return dict(eval_3dmatch=bucketed, eval_3dmatch_s=t_b, eval_3dmatch_collated_s=t_c,
+                eval_3dzeromatch=zero, eval_3dzeromatch_s=t_z)
+
+
+def phase_eval_kitti(root):
+    """KITTI with the hint-free KITTI checkpoint (``center_mode="none"``),
+    fused and chunked: the same counts; the transforms of one batch through
+    both within 1e-5; the ICP steps taken against the 1,000 allowed."""
+    import torch
+
+    from scream_tpu_torch.config import eval_preset
+    from scream_tpu_torch.data import PairDataset, PairLoader
+    from scream_tpu_torch.eval import SkipDataset, evaluate_kitti
+    from scream_tpu_torch.geometry.icp import registration_icp_batched
+    from scream_tpu_torch.pipeline.register import (_register_solve_stage, register_batch,
+                                                    register_batch_requeue, to_device)
+
+    model, normalize = load_weights(KITTI_HINTFREE, DEV)
+    ec = eval_preset("kitti")
+    ds = SkipDataset(PairDataset(root, "KITTI_test", normalize=normalize,
+                                 max_points=KITTI_CAP), (124, 142))
+    loader = PairLoader(ds, batch_size=EVAL_BATCH, src_capacity=KITTI_CAP)
+    kw = dict(dis_thresh=ec.dis_thresh, icp_thresh=ec.icp_thresh,
+              icp_max_iter=ec.icp_max_iter, center_mode="none")
+    out, secs = {}, {}
+    for chunk in (None, KITTI_CHUNK):
+        t0 = time.perf_counter()
+        out[chunk] = evaluate_kitti(model, loader, icp_chunk=chunk, device=DEV, **kw)
+        secs[chunk] = time.perf_counter() - t0
+    fused, chunked = out[None], out[KITTI_CHUNK]
+    succ = lambda o: round(o["success_rate"] * o["n_pairs"])
+    check(fused["n_pairs"] == chunked["n_pairs"] == KITTI_PAIRS
+          and succ(fused) == succ(chunked), f"KITTI fused vs chunked: {fused} / {chunked}")
+    b = to_device(next(iter(loader)), DEV)
+    rk = dict(dis_thresh=ec.dis_thresh, icp_thresh=ec.icp_thresh,
+              icp_max_iter=ec.icp_max_iter, center_mode="none", device=DEV)
+    t_fused = register_batch(model, b, **rk).transform
+    t_chunk = register_batch_requeue(model, b, icp_chunk=KITTI_CHUNK, **rk).transform
+    err = float((t_fused - t_chunk).abs().max())
+    check(err <= 1e-5, f"KITTI transforms fused vs chunked: {err:.3g} > 1e-5")
+    with torch.no_grad():
+        sol, _, src_dn, tgt_dn = _register_solve_stage(model, b, ec.dis_thresh, "tgt", "none")
+        res = registration_icp_batched(src_dn, tgt_dn, ec.icp_thresh, init=sol.transform,
+                                       max_iteration=ec.icp_max_iter,
+                                       src_mask=b["src_mask"], tgt_mask=b["tgt_mask"])
+    its = res.iterations.cpu().tolist()
+    log(f"path 5 evaluate kitti ({KITTI_HINTFREE}, center_mode none, {fused['n_pairs']} "
+        f"pairs x {KITTI_CAP}): fused {secs[None]:.2f} s "
+        f"({fused['n_pairs'] / secs[None]:.2f} pairs/s), icp_chunk {KITTI_CHUNK} "
+        f"{secs[KITTI_CHUNK]:.2f} s ({chunked['n_pairs'] / secs[KITTI_CHUNK]:.2f} pairs/s); "
+        f"success {succ(fused)} / {succ(chunked)} equal; transforms max err {err:.2e} "
+        f"(bar 1e-5); ICP steps per pair {its} of {ec.icp_max_iter} allowed | "
+        f"{json.dumps(fused)}")
+    return dict(eval_kitti=fused, eval_kitti_s=secs[None], eval_kitti_chunk_s=secs[KITTI_CHUNK],
+                kitti_icp_steps=its)
+
+
+def phase_eval_opengf(root):
+    """OpenGF with the shipped DEM generator: finite metrics on the card,
+    within 2e-2 relative of the CPU path on 2 patches; peak memory."""
+    import torch
+
+    from scream_tpu_torch.data import DEMLoader, OpenGFDataset
+    from scream_tpu_torch.eval import evaluate_open_gf
+    from scream_tpu_torch.models import DEMTransformer
+
+    model, _ = load_weights(DEM_GEN, DEV, DEMTransformer)
+    ds = OpenGFDataset(root, "test")
+    mk = lambda d, b: DEMLoader(d, batch_size=b, dsm_capacity=KITTI_CAP,
+                                dem_capacity=KITTI_CAP, coarse_capacity=KITTI_CAP // 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = evaluate_open_gf(model, mk(ds, EVAL_BATCH), device=DEV)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(out["n_patches"] == OPENGF_PATCHES and all(math.isfinite(v) for v in out.values()),
+          f"opengf: {out}")
+    two = [ds[i] for i in range(OPENGF_CPU_PATCHES)]
+    card = evaluate_open_gf(model, mk(two, OPENGF_CPU_PATCHES), device=DEV)
+    model_cpu, _ = load_weights(DEM_GEN, "cpu", DEMTransformer)
+    cpu = evaluate_open_gf(model_cpu, mk(two, OPENGF_CPU_PATCHES), device="cpu")
+    errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+    check(all(e <= OPENGF_TOL for e in errs.values()),
+          f"opengf card vs CPU path on {OPENGF_CPU_PATCHES} patches: {card} / {cpu}")
+    log(f"path 5 evaluate opengf ({DEM_GEN}, {out['n_patches']} patches x {KITTI_CAP}, "
+        f"batch {EVAL_BATCH}): {secs:.2f} s ({out['n_patches'] / secs:.2f} patches/s), "
+        f"peak memory {peak:.2f} GiB | {json.dumps(out)} | card vs CPU path on "
+        f"{OPENGF_CPU_PATCHES} patches: rel {json.dumps(errs)} (bar {OPENGF_TOL})")
+    return dict(eval_opengf=out, eval_opengf_s=secs, eval_opengf_peak_gib=peak)
+
+
+def run_bench(args):
+    """``python -m scream_tpu_torch bench <args>`` in a subprocess: (the JSON
+    metric lines of both streams, stderr, wall seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "bench", *args],
+                          capture_output=True, text=True, timeout=400, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench {args}: exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in (proc.stdout + proc.stderr).splitlines()
+             if ln.startswith("{")]
+    return {r["metric"]: r for r in lines}, proc.stderr, wall
+
+
+def phase_bench(model_cpu):
+    """``bench`` and ``bench --suite`` in subprocesses: every metric line
+    parses with a value > 0, the params line names the shipped checkpoint,
+    median RE finite (beside the CPU path's on the first 4 pairs of the
+    bench's first batch), and the kernels of the path launched."""
+    import numpy as np
+
+    from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
+    from scream_tpu_torch.pipeline.register import register_batch
+
+    want = {"": ("3dmatch_registration_pairs_per_sec_per_chip",
+                 "3dmatch_registration_pairs_per_sec_icp_subsampled"),
+            "--suite": ("kitti_registration_pairs_per_sec",
+                        "kitti_registration_pairs_per_sec_requeue",
+                        "opengf_dem_patches_per_sec", "gt_free_serving_pairs_per_sec",
+                        "adversarial_train_pairs_per_sec")}
+    results, launches = {}, {}
+    for flag, names in want.items():
+        metrics, err, wall = run_bench([flag] if flag else [])
+        check(all(n in metrics and metrics[n]["value"] > 0 for n in names),
+              f"bench {flag}: missing or non-positive metrics {metrics}")
+        params = [ln for ln in err.splitlines() if ln.startswith("# params:")]
+        check(params and "shipped point-generator checkpoint" in params[0]
+              and POINT_GEN in params[0], f"bench {flag}: params line {params}")
+        med = [ln for ln in err.splitlines() if "median_re_deg=" in ln][0]
+        re_card = float(med.split("median_re_deg=")[1].split()[0])
+        check(math.isfinite(re_card), f"bench {flag}: {med}")
+        launches[flag or "main"] = json.loads(
+            [ln for ln in err.splitlines() if ln.startswith("# launches")][0][11:])
+        results.update({n: metrics[n]["value"] for n in names})
+        log(f"path 5 bench {flag} ({wall:.1f} s wall, subprocess): "
+            + ", ".join(f"{n} {metrics[n]['value']}" for n in names)
+            + f" | {params[0]} | {med[2:]} | launches {json.dumps(launches[flag or 'main'])}")
+    need = {"main": PATH5_KERNELS, "--suite": PATH5_KERNELS + ("max_splat",)}
+    check(all(launches[k][n] > 0 for k, ns in need.items() for n in ns),
+          f"bench: a kernel of the path was not launched: {launches}")
+    # The CPU path's median RE on the first 4 pairs of the bench's first batch.
+    ds = SyntheticPairDataset(length=16 * 11, n_src=CAP - 256, n_tgt=CAP - 64, seed=0)
+    first = next(iter(PairLoader(ds, batch_size=16, src_capacity=CAP, num_workers=4)))
+    four = {k: np.asarray(v[:4]) for k, v in first.items()}
+    m = register_batch(model_cpu, four, icp_max_iter=ICP_ITERS, device="cpu")
+    m_card = register_batch(load_weights(POINT_GEN, DEV)[0], four, icp_max_iter=ICP_ITERS,
+                            device=DEV)
+    log(f"path 5 bench median RE {re_card:.3f} deg (card, the last timed batch); first 4 "
+        f"pairs of the first batch: CPU path {float(np.median(m.re_deg.numpy())):.3f} deg, "
+        f"card {float(np.median(m_card.re_deg.cpu().numpy())):.3f} deg")
+    return results, launches, re_card
+
+
+def path5():
+    """Path 5: the evaluate protocols and the bench with the shipped
+    full-width checkpoints. Returns (launch counts of the in-process
+    protocols, results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_splits_", dir="build")
+    try:
+        write_split_tree(root)
+        model, _ = load_weights(POINT_GEN, DEV)
+        model_cpu, _ = load_weights(POINT_GEN, "cpu")
+        syncs = log_syncs(model, make_batches(1, seed=1200)[0])
+        reset_launch_counts()
+        results = phase_eval_3dmatch(model, model_cpu, root)
+        results.update(phase_eval_kitti(root))
+        results.update(phase_eval_opengf(root))
+        counts = launch_counts()
+        check(all(counts[k] > 0 for k in PATH5_KERNELS),
+              f"path 5: a kernel was not launched: {counts}")
+        log(f"path 5 launches (in-process protocols): {json.dumps(counts)}")
+        del model
+        torch.cuda.empty_cache()
+        bench, bench_launches, re_card = phase_bench(model_cpu)
+        results.update(bench=bench, bench_launches=bench_launches, bench_median_re_deg=re_card,
+                       register_batch_syncs=syncs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"path 5 took {time.perf_counter() - t0:.1f} s")
+    return counts, results
+
+
 def run_only(names):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
@@ -2021,6 +2436,8 @@ def main():
         ap.error(f"--only takes {', '.join(ONLY_KERNELS)}, not {only}")
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     smi = phase_device()
 
     import torch
@@ -2034,8 +2451,8 @@ def main():
         faulthandler.cancel_dump_traceback_later()
         return
     batches = make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)
-    model = PointTransformer(ModelConfig(), device="cuda",
-                             generator=torch.Generator().manual_seed(0))
+    # Path 1: the shipped trained point-generator (full-width ModelConfig).
+    model, _ = load_weights(POINT_GEN, DEV)
     records = phase_kernels(model, batches[-1])
     phase_forward(model, batches[-1])
     pps, counts = run_path(model, batches[:TIMED_BATCHES + 1], None)
@@ -2075,9 +2492,18 @@ def main():
     del gen
     torch.cuda.empty_cache()
 
-    # Path 4: OpenGF training at d_model 512, every block on the tail kernel.
-    dem_records, dem_counts, dem_training = path4(model, batches[-1])
+    # Path 4: OpenGF training at d_model 512, every block on the tail kernel;
+    # its d 256 tail check on path 1's batch keeps the seeded random init.
+    del model
+    init_model = PointTransformer(ModelConfig(), device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+    dem_records, dem_counts, dem_training = path4(init_model, batches[-1])
     records += dem_records
+    del init_model
+    torch.cuda.empty_cache()
+
+    # Path 5: the evaluate protocols and the bench with the shipped weights.
+    eval_counts, evaluation = path5()
 
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
@@ -2107,7 +2533,8 @@ def main():
                     "launches_icp_subsampled": counts_sub,
                     "launches_gt_free_serving": serve_counts, **serving,
                     "launches_training_gan": train_counts, **training,
-                    "launches_dem_training": dem_counts, **dem_training}))
+                    "launches_dem_training": dem_counts, **dem_training,
+                    "launches_evaluate": eval_counts, **evaluation}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

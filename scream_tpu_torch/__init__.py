@@ -2,7 +2,10 @@
 hand-written Hopper kernels.
 
 The PyTorch/CUDA port of :mod:`scream_tpu`: the protocol path
-(``pipeline.register_batch``), GT-free serving (``register_pair``,
+(``pipeline.register_batch``), the benchmark protocols (``eval``: 3DMatch,
+3DLoMatch, 3DZeroMatch, KITTI, OpenGF; ``python -m scream_tpu_torch
+evaluate``) and the throughput benchmark (``bench``, ``python -m
+scream_tpu_torch bench``) with the shipped full-width checkpoints, GT-free serving (``register_pair``,
 ``register_pairs``, the robust search, ``python -m scream_tpu_torch
 register``) with the shipped hint-free checkpoint under ``weights/``, and
 training (the GAN steps, ``train.RegistrationTrainer``,

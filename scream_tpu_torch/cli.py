@@ -1,5 +1,6 @@
-"""Command line of the port (port of ``scream_tpu/cli.py``): ``train`` and
-the GT-free ``register`` command, "align these two scans".
+"""Command line of the port (port of ``scream_tpu/cli.py``): ``train``,
+``evaluate``, ``bench`` and the GT-free ``register`` command, "align these
+two scans".
 
     python -m scream_tpu_torch train opengf --d-model 512 --epochs 2
     python -m scream_tpu_torch train 3dmatch --root data --epochs 45
@@ -12,6 +13,22 @@ directory is absent, as the JAX command does, saves the best weights under
 it), and prints ``{"final_val": ...}`` last. ``--init-params`` reads a
 weights directory of the port. ``--mesh``, ``--multi-scale`` and
 ``--sample-img-dir`` are not ported.
+
+    python -m scream_tpu_torch evaluate 3dmatch --root data \
+        --params scream_tpu_torch/weights/point-generator --bucketed
+    python -m scream_tpu_torch evaluate kitti --center-mode none \
+        --params scream_tpu_torch/weights/kitti-generator-hintfree
+    python -m scream_tpu_torch evaluate opengf \
+        --params scream_tpu_torch/weights/dem-generator
+
+``evaluate`` runs a benchmark protocol (3dmatch, 3dlomatch, 3dzeromatch,
+kitti, opengf) with the JAX command's flags and defaults, plus
+``--device`` (default ``cuda``), and prints one JSON line of metrics; the
+split under ``--root`` where it exists, else synthetic data. ``--params``
+names a torch checkpoint of the port whose ``model_config.json`` sets the
+architecture and the normalization (explicit flags win); without it the
+task preset's model runs from a seeded random init. ``--mesh`` is not
+ported. ``bench`` is ``scream_tpu_torch/bench.py``.
 
     python -m scream_tpu_torch register --src a.npy --tgt b.ply \
         --params scream_tpu_torch/weights/point-generator-hintfree
@@ -39,6 +56,23 @@ from typing import Optional
 from scream_tpu_torch.config import kitti_presets, opengf_presets, threedmatch_presets
 
 TASKS = {"3dmatch": threedmatch_presets, "kitti": kitti_presets, "opengf": opengf_presets}
+EVAL_SPLITS = {
+    "3dmatch": ("3DMatch_test", "unit_sphere"),
+    "3dlomatch": ("3DLoMatch_test", "unit_sphere"),
+    "3dzeromatch": ("3DZeroMatch_test", "unit_sphere"),
+    "kitti": ("KITTI_test", "unit_cube"),
+    "opengf": ("OpenGF_test", None),
+}
+
+
+def _buckets_for(cap: int, smallest: int = 256):
+    """The padding buckets up to ``cap``, with ``cap`` itself appended when
+    it falls between them, so that no cloud exceeds every bucket."""
+    buckets = tuple(b for b in (256, 512, 1024, 2048, 4096, 8192, 16384)
+                    if smallest <= b <= cap)
+    if not buckets or buckets[-1] < cap:
+        buckets = buckets + (cap,)
+    return buckets
 
 
 def _registration_loaders(task, data_cfg, train_cfg, root, synthetic_len=64):
@@ -170,6 +204,116 @@ def cmd_train(args):
               file=sys.stderr)
     final = trainer.fit(profile_dir=args.profile_dir)
     print(json.dumps({"final_val": final}))
+
+
+def _load_model(task, model_cfg, params_dir, args, device):
+    """``(model, normalize)`` for ``evaluate``: the checkpoint's architecture
+    (its sidecar) and weights, or without ``params_dir`` the task preset's
+    ``model_cfg`` from a seeded random init, explicit flags on top; in eval
+    mode on ``device``. ``normalize`` is the sidecar's (None if it names
+    none)."""
+    import torch
+
+    from scream_tpu_torch.models import DEMTransformer, PointTransformer
+    from scream_tpu_torch.utils.checkpoint import load_params
+
+    normalize, state = None, None
+    if params_dir:
+        model_cfg, normalize, state = load_params(params_dir)
+    model_cfg = _apply_model_overrides(model_cfg, args)
+    cls = DEMTransformer if task == "opengf" else PointTransformer
+    model = cls(model_cfg, device=device, generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    else:
+        print("[cli] no --params given; evaluating a randomly initialized model",
+              file=sys.stderr)
+    model.eval()
+    return model, None if normalize in (None, "none") else normalize
+
+
+def cmd_evaluate(args):
+    """Run a benchmark protocol (JAX command: ``scream_tpu/cli.py:cmd_evaluate``)."""
+    from scream_tpu_torch import eval as protocols
+    from scream_tpu_torch.config import eval_preset
+    from scream_tpu_torch.data import (BucketedPairLoader, DEMLoader, OpenGFDataset,
+                                       PairDataset, PairLoader, SyntheticPairDataset,
+                                       collated_or_build)
+
+    if args.mesh:
+        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
+    task = "opengf" if args.protocol == "opengf" else (
+        "kitti" if args.protocol == "kitti" else "3dmatch")
+    model_cfg, _, data_cfg, _ = TASKS[task]()
+    eval_cfg = eval_preset(args.protocol)
+    over = {f: getattr(args, f) for f in ("dis_thresh", "rmse_thresh", "icp_thresh",
+                                          "icp_max_iter", "re_stat", "center_mode")
+            if getattr(args, f) is not None}
+    if over:
+        eval_cfg = dataclasses.replace(eval_cfg, **over)
+    if args.icp_chunk is not None:
+        # Fail before the model and data load, not inside the evaluation.
+        if args.protocol != "kitti":
+            raise SystemExit(
+                "--experimental-icp-chunk applies to the kitti protocol only (the other "
+                "protocols run ICP at the Open3D default budget of 30)")
+        if args.icp_chunk < 1:
+            raise SystemExit(f"--experimental-icp-chunk must be >= 1, got {args.icp_chunk}")
+    if args.max_points:
+        data_cfg = dataclasses.replace(data_cfg, max_points=args.max_points)
+    split, normalize = EVAL_SPLITS[args.protocol]
+    root, cap = args.root, data_cfg.max_points
+    model, side_normalize = _load_model(task, model_cfg, args.params, args, args.device)
+
+    if args.protocol == "opengf":
+        if os.path.isdir(os.path.join(root, "OpenGF_test")):
+            ds = OpenGFDataset(root, "test")
+        else:
+            print("[cli] OpenGF data not found; synthetic patches", file=sys.stderr)
+            ds = _SyntheticPatches(8, 256)
+        loader = DEMLoader(ds, batch_size=args.batch_size, dsm_capacity=cap,
+                           dem_capacity=cap, coarse_capacity=max(cap // 8, 64))
+        out = protocols.evaluate_open_gf(model, loader, device=args.device)
+    else:
+        normalize = side_normalize or normalize
+        with_info = args.protocol.startswith("3d")
+        if os.path.isdir(os.path.join(root, split)):
+            ds = PairDataset(root, split, normalize=normalize, with_info=with_info,
+                             max_points=cap)
+        else:
+            print(f"[cli] {split} not found; synthetic pairs", file=sys.stderr)
+            ds = SyntheticPairDataset(length=16, n_src=cap // 2, n_tgt=cap // 2,
+                                      normalize=normalize, with_info=with_info)
+        if args.protocol == "kitti" and not isinstance(ds, SyntheticPairDataset):
+            ds = protocols.SkipDataset(ds, (124, 142))
+        buckets = _buckets_for(cap, smallest=1024)
+        if args.cache_dir:
+            # The pre-collated bucket-shard cache (data/collated.py), built
+            # on first use: the ladder and padding of --bucketed.
+            loader = collated_or_build(ds, args.cache_dir, batch_size=args.batch_size,
+                                       buckets=buckets)
+        elif args.bucketed:
+            loader = BucketedPairLoader(ds, batch_size=args.batch_size, buckets=buckets)
+        else:
+            loader = PairLoader(ds, batch_size=args.batch_size, src_capacity=cap)
+        if args.protocol == "kitti":
+            out = protocols.evaluate_kitti(
+                model, loader, dis_thresh=eval_cfg.dis_thresh,
+                icp_thresh=eval_cfg.icp_thresh, icp_max_iter=eval_cfg.icp_max_iter,
+                success_re_deg=eval_cfg.success_re_deg, success_te=eval_cfg.success_te,
+                center_mode=eval_cfg.center_mode, icp_chunk=args.icp_chunk,
+                device=args.device)
+        else:
+            out = protocols.evaluate_registration(model, loader, eval_cfg,
+                                                  device=args.device)
+    print(json.dumps(out, default=float))
+
+
+def cmd_bench(args):
+    """The throughput benchmark (``scream_tpu_torch/bench.py``)."""
+    from scream_tpu_torch import bench
+
+    bench.run(run_suite=args.suite, write=args.write, device=args.device)
 
 
 def _load_cloud(path: str, name: str):
@@ -345,6 +489,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the model and the kernels "
                         "(cpu runs the plain PyTorch versions)")
     t.set_defaults(fn=cmd_train)
+    e = sub.add_parser("evaluate", help="run a benchmark protocol")
+    e.add_argument("protocol", choices=sorted(EVAL_SPLITS))
+    e.add_argument("--root", default="data")
+    e.add_argument("--params", default=None,
+                   help="torch checkpoint directory of the port (model.pt + "
+                        "model_config.json)")
+    e.add_argument("--batch-size", type=int, default=8)
+    e.add_argument("--max-points", type=int, default=None,
+                   help="padding bucket; oversize clouds are subsampled")
+    e.add_argument("--d-model", type=int, default=None)
+    e.add_argument("--self-layers", type=int, default=None)
+    e.add_argument("--cross-layers", type=int, default=None)
+    e.add_argument("--bucketed", action="store_true",
+                   help="group pairs by cloud size (one padded shape per bucket)")
+    e.add_argument("--cache-dir", default=None,
+                   help="pre-collated bucket-shard cache dir (built on first use): "
+                        "batches stream as memmap slices, no per-item host work")
+    e.add_argument("--dis-thresh", type=float, default=None,
+                   help="NN correspondence threshold (protocol preset default)")
+    e.add_argument("--rmse-thresh", type=float, default=None,
+                   help="redwood RMSE recall criterion (default 0.2)")
+    e.add_argument("--icp-thresh", type=float, default=None,
+                   help="ICP max correspondence distance")
+    e.add_argument("--icp-max-iter", type=int, default=None,
+                   help="ICP iteration cap (30 for 3DMatch, 1000 for KITTI)")
+    e.add_argument("--experimental-icp-chunk", dest="icp_chunk", type=int, default=None,
+                   help="kitti only: chunked ICP whose finished lanes retire between "
+                        "chunks (the same protocol numbers)")
+    e.add_argument("--re-stat", choices=["median", "mean"], default=None,
+                   help="per-scene RE/TE statistic")
+    e.add_argument("--center-mode", choices=["trans", "neg_rt", "none"], default=None,
+                   help="src_center hint (preset default; 'none' evaluates a "
+                        "hint-free-trained checkpoint)")
+    e.add_argument("--mesh", default=None, help="multi-GPU evaluation: not ported yet")
+    e.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
+                   help="compute dtype override")
+    e.add_argument("--device", default="cuda",
+                   help="torch device of the model and the kernels "
+                        "(cpu runs the plain PyTorch versions)")
+    e.set_defaults(fn=cmd_evaluate)
+
+    b = sub.add_parser("bench", help="run the throughput benchmark", allow_abbrev=False)
+    b.add_argument("--suite", action="store_true",
+                   help="also time the other workload classes")
+    b.add_argument("--write", default=None, metavar="PATH",
+                   help="persist every emitted metric to this JSON file")
+    b.add_argument("--device", default="cuda",
+                   help="torch device (cpu runs the plain PyTorch versions)")
+    b.set_defaults(fn=cmd_bench)
+
     r = sub.add_parser(
         "register",
         help="GT-free: align two raw clouds, print the 4x4 transform")

@@ -4,7 +4,7 @@ arrays; the pipeline and the trainers move them to the device in one step."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -20,6 +20,14 @@ def pad_cloud(points: np.ndarray, capacity: int) -> Tuple[np.ndarray, np.ndarray
     mask = np.zeros((capacity,), dtype=bool)
     mask[:n] = True
     return out, mask
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket capacity >= n (buckets sorted ascending)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} points exceed largest bucket {buckets[-1]}")
 
 
 def collate_pairs(

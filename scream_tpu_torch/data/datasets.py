@@ -264,6 +264,11 @@ class SyntheticPairDataset:
     def __len__(self) -> int:
         return self.length
 
+    def size_hint(self, item: int):
+        """Static cloud sizes: the bucketed loader probes them without
+        making the item (or drawing augmentation randomness)."""
+        return self.n_src, self.n_tgt
+
     def __getitem__(self, item: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(self.seed * 1_000_003 + item)
         pair = make_pair(rng, self.n_src, self.n_tgt, overlap=self.overlap,
@@ -288,3 +293,33 @@ class SyntheticPairDataset:
             out["covariance"] = np.eye(6, dtype=np.float32) * float(self.n_src)
             out["scene"] = np.int32(item % 8)
         return out
+
+
+class ConcatDataset:
+    """Concatenation of map-style datasets with one item schema."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self._offsets = []
+        off = 0
+        for p in self.parts:
+            self._offsets.append(off)
+            off += len(p)
+        self._total = off
+
+    def __len__(self):
+        return self._total
+
+    def __getitem__(self, i):
+        p, j = self._unwrap(i)
+        return p[j]
+
+    def _unwrap(self, i):
+        """``(part, index in part)``: size probing reaches the part
+        (``loader._default_size_fn``)."""
+        if i < 0 or i >= self._total:
+            raise IndexError(i)
+        for p, off in zip(self.parts, self._offsets):
+            if i < off + len(p):
+                return p, i - off
+        raise IndexError(i)

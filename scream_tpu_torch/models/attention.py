@@ -49,7 +49,9 @@ def sinusoidal_pe(
     padding = d_model - num_pos_feats * n_dim
 
     i = torch.arange(num_pos_feats, dtype=torch.float32, device=xyz.device)
-    dim_t = torch.pow(torch.tensor(temperature, dtype=torch.float32, device=xyz.device),
+    # torch.full, not torch.tensor: a scalar copied from the host would make
+    # the host wait for the device.
+    dim_t = torch.pow(torch.full((), temperature, dtype=torch.float32, device=xyz.device),
                       2.0 * torch.floor(i / 2.0) / num_pos_feats)
 
     pos = xyz.float() * scale

@@ -2,7 +2,9 @@
 reference ``evaluate_3d_match.py:53-171``).
 
 * :func:`register_batch`: the protocol path over a padded batch with GT,
-  forward -> pose solve -> ICP kept iff better -> metrics.
+  forward -> pose solve -> ICP kept iff better -> metrics;
+  :func:`register_batch_requeue` the same with chunked ICP whose finished
+  lanes retire between chunks (KITTI's 1,000-iteration budget).
 * GT-free serving, "align these two scans": :func:`register_pair` (one
   pair, the single-pair ICP with Open3D's early exit), :func:`register_pairs`
   (a stream of pairs, batched forward and batched ICP),
@@ -28,6 +30,7 @@ Protocol details kept from the JAX package, each load-bearing:
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -70,6 +73,22 @@ def spread_subsample_indices(n: int, k: int) -> np.ndarray:
     """``k`` evenly spaced indices into ``range(n)``: ``floor(i * n / k)``,
     so a ``k`` that does not divide ``n`` still spans the whole cloud."""
     return np.floor(np.arange(k) * (n / k)).astype(np.int32)
+
+
+@lru_cache(maxsize=16)
+def _subsample_index(n: int, k: int, device: torch.device) -> torch.Tensor:
+    """:func:`spread_subsample_indices` as a long tensor on ``device``, made
+    once: a copy from the host per batch would make the host wait."""
+    return torch.as_tensor(spread_subsample_indices(n, k), dtype=torch.long, device=device)
+
+
+def _icp_view(src_dn, src_mask, icp_subsample: Optional[int]):
+    """The ICP source: all points, or ``icp_subsample`` evenly spaced ones
+    (throughput mode; the reference refines on all points)."""
+    if icp_subsample is None or icp_subsample >= src_dn.shape[1]:
+        return src_dn, src_mask
+    idx = _subsample_index(src_dn.shape[1], icp_subsample, src_dn.device)
+    return src_dn[:, idx], src_mask[:, idx]
 
 
 def denormalized_gt(rot, trans, scale, center) -> torch.Tensor:
@@ -159,9 +178,39 @@ def _register_solve_stage(model, batch, dis_thresh, corr, center_mode):
     return sol, gt_T, src_dn, tgt_dn
 
 
-def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy arrays or tensors) as tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+# The batch keys register_batch reads; host-only bookkeeping (idx, scene)
+# stays behind.
+BATCH_KEYS = ("src", "tgt", "src_mask", "tgt_mask", "rot", "trans", "scale", "center",
+              "covariance")
+
+
+def to_device(batch: Dict, device, keys: Optional[Sequence[str]] = None
+              ) -> Dict[str, torch.Tensor]:
+    """A loader batch (numpy arrays or tensors) as tensors on ``device``:
+    every key, or those of ``keys`` that it has. A tensor already there is
+    not copied."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+            if keys is None or k in keys}
+
+
+def _icp_refine_batch(src_dn, tgt_dn, src_mask, tgt_mask, init_T, gt_T, icp_thresh,
+                      icp_max_iter):
+    """Batched ICP kept iff RE and TE both improve (the one implementation
+    is ``geometry.icp.icp_refine_if_better``)."""
+    return icp_refine_if_better(src_dn, tgt_dn, init_T, gt_T, icp_thresh,
+                                max_iteration=icp_max_iter, src_mask=src_mask,
+                                tgt_mask=tgt_mask)
+
+
+def _accept_if_better(init_T, refined_T, gt_T):
+    """Batched keep-iff-both-improve acceptance (reference
+    ``evaluate_kitti.py:74-77``, ``evaluate_3d_match.py:116-119``): returns
+    ``(T, re_deg, te)``."""
+    re0, te0 = transformation_error(init_T, gt_T)
+    re1, te1 = transformation_error(refined_T, gt_T)
+    better = (re1 <= re0) & (te1 <= te0)
+    T = torch.where(better[:, None, None], refined_T, init_T)
+    return T, torch.where(better, re1, re0), torch.where(better, te1, te0)
 
 
 @torch.no_grad()
@@ -189,25 +238,59 @@ def register_batch(
     (throughput mode; the reference refines on all points).
     """
     dev = resolve_device(device)
-    batch = to_device(batch, dev)
+    batch = to_device(batch, dev, BATCH_KEYS)
     src_mask, tgt_mask = batch["src_mask"], batch["tgt_mask"]
     sol, gt_T, src_dn, tgt_dn = _register_solve_stage(
         model, batch, dis_thresh, corr, center_mode)
 
     if use_icp:
-        icp_src, icp_src_mask = src_dn, src_mask
-        if icp_subsample is not None and icp_subsample < src_dn.shape[1]:
-            idx = torch.as_tensor(
-                spread_subsample_indices(src_dn.shape[1], icp_subsample),
-                dtype=torch.long, device=dev)
-            icp_src, icp_src_mask = src_dn[:, idx], src_mask[:, idx]
-        T, re, te = icp_refine_if_better(
-            icp_src, tgt_dn, sol.transform, gt_T, icp_thresh,
-            max_iteration=icp_max_iter, src_mask=icp_src_mask, tgt_mask=tgt_mask)
+        icp_src, icp_src_mask = _icp_view(src_dn, src_mask, icp_subsample)
+        T, re, te = _icp_refine_batch(icp_src, tgt_dn, icp_src_mask, tgt_mask,
+                                      sol.transform, gt_T, icp_thresh, icp_max_iter)
     else:
         T = sol.transform
         re, te = transformation_error(T, gt_T)
 
+    rmse = None
+    if "covariance" in batch:
+        rmse = registration_recall_rmse(T, gt_T, batch["covariance"])
+    return RegistrationMetrics(T, re, te, sol.n_corr, rmse)
+
+
+@torch.no_grad()
+def register_batch_requeue(
+    model: Callable,
+    batch: Dict,
+    dis_thresh: float = 0.1,
+    corr: str = "tgt",
+    icp_thresh: float = 0.1,
+    icp_max_iter: int = 30,
+    icp_chunk: int = 50,
+    icp_subsample: Optional[int] = None,
+    center_mode: str = "trans",
+    device="cuda",
+    presolved=None,
+) -> RegistrationMetrics:
+    """:func:`register_batch` with chunked ICP
+    (``registration_icp_batched(chunk=icp_chunk)``): lanes advance
+    ``icp_chunk`` iterations at a time and the converged ones retire, so
+    one straggler does not hold the batch to KITTI's 1,000 iterations.
+    The iterates, the acceptance and the metrics are those of
+    :func:`register_batch`. The chunk boundaries read the device from the
+    host; a caller that streams batches passes the next batch's
+    :func:`_register_solve_stage` (launched before this batch's chunks) as
+    ``presolved``, so the device has the next forward queued meanwhile.
+    """
+    dev = resolve_device(device)
+    batch = to_device(batch, dev, BATCH_KEYS)
+    if presolved is None:
+        presolved = _register_solve_stage(model, batch, dis_thresh, corr, center_mode)
+    sol, gt_T, src_dn, tgt_dn = presolved
+    icp_src, icp_src_mask = _icp_view(src_dn, batch["src_mask"], icp_subsample)
+    res = registration_icp_batched(icp_src, tgt_dn, icp_thresh, init=sol.transform,
+                                   max_iteration=icp_max_iter, src_mask=icp_src_mask,
+                                   tgt_mask=batch["tgt_mask"], chunk=icp_chunk)
+    T, re, te = _accept_if_better(sol.transform, res.transformation, gt_T)
     rmse = None
     if "covariance" in batch:
         rmse = registration_recall_rmse(T, gt_T, batch["covariance"])

@@ -25,3 +25,27 @@ def on_cuda(x: torch.Tensor) -> bool:
     renderer: whether ``x`` lies on a CUDA device (the CPU tests patch it
     to build CUDA routing)."""
     return x.is_cuda
+
+
+def fetch_async(tensors: dict):
+    """Start copying ``tensors`` (a dict of tensors) to the host now, in
+    stream order; returns a function that waits for those copies alone and
+    gives the dict as numpy arrays.
+
+    On a CUDA device the copies go into pinned memory with ``non_blocking``
+    and an event marks their end, so work queued after this call (the next
+    batch) does not delay the fetch, as a later ``.cpu()`` would (it waits
+    for the whole stream). On the CPU the arrays are the tensors' own."""
+    first = next(iter(tensors.values()))
+    if not first.is_cuda:
+        return lambda: {k: v.numpy() for k, v in tensors.items()}
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+            for k, v in tensors.items()}
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    return wait

@@ -3,9 +3,16 @@ leaf of a flax PointTransformer tree is used exactly once, values and the
 ``(in, out)`` layout round-trip unchanged, and the shipped
 ``params/point-generator`` checkpoint, read by the JAX package's loader and
 converted, gives the JAX model's forward (fp32, <= 1e-4 relative, max
-|port - jax| over max |jax|).
+|port - jax| over max |jax|). The converter script converts a checkpoint
+without a ``model_config.json`` into the default ``ModelConfig()`` and a
+``DEMTransformer`` with ``--dem``; each committed weight directory equals a
+fresh conversion of its ``params/`` source, tensor for tensor; the shipped
+point and DEM generators' forwards match the JAX forwards (1e-5).
 """
 
+import dataclasses
+import importlib.util
+import json
 import os
 
 import jax
@@ -94,3 +101,139 @@ class TestConverter:
         with torch.no_grad():
             got = model(*map(t, inputs))
         assert_rel(got.numpy(), want)
+
+
+def _converter():
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_convert_params",
+        os.path.join(REPO, "scripts", "torch_port_convert_params.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The committed conversions: (weights dir, its params/ source, --task, --dem).
+SHIPPED = {
+    "point-generator": ("point-generator", "3dmatch", False),
+    "dem-generator": ("dem-generator", "opengf", True),
+    "kitti-generator-hintfree": ("kitti-generator-hintfree", "3dmatch", False),
+}
+
+
+@pytest.fixture(scope="module")
+def fresh():
+    """A fresh conversion of each committed weight directory's source."""
+    conv = _converter()
+    return {name: conv.convert(os.path.join(REPO, "params", src), task, dem)
+            for name, (src, task, dem) in SHIPPED.items()}
+
+
+def _tiny_tree_ckpt(tmp_path, dem):
+    """A sidecar-less orbax checkpoint of the default architecture, random
+    init, and its numpy tree."""
+    from scream_tpu.models.point_transformer import DEMTransformer as JDEM
+    from scream_tpu.utils.checkpoint import save_params
+
+    z = jnp.zeros((1, 8, 3), jnp.float32)
+    ones = jnp.ones((1, 8), bool)
+    if dem:
+        params = JDEM(JModelConfig(separate_stems=True)).init(
+            jax.random.PRNGKey(5), z, z, ones, ones)["params"]
+    else:
+        params = JPointTransformer(JModelConfig()).init(
+            jax.random.PRNGKey(4), z, z, ones, ones, jnp.zeros((1, 1, 3)))["params"]
+    path = tmp_path / ("dem" if dem else "point")
+    save_params(str(path), params)
+    assert not (path / "model_config.json").exists()
+    return str(path), np_tree(params)
+
+
+class TestConverterModes:
+    @pytest.mark.parametrize("dem", [False, True])
+    def test_sidecarless_checkpoint_converts_with_default_config(self, tmp_path, dem):
+        from scream_tpu_torch.models import DEMTransformer
+        from scream_tpu_torch.utils.checkpoint import load_params as tload
+
+        src, tree = _tiny_tree_ckpt(tmp_path, dem)
+        dst = str(tmp_path / "out")
+        argv = ["--src", src, "--dst", dst] + (["--dem"] if dem else ["--task", "kitti"])
+        _converter().main(argv)
+        cfg, normalize, state = tload(dst)
+        assert normalize == ("none" if dem else "unit_cube")
+        default = ModelConfig(separate_stems=True) if dem else ModelConfig()
+        assert cfg == default
+        want = params_from_jax(tree)
+        assert state.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(state[k], v), k
+        model = (DEMTransformer if dem else PointTransformer)(cfg, device="cpu")
+        model.load_state_dict(state, strict=True)
+
+    def test_existing_sidecar_is_kept(self, fresh):
+        with open(os.path.join(REPO, "params", "kitti-generator-hintfree",
+                               "model_config.json")) as f:
+            assert fresh["kitti-generator-hintfree"][1] == json.load(f)
+
+    @pytest.mark.parametrize("name", sorted(SHIPPED))
+    def test_committed_weights_equal_a_fresh_conversion(self, fresh, name):
+        from scream_tpu_torch.utils.checkpoint import MODEL_FILE, SIDECAR
+
+        state, sidecar = fresh[name]
+        d = os.path.join(REPO, "scream_tpu_torch", "weights", name)
+        with open(os.path.join(d, SIDECAR)) as f:
+            assert json.load(f) == sidecar
+        shipped = torch.load(os.path.join(d, MODEL_FILE), map_location="cpu",
+                             weights_only=True)
+        assert shipped.keys() == state.keys()
+        for k, v in state.items():
+            assert shipped[k].dtype == torch.float32 and torch.equal(shipped[k], v), k
+
+
+class TestShippedForwards:
+    """The shipped weights through the port against the orbax checkpoints
+    through the JAX package, fp32, 1e-5 relative."""
+
+    def test_point_generator(self):
+        from scream_tpu.utils.checkpoint import load_params
+        from scream_tpu_torch.utils.checkpoint import load_params as tload
+
+        jmodel, init = _init_jax(JModelConfig(dtype="float32"), N=256, M=256, B=2, seed=2)
+        params = load_params(os.path.join(REPO, "params", "point-generator"), init)
+        cfg, normalize, state = tload(os.path.join(REPO, "scream_tpu_torch", "weights",
+                                                   "point-generator"))
+        assert normalize == "unit_sphere"
+        model = PointTransformer(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+        model.load_state_dict(state, strict=True)
+        rng = np.random.default_rng(12)
+        src, tgt = rng.uniform(-0.8, 0.8, (2, 2, 256, 3)).astype(np.float32)
+        ones = np.ones((2, 256), bool)
+        ones[1, 200:] = False
+        inputs = (src, tgt, ones, np.ones((2, 256), bool), src.mean(1, keepdims=True))
+        want = jmodel.apply({"params": params}, *map(jnp.asarray, inputs))
+        with torch.no_grad():
+            got = model(*map(t, inputs))
+        assert_rel(got.numpy(), want, tol=1e-5)
+
+    def test_dem_generator(self):
+        from scream_tpu.models.point_transformer import DEMTransformer as JDEM
+        from scream_tpu.utils.checkpoint import load_params
+        from scream_tpu_torch.models import DEMTransformer
+        from scream_tpu_torch.utils.checkpoint import load_params as tload
+
+        rng = np.random.default_rng(13)
+        dsm = rng.uniform(-1, 1, (2, 512, 3)).astype(np.float32)
+        coarse = rng.uniform(-1, 1, (2, 64, 3)).astype(np.float32)
+        dm, cm = np.ones((2, 512), bool), np.ones((2, 64), bool)
+        dm[0, 400:] = False
+        inputs = (dsm, coarse, dm, cm)
+        jmodel = JDEM(JModelConfig(separate_stems=True, dtype="float32"))
+        init = jmodel.init(jax.random.PRNGKey(0), *map(jnp.asarray, inputs))["params"]
+        params = load_params(os.path.join(REPO, "params", "dem-generator"), init)
+        cfg, _, state = tload(os.path.join(REPO, "scream_tpu_torch", "weights",
+                                           "dem-generator"))
+        model = DEMTransformer(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+        model.load_state_dict(state, strict=True)
+        want = jmodel.apply({"params": params}, *map(jnp.asarray, inputs))
+        with torch.no_grad():
+            got = model(*map(t, inputs))
+        assert_rel(got.numpy(), want, tol=1e-5)
