@@ -98,7 +98,22 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     shipped checkpoint named, median RE beside the CPU path's on 4 pairs,
     the path's kernels launched: stats, apply, both NNs, and the splat in
     the suite);
-13. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+13. path 6, ingestion on the card: the host point-ops library built with
+    ``g++`` from ``scream_tpu_torch/native`` (against its plain versions);
+    a raw tree from ``scripts/torch_port_make_raw.py`` (scale 0.002) through
+    ``python -m scream_tpu_torch preprocess 3dmatch|kitti|opengf`` at once
+    and then ``collate`` (3dmatch, kitti) in subprocesses on the CLI's
+    defaults, every split opened with the port's readers at the size the
+    generator built, each refined KITTI GT within 1e-3 of the generator's
+    pose, ``evaluate`` 3dmatch (on the collated cache), kitti and opengf
+    with the shipped checkpoints on the produced splits (finite metrics,
+    the path's kernels launched); then one KITTI pair of two 120,000-point
+    frames sharing their points, the pose file wrong by 0.1 deg and 4 cm,
+    through ``KittiOdometry(gt_icp_voxel=None)``: ``nn_bounded_single`` at
+    1 x 131,072 against its plain version on 4,096 src rows, timed, its
+    live tiles per sub-slab, the refinement's steps, wall, peak memory and
+    launches, ICP's pose within 0.01 deg and 1 mm of its truth;
+14. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -108,8 +123,8 @@ into a stack dump and exit code 1. Every printed line also goes to
 ``python3 chip_smoke.py --only splat,nn_exact`` runs phases 1-2 and then
 only the named kernels' checks (the splat's of phase 10, the exact NN's of
 phase 3 and its ties), on the same inputs, gates included: the short
-build-and-compare after a change to either kernel. It prints no result
-line.
+build-and-compare after a change to either kernel; ``--only ingest`` runs
+phases 1-2 and path 6. Neither prints a result line.
 """
 
 import faulthandler
@@ -155,6 +170,18 @@ DEM_GEN = os.path.join("scream_tpu_torch", "weights", "dem-generator")
 EVAL_PAIRS, EVAL_BATCH, KITTI_PAIRS, OPENGF_PATCHES, KITTI_CHUNK = 40, 8, 8, 8, 50
 PATH5_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
 OPENGF_CPU_PATCHES, OPENGF_TOL = 2, 2e-2
+# Path 6: the raw tree of scripts/torch_port_make_raw.py at this scale (12
+# KITTI pairs, 8 + 8 3DMatch test pairs, 289 + 75 + 4 OpenGF patches); each
+# refined KITTI GT within KITTI_GT_TOL per entry of the generator's pose
+# (on these frames the 0.3-voxel clouds' ICP optimum sits up to ~3e-4 from
+# it, their centroids not being the shared points). The raw-frame pair:
+# frames of ~RAW_POINTS points (an HDL-64 sweep) 6 m apart, sharing world
+# points; the pose file wrong by RAW_POSE_ERR (deg, m); the refined pose
+# within RAW_RE_TOL deg and RAW_TE_TOL m of the truth; the kernel held to
+# its plain version on RAW_CHECK_ROWS src rows against the full dst.
+INGEST_SCALE, KITTI_GT_TOL = 0.002, 1e-3
+RAW_POINTS, RAW_POSE_ERR, RAW_RE_TOL, RAW_TE_TOL = 120_000, (0.1, 0.04), 0.01, 1e-3
+RAW_CHECK_ROWS, RAW_THRESH = 4096, 0.2
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
 # FMA counted as two operations), HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -192,6 +219,7 @@ SPLAT_GATE_MS, NN_EXACT_GATE_MS = 1.6378, 0.177
 TIME_ROUNDS = 3
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact")  # kernels --only can check alone
+ONLY_PATHS = ("ingest",)  # paths --only can run alone
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -247,6 +275,14 @@ def rel_err(got, want, rows=None):
     if rows is not None:
         got, want = got[rows], want[rows]
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def repo_env():
+    """(repository root, environment) for a subprocess that imports the port."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return root, env
 
 
 def phase_device():
@@ -462,9 +498,10 @@ def log_records(records):
             + (f" | live tile share {r['live_share']:.3f}" if "live_share" in r else ""))
 
 
-def live_pairs(s_t, dst, thresh_sq):
-    """(live, total): the (128-point sub-slab, 256-row tile) pairs whose
-    boxes pass the bounded kernel's threshold test on these inputs."""
+def live_tiles(s_t, dst, thresh_sq):
+    """(per (lane, 128-point sub-slab) count of the 256-row tiles whose
+    boxes pass the bounded kernel's threshold test on these inputs, tiles
+    per sub-slab)."""
     import torch
 
     from scream_tpu_torch.ops import nn_cuda
@@ -475,8 +512,14 @@ def live_pairs(s_t, dst, thresh_sq):
     gap = torch.clamp_min(torch.maximum(
         slabs.amin(2)[:, :, None] - boxes[:, None, :, 3:],
         boxes[:, None, :, :3] - slabs.amax(2)[:, :, None]), 0.0)
-    live = int(((gap * gap).sum(-1) <= thresh_sq).sum())
-    return live, Bx * (n // 128) * boxes.shape[1]
+    return ((gap * gap).sum(-1) <= thresh_sq).sum(-1), boxes.shape[1]
+
+
+def live_pairs(s_t, dst, thresh_sq):
+    """(live, total): the (128-point sub-slab, 256-row tile) pairs whose
+    boxes pass the bounded kernel's threshold test on these inputs."""
+    per_slab, tiles = live_tiles(s_t, dst, thresh_sq)
+    return int(per_slab.sum()), per_slab.numel() * tiles
 
 
 def check_exact(src, dst, label):
@@ -1067,13 +1110,11 @@ def phase_cli(model, normalize, pair):
 
     from scream_tpu_torch.pipeline import register_pair
 
-    root = os.path.dirname(os.path.abspath(__file__))
+    root, env = repo_env()
     os.makedirs(OUT_DIR, exist_ok=True)
     src, tgt = (os.path.join(root, OUT_DIR, f"cli_{k}.npy") for k in ("src", "tgt"))
     np.save(src, pair["src"])
     np.save(tgt, pair["tgt"])
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     cmd = [sys.executable, "-m", "scream_tpu_torch", "register", "--src", src,
            "--tgt", tgt, "--params", HINTFREE, "--device", DEV]
     t0 = time.perf_counter()
@@ -1950,9 +1991,7 @@ def phase_dem_training(trainer, groups):
 def run_cli(args, label):
     """``python -m scream_tpu_torch <args>`` in a subprocess: (final_val,
     stdout, wall seconds)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    root, env = repo_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", *args],
                           capture_output=True, text=True, timeout=400, cwd=root, env=env)
@@ -2194,10 +2233,7 @@ def phase_eval_3dmatch(model, model_cpu, root):
         f"{TRANSFORM_TOL} (bar 2), max dRE {float(d_re.max()):.3e} deg, max dTE "
         f"{float(d_te.max()):.3e}")
 
-    root_repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root_repo + (os.pathsep + env["PYTHONPATH"]
-                                     if env.get("PYTHONPATH") else "")
+    root_repo, env = repo_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "evaluate", "3dmatch",
                            "--root", root, "--params", POINT_GEN, "--bucketed"],
@@ -2303,9 +2339,7 @@ def phase_eval_opengf(root):
 def run_bench(args):
     """``python -m scream_tpu_torch bench <args>`` in a subprocess: (the JSON
     metric lines of both streams, stderr, wall seconds)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    root, env = repo_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "bench", *args],
                           capture_output=True, text=True, timeout=400, cwd=root, env=env)
@@ -2403,17 +2437,360 @@ def path5():
     return counts, results
 
 
+def run_parallel(commands, timeout=600):
+    """Run ``{label: argv}`` as subprocesses at once from the repository
+    root; every one must exit 0. Returns ``{label: (stdout, stderr, wall)}``.
+    Each process is killed if the call fails."""
+    root, env = repo_env()
+    procs, out = {}, {}
+    try:
+        for label, argv in commands.items():
+            procs[label] = (subprocess.Popen([sys.executable, *argv], cwd=root, env=env,
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                             text=True), time.perf_counter())
+        for label, (proc, t0) in procs.items():
+            stdout, stderr = proc.communicate(timeout=timeout)
+            out[label] = (stdout, stderr, time.perf_counter() - t0)
+            check(proc.returncode == 0,
+                  f"{label}: exit {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_ingest_build():
+    """Path 6 (a): the host point-ops library builds from the checkout's
+    source with g++ (a failure raises: there is no numpy path) and agrees
+    with its plain versions on a seeded cloud."""
+    import numpy as np
+
+    from scream_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    native.library()
+    secs = time.perf_counter() - t0
+    rng = np.random.default_rng(1300)
+    q, r = rng.uniform(-2, 2, (3000, 3)), rng.uniform(-2, 2, (4000, 3))
+    same = {
+        "voxel_downsample": np.array_equal(native.voxel_downsample(r, 0.1),
+                                           native.voxel_downsample_plain(r, 0.1)),
+        **{f: np.array_equal(getattr(native, f)(q, r, 0.25),
+                             getattr(native, f + "_plain")(q, r, 0.25))
+           for f in ("radius_has_neighbor", "radius_count", "highest_in_radius_2d")}}
+    check(all(same.values()), f"point ops vs their plain versions: {same}")
+    log(f"path 6 build: {secs:.1f} s, g++ -> {path.relative_to(path.parents[2])}; the four "
+        f"point ops equal their plain versions: {json.dumps(same)}")
+
+
+def phase_ingest_cli(root):
+    """Path 6 (b): a raw tree from ``scripts/torch_port_make_raw.py``, the
+    ``preprocess`` command on it (3dmatch, kitti and opengf at once, then
+    collate for 3dmatch and kitti), every split opened with the port's
+    readers at the size the generator built, each refined KITTI GT against
+    the generator's pose, and ``evaluate`` 3dmatch (on the collated cache
+    that ``preprocess collate`` built), kitti and opengf with the shipped
+    checkpoints, in process through the CLI's own entry point. Returns
+    (the evaluations' launch counts, results)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from scream_tpu_torch import cli
+    from scream_tpu_torch.data import OpenGFDataset, PairDataset
+    from scream_tpu_torch.data.raw import KittiOdometry
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    raw, data = os.path.join(root, "raw"), os.path.join(root, "data")
+    t0 = time.perf_counter()
+    gen = run_parallel({"make_raw": ["scripts/torch_port_make_raw.py", "--out", raw,
+                                     "--scale", str(INGEST_SCALE)]})["make_raw"]
+    expected = json.loads(gen[0].strip().splitlines()[-1])["expected_splits"]
+    log(f"path 6 raw tree (torch_port_make_raw.py --scale {INGEST_SCALE}, {gen[2]:.1f} s): "
+        f"expected splits {json.dumps(expected)}")
+    pre = lambda task, *a: ["-m", "scream_tpu_torch", "preprocess", task, *a]
+    tasks = run_parallel({
+        "3dmatch": pre("3dmatch", "--root", os.path.join(raw, "3dmatch_raw"), "--out", data),
+        "kitti": pre("kitti", "--root", os.path.join(raw, "kitti_raw"), "--out", data),
+        "opengf": pre("opengf", "--root", os.path.join(raw, "opengf_raw"), "--out", data)})
+    walls = {k: round(v[2], 2) for k, v in tasks.items()}
+    icp = [ln for ln in tasks["kitti"][1].splitlines() if ln.startswith("[refine_gt_icp]")]
+    steps = [int(ln.split(" ICP steps")[0].split()[-1]) for ln in icp]
+    icp_s = [float(ln.rsplit(", ", 1)[1].split()[0]) for ln in icp]
+    for task, (stdout, _, _) in tasks.items():
+        log(f"path 6 preprocess {task} ({walls[task]:.2f} s wall, subprocess): "
+            + " | ".join(stdout.strip().splitlines()))
+    check(all(f" on {DEV}:" in ln for ln in icp) and len(icp) == sum(
+        expected[f"KITTI_{m}"] + (m == "test") for m in ("train", "val", "test")),
+        f"preprocess kitti: GT refinements {icp}")
+    log(f"path 6 KITTI GT refinements on the card (0.3 voxel, cap 50,000): steps {steps}, "
+        f"seconds {icp_s}")
+
+    got = {s: len(PairDataset(data, s)) for s in expected
+           if not s.startswith("OpenGF")}
+    got.update({s: len(OpenGFDataset(data, s.split("_")[1])) for s in expected
+                if s.startswith("OpenGF")})
+    check(got == expected, f"split sizes {got} != the generator's {expected}")
+    gt_err = 0.0
+    for mode in ("train", "val", "test"):
+        ds = KittiOdometry(os.path.join(raw, "kitti_raw"), mode=mode, device=DEV)
+        kept = [f for i, f in enumerate(ds.files) if not (mode == "test" and i == 1)]
+        for i, pair in enumerate(kept):
+            T = np.load(os.path.join(data, f"KITTI_{mode}", f"T{i}.npy"))
+            gt_err = max(gt_err, float(np.abs(T - ds.odometry_gt(*pair)).max()))
+    check(gt_err <= KITTI_GT_TOL, f"refined KITTI GT vs the generator's poses: {gt_err:.3g}")
+    log(f"path 6 splits opened with PairDataset / OpenGFDataset, sizes equal the "
+        f"generator's: {json.dumps(got)}; refined KITTI GT vs the generator's poses: max "
+        f"|dT| {gt_err:.3e} (bar {KITTI_GT_TOL})")
+
+    cache = {p: os.path.join(root, f"cache_{p}") for p in ("3dmatch", "kitti")}
+    coll = run_parallel({p: pre("collate", "--root", data, "--out", c, "--protocol", p)
+                         for p, c in cache.items()})
+    for p, (stdout, _, wall) in coll.items():
+        meta = json.loads(stdout.strip().splitlines()[-1])
+        want = expected["3DMatch_test" if p == "3dmatch" else "KITTI_test"]
+        check(meta["n_items"] == want, f"collate {p}: {meta} (want {want} items)")
+        log(f"path 6 preprocess collate --protocol {p} ({wall:.2f} s wall, subprocess): {meta}")
+
+    evals = {"3dmatch": ["--params", POINT_GEN, "--cache-dir", cache["3dmatch"]],
+             "kitti": ["--params", KITTI_HINTFREE, "--center-mode", "none"],
+             "opengf": ["--params", DEM_GEN]}
+    reset_launch_counts()
+    out = {}
+    for proto, extra in evals.items():
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["evaluate", proto, "--root", data, *extra, "--device", DEV])
+        out[proto] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(all(math.isfinite(float(v)) for v in out[proto].values()),
+              f"evaluate {proto} on the preprocessed split: {out[proto]}")
+        log(f"path 6 evaluate {proto} {' '.join(extra)} on the preprocessed split "
+            f"({time.perf_counter() - t1:.2f} s): {json.dumps(out[proto])}")
+    counts = launch_counts()
+    check(all(counts[k] > 0 for k in PATH5_KERNELS),
+          f"path 6 evaluate: a kernel was not launched: {counts}")
+    log(f"path 6 (b) took {time.perf_counter() - t0:.1f} s; evaluate launches "
+        f"{json.dumps(counts)}")
+    return counts, dict(ingest_expected_splits=expected, ingest_preprocess_s=walls,
+                        ingest_kitti_gt_steps=steps, ingest_kitti_gt_s=icp_s,
+                        ingest_kitti_gt_err=gt_err, ingest_evaluate=out)
+
+
+def write_raw_kitti_pair(root):
+    """Three KITTI frames of RAW_POINTS points in the reference layout
+    (sequence 08 of ``root/dataset``), their sensors 6 m apart along x, each
+    the same world points (those within 50 m of the first pair's midpoint)
+    in its sensor's frame, so every point has its exact partner: D3Feat
+    selection pairs frames 0 and 1. Frame 1's pose in the pose file is
+    wrong by a rotation of RAW_POSE_ERR[0] deg and a shift of
+    RAW_POSE_ERR[1] m. Returns the true pose of the pair (frame 0 -> frame
+    1, velodyne frame) and the frames' sizes."""
+    import numpy as np
+
+    from scream_tpu_torch.data.raw import velo2cam_matrix
+
+    rng = np.random.default_rng(1400)
+    r = 50.0 * np.sqrt(rng.random(RAW_POINTS))
+    phi = rng.uniform(0.0, 2.0 * np.pi, RAW_POINTS)
+    world = np.empty((RAW_POINTS, 3), np.float32)
+    world[:, 0] = 3.0 + r * np.cos(phi)
+    world[:, 1] = r * np.sin(phi)
+    world[:, 2] = np.where(rng.random(RAW_POINTS) < 0.7, rng.uniform(-2.0, -1.5, RAW_POINTS),
+                           rng.uniform(-1.5, 6.0, RAW_POINTS))
+    seq = os.path.join(root, "dataset", "sequences", "08", "velodyne")
+    os.makedirs(seq)
+    v2c_R = velo2cam_matrix().T[:3, :3]
+    a = np.deg2rad(RAW_POSE_ERR[0])
+    axis = np.array([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    wrong = np.eye(4)
+    wrong[:3, :3] = np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+    wrong[:3, 3] = RAW_POSE_ERR[1] * np.array([0.6, 0.0, -0.8])
+    poses = []
+    for t in range(3):
+        pos = np.array([6.0 * t, 0.0, 0.0], np.float32)
+        xyzr = np.concatenate([world - pos, np.zeros((RAW_POINTS, 1), np.float32)], axis=1)
+        xyzr.astype(np.float32).tofile(os.path.join(seq, "%06d.bin" % t))
+        T = np.eye(4)
+        T[:3, 3] = v2c_R @ pos
+        poses.append((T @ wrong if t == 1 else T)[:3].reshape(-1))
+    os.makedirs(os.path.join(root, "dataset", "poses"))
+    np.savetxt(os.path.join(root, "dataset", "poses", "08.txt"), np.asarray(poses))
+    truth = np.eye(4)
+    truth[:3, 3] = [-6.0, 0.0, 0.0]
+    return truth
+
+
+def phase_raw_kitti(root):
+    """Path 6 (c): one KITTI pair at raw-frame size through
+    ``KittiOdometry(..., gt_icp_voxel=None)``, the reference's refinement on
+    the raw clouds: the bounded NN (``nn_bounded_single``) at 1 x 131,072
+    against 131,072. The kernel against its plain version at the first ICP
+    step (RAW_CHECK_ROWS src rows spread over the cloud against the full
+    dst), timed as ICP calls it, with its live-tile share and bound; then
+    the whole refinement: steps, wall, peak memory, launches, and the
+    refined pose against the truth. Returns (launch counts, record,
+    results)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.data.raw import KittiOdometry
+    from scream_tpu_torch.geometry.icp import _prepare
+    from scream_tpu_torch.ops import launch_counts, nn_cuda, reset_launch_counts
+
+    t0 = time.perf_counter()
+    truth = write_raw_kitti_pair(root)
+    ds = KittiOdometry(root, mode="test", strict=False, gt_icp_voxel=None, device=DEV)
+    check(ds.files == [(8, 0, 1)], f"raw KITTI pairs: {ds.files}")
+    M = ds.odometry_gt(8, 0, 1)
+    xyz0, xyz1 = ds._velodyne(8, 0), ds._velodyne(8, 1)
+
+    # The first ICP step's view, built as refine_gt_icp and registration_icp
+    # build it: the power-of-two padding with masks, src sorted along x.
+    def pad(p):
+        cap = 1 << max(len(p) - 1, 1).bit_length()
+        out = torch.zeros((1, cap, 3), device=DEV)
+        out[0, :len(p)] = torch.as_tensor(p, device=DEV)
+        mask = torch.zeros((1, cap), dtype=torch.bool, device=DEV)
+        mask[0, :len(p)] = True
+        return out, mask
+
+    (sp, sm), (tp, tm) = pad((xyz0 @ M[:3, :3].T + M[:3, 3]).astype(np.float32)), pad(xyz1)
+    s_t, tgt, _, tmask = _prepare(sp, tp, torch.eye(4, device=DEV)[None], sm, tm)
+    dst = nn_cuda.mask_far(tgt, tmask)
+    n_cap = s_t.shape[1]
+    thresh_sq = float(torch.tensor(RAW_THRESH, dtype=torch.float32) ** 2)
+    boxes = nn_cuda.nn_tile_boxes(dst)
+    d2, xyz = nn_cuda.nn_bounded_single(s_t, dst, thresh_sq, boxes=boxes)
+    rows = torch.linspace(0, len(xyz0) - 1, RAW_CHECK_ROWS, device=DEV).long()
+    sub = s_t[:, rows].contiguous()
+    d2p, xyzp = nn_cuda.nn_bounded_plain(sub, dst, thresh_sq, None)
+    torch.cuda.synchronize()
+    d2k, xyzk = d2[:, rows], xyz[:, rows]
+    within = d2p < thresh_sq
+    abs_err = float((d2k - d2p)[within].abs().max())
+    coords_equal = bool(torch.equal(xyzk[within], xyzp[within]))
+    outside_ok = bool((d2k[~within] >= thresh_sq).all())
+    check(abs_err <= 1e-6 and coords_equal and outside_ok and int(within.sum()) > 0,
+          f"nn_bounded_single 1 x {n_cap} (raw KITTI): distance error {abs_err:.3g}, coords "
+          f"equal {coords_equal}, outside ok {outside_ok}, {int(within.sum())} within")
+    ms, ms_all = timed(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq, boxes=boxes))
+    pms, pms_all = timed(lambda: nn_cuda.nn_bounded_plain(sub, dst, thresh_sq, None), reps=3)
+    per_slab, tiles = live_tiles(s_t, dst, thresh_sq)
+    live, total = int(per_slab.sum()), per_slab.numel() * tiles
+    b_ms, b_by = bound(n_cap * 12 * 2 + n_cap * 16,
+                       [(NN_INSTR_PER_PAIR * live * 128 * 256
+                         + NN_INSTR_PER_ROW * live * 256, INSTR_FP32)])
+    del d2, xyz, d2p, xyzp, s_t, tgt, dst, boxes, sp, tp
+
+    # The refinement through the dataset, as `preprocess kitti` runs it.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    err = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        item = ds[0]
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line = [ln for ln in err.getvalue().splitlines() if ln.startswith("[refine_gt_icp]")][0]
+    steps = int(line.split(" ICP steps")[0].split()[-1])
+    # The refined GT is M @ reg, as the reference composes it (reference
+    # datasets/kitti.py:119), where reg aligns the M-moved frame 0 onto
+    # frame 1: ICP's truth is truth @ inv(M), and M @ reg leaves the truth
+    # by about the pose file's rotation error times the 6 m baseline.
+    refined = np.load(os.path.join(ds.icp_path, "8_0_1.npy"))
+    reg = np.linalg.inv(M) @ refined
+    reg_truth = truth @ np.linalg.inv(M)
+
+    def pose_err(A, B):
+        """(deg, m) between two poses; the angle from the skew part of the
+        relative rotation, blind to fp32 rounding of the entries."""
+        R = A[:3, :3] @ B[:3, :3].T
+        w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / 2
+        return (float(np.degrees(np.arcsin(min(np.linalg.norm(w), 1.0)))),
+                float(np.linalg.norm(A[:3, 3] - B[:3, 3])))
+
+    (re0, te0), (re1, te1) = pose_err(np.eye(4), reg_truth), pose_err(reg, reg_truth)
+    re_gt, te_gt = pose_err(refined, truth)
+    check(np.allclose(refined[:3], np.concatenate([item["rot"], item["trans"]], 1), atol=1e-6)
+          and re1 <= RAW_RE_TOL and te1 <= RAW_TE_TOL and re0 > 5 * RAW_RE_TOL
+          and te0 > 5 * RAW_TE_TOL,
+          f"raw KITTI refinement: ICP from RE {re0:.4f} deg TE {te0:.4f} m to RE {re1:.5f} "
+          f"deg TE {te1:.5f} m from its truth (bars {RAW_RE_TOL} deg, {RAW_TE_TOL} m)")
+    check(counts["nn_bounded_single"] > 0 and counts["nn_tile_boxes"] == 1,
+          f"raw KITTI refinement launches: {counts}")
+    log(f"kernel nn_bounded_single 1 x {n_cap} (raw KITTI, {len(xyz0)} x {len(xyz1)} points, "
+        f"{nn_cuda.bounded_splits(1, n_cap, n_cap)} splits): max_abs_err {abs_err:.3e} on "
+        f"{RAW_CHECK_ROWS} rows, {int(within.sum())} within the threshold; timing rounds "
+        f"{', '.join(f'{t:.4f}' for t in ms_all)} ms (boxes given); plain on the "
+        f"{RAW_CHECK_ROWS}-row slice {', '.join(f'{t:.4f}' for t in pms_all)} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}); live tile share {live / total:.5f} ({live} of {total}); "
+        f"live tiles per sub-slab: median {int(per_slab.median())}, max {int(per_slab.max())} "
+        f"(sub-slab {int(per_slab.argmax())} of {per_slab.numel()}), every block box-tests "
+        f"all {tiles}")
+    log(f"path 6 raw KITTI refinement (frames of {RAW_POINTS} points, gt_icp_voxel=None): "
+        f"{line} | "
+        f"wall {wall:.3f} s through KittiOdometry, peak memory {peak:.2f} GiB | ICP from RE "
+        f"{re0:.4f} deg TE {te0:.4f} m to RE {re1:.6f} deg TE {te1:.6f} m from its truth; "
+        f"the refined GT (M @ reg) RE {re_gt:.6f} deg TE {te_gt:.6f} m from the pair's | "
+        f"launches {json.dumps(counts)}, nn_bounded_single device launches "
+        f"{nn_cuda.nn_bounded_single.device_launches}")
+    rec = dict(name="nn_bounded_single_kitti_raw", err=0.0, max_abs_err=abs_err, ms=ms,
+               plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="exact within threshold",
+               route="cuda", source="scream_tpu_torch/csrc/nn.cu",
+               replaces="scream_tpu/ops/nn_pallas.py:162", live_share=live / total)
+    log(f"path 6 (c) took {time.perf_counter() - t0:.1f} s")
+    return counts, rec, dict(raw_kitti_steps=steps, raw_kitti_refine_s=wall,
+                             raw_kitti_peak_gib=peak, raw_kitti_icp_re_deg=re1,
+                             raw_kitti_icp_te_m=te1, raw_kitti_gt_re_deg=re_gt,
+                             raw_kitti_gt_te_m=te_gt)
+
+
+def path6():
+    """Path 6: ingestion on the card. Returns (launch counts of the raw
+    refinement, launch counts of the evaluations, kernel record, results)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ingest_", dir="build")
+    try:
+        phase_ingest_build()
+        eval_counts, results = phase_ingest_cli(os.path.join(root, "cli"))
+        raw_counts, rec, raw = phase_raw_kitti(os.path.join(root, "raw_kitti"))
+        results.update(raw)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log_records([rec])
+    log(f"path 6 took {time.perf_counter() - t0:.1f} s")
+    return raw_counts, eval_counts, rec, results
+
+
 def run_only(names):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
     exact NN at path 1's shape and on exact ties at B = 1 and 16; the splat
-    at path 3's and the KITTI shape and on the adversarial scenes. No path
-    runs and no result line is printed."""
+    at path 3's and the KITTI shape and on the adversarial scenes; or path
+    6 (``ingest``) whole. No result line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
         log("kernels on exact ties: "
             + ", ".join(check_exact_ties(n, 2048) for n in (1, B)))
         log_records([rec])
+    if "ingest" in names:
+        path6()
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -2428,12 +2805,13 @@ def main():
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one NVIDIA GPU "
                                  "and check every kernel against its plain version.")
-    ap.add_argument("--only", default="", metavar="KERNEL[,KERNEL]",
+    ap.add_argument("--only", default="", metavar="NAME[,NAME]",
                     help=f"check only these kernels ({', '.join(ONLY_KERNELS)}): a short "
-                    "build-and-compare after a kernel change")
+                    "build-and-compare after a kernel change; or run only these paths "
+                    f"({', '.join(ONLY_PATHS)})")
     only = [k for k in ap.parse_args().only.split(",") if k]
-    if any(k not in ONLY_KERNELS for k in only):
-        ap.error(f"--only takes {', '.join(ONLY_KERNELS)}, not {only}")
+    if any(k not in ONLY_KERNELS + ONLY_PATHS for k in only):
+        ap.error(f"--only takes {', '.join(ONLY_KERNELS + ONLY_PATHS)}, not {only}")
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2505,6 +2883,10 @@ def main():
     # Path 5: the evaluate protocols and the bench with the shipped weights.
     eval_counts, evaluation = path5()
 
+    # Path 6: ingestion on the card (preprocess, the raw-frame KITTI GT).
+    raw_counts, ingest_eval_counts, raw_rec, ingestion = path6()
+    records.append(raw_rec)
+
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
         "attn_stats": counts["attn_stats"], "attn_apply": counts["attn_apply"],
@@ -2515,7 +2897,8 @@ def main():
         "attn_stats_train": train_counts["attn_stats"],
         "attn_apply_train": train_counts["attn_apply"],
         "max_splat": train_counts["max_splat"],
-        "block_tail": dem_counts["block_tail"]}
+        "block_tail": dem_counts["block_tail"],
+        "nn_bounded_single_kitti_raw": raw_counts["nn_bounded_single"]}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
@@ -2534,7 +2917,9 @@ def main():
                     "launches_gt_free_serving": serve_counts, **serving,
                     "launches_training_gan": train_counts, **training,
                     "launches_dem_training": dem_counts, **dem_training,
-                    "launches_evaluate": eval_counts, **evaluation}))
+                    "launches_evaluate": eval_counts, **evaluation,
+                    "launches_ingest_evaluate": ingest_eval_counts,
+                    "launches_raw_kitti_refinement": raw_counts, **ingestion}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

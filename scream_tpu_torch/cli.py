@@ -1,6 +1,6 @@
 """Command line of the port (port of ``scream_tpu/cli.py``): ``train``,
-``evaluate``, ``bench`` and the GT-free ``register`` command, "align these
-two scans".
+``evaluate``, ``bench``, ``preprocess`` and the GT-free ``register``
+command, "align these two scans".
 
     python -m scream_tpu_torch train opengf --d-model 512 --epochs 2
     python -m scream_tpu_torch train 3dmatch --root data --epochs 45
@@ -42,6 +42,19 @@ runs on ``--device`` (default ``cuda``); ``--params`` names a torch
 checkpoint of the port (``utils/checkpoint.py``), whose
 ``model_config.json`` sets the architecture and normalization unless a flag
 says otherwise. ``--scans`` (multiway) and ``--mesh`` are not ported yet.
+
+    python -m scream_tpu_torch preprocess 3dmatch --root raw/3dmatch --out data
+    python -m scream_tpu_torch preprocess kitti --root raw/kitti --out data
+    python -m scream_tpu_torch preprocess opengf --root raw/opengf --out data
+    python -m scream_tpu_torch preprocess collate --root data --out cache \
+        --protocol kitti
+
+turns a raw dataset tree (PREDATOR 3DMatch, KITTI odometry, OpenGF
+``.las``) into the splits that ``evaluate``, ``train`` and ``bench`` read,
+or pre-builds an evaluation split's collated cache, with the JAX command's
+tasks, flags, stdout lines and errors. KITTI's ICP-refined GT runs on
+``--device`` (default ``cuda``). The host point ops build with ``g++`` at
+first use (``scream_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -316,6 +329,129 @@ def cmd_bench(args):
     bench.run(run_suite=args.suite, write=args.write, device=args.device)
 
 
+def cmd_preprocess(args):
+    """Raw data -> the ``.npy`` artifact splits (JAX command:
+    ``scream_tpu/cli.py:cmd_preprocess``): the same tasks, arguments,
+    stdout lines, skips and hard errors. KITTI's GT refinement runs on
+    ``--device``."""
+    import glob
+
+    from scream_tpu_torch.data import preprocess as pp
+
+    if args.task == "collate":
+        # Pre-build the bucket-shard cache for an already-preprocessed eval
+        # split (same dataset construction as `evaluate --cache-dir`).
+        from scream_tpu_torch import eval as protocols
+        from scream_tpu_torch.data import PairDataset, build_collated_cache
+
+        split, normalize = EVAL_SPLITS[args.protocol]
+        if args.protocol == "opengf":
+            raise SystemExit("preprocess collate supports the registration "
+                             "protocols (the OpenGF eval is not loader-bound)")
+        ds = PairDataset(args.root, split, normalize=normalize,
+                         with_info=args.protocol.startswith("3d"),
+                         max_points=args.max_points)
+        if args.protocol == "kitti":
+            ds = protocols.SkipDataset(ds, (124, 142))
+        meta = build_collated_cache(
+            ds, args.out, buckets=_buckets_for(args.max_points, smallest=1024))
+        print(json.dumps(meta))
+        return
+    if args.task == "kitti":
+        from scream_tpu_torch.data.raw import KittiOdometry
+
+        for mode in ("train", "val", "test"):
+            ds = KittiOdometry(args.root, mode=mode, device=args.device)
+            pairs = ((it["src"], it["tgt"], it["rot"], it["trans"])
+                     for it in (ds[i] for i in range(len(ds))))
+            n = pp.save_kitti_split(
+                pairs, os.path.join(args.out, f"KITTI_{mode}"),
+                # Reference test split drops dataset item 1
+                # (reference process_kitti.py:44-45).
+                skip_items=(1,) if mode == "test" else (),
+            )
+            print(f"KITTI_{mode}: {n} pairs")
+    elif args.task == "3dmatch":
+        from scream_tpu_torch.data.raw import ThreeDMatchPredator
+
+        pkl_dir = os.path.join(args.root, "indoor")
+        for mode, pkl, out_split in (
+            ("train", "train_info.pkl", "3DMatch_train"),
+            ("val", "val_info.pkl", "3DMatch_val"),
+        ):
+            pkl_path = os.path.join(pkl_dir, pkl)
+            if not os.path.exists(pkl_path):
+                print(f"skip {mode}: {pkl_path} missing")
+                continue
+            ds = ThreeDMatchPredator(args.root, pkl_path)
+            pairs = ((it["src"], it["tgt"], it["rot"], it["trans"], it["overlap_ind"])
+                     for it in (ds[i] for i in range(len(ds))))
+            n = pp.save_train_split(pairs, os.path.join(args.out, out_split))
+            print(f"{out_split}: {n} pairs")
+        # Test splits: 3DMatch_test from the 3DMatch metadata; 3DLoMatch +
+        # 3DZeroMatch both from the 3DLoMatch metadata, with the redwood
+        # idx/covariance/scene sidecars the per-scene protocol needs
+        # (reference process_3d_match.py:96-234).
+        for pkl, info_sub, split_kwargs in (
+            ("3DMatch.pkl", "3DMatch",
+             {"match_dir": os.path.join(args.out, "3DMatch_test")}),
+            ("3DLoMatch.pkl", "3DLoMatch",
+             {"lo_dir": os.path.join(args.out, "3DLoMatch_test"),
+              "zero_dir": os.path.join(args.out, "3DZeroMatch_test")}),
+        ):
+            pkl_path = os.path.join(pkl_dir, pkl)
+            if not os.path.exists(pkl_path):
+                print(f"skip test splits from {pkl}: {pkl_path} missing")
+                continue
+            # The redwood covariance sidecars live at
+            # <root>/info/{3DMatch,3DLoMatch}/<scene>/gt.info (the reference
+            # opens them unconditionally per test pair, reference
+            # datasets/three_d_match.py:54-57,76-81): without them the
+            # per-scene protocol cannot run, so a missing info tree is a
+            # hard error, not a silent drop.
+            info_dir = os.path.join(args.root, "info", info_sub)
+            if not os.path.isdir(info_dir):
+                raise SystemExit(
+                    f"preprocess 3dmatch: {info_dir} missing — the test "
+                    "splits need the redwood <scene>/gt.info covariance "
+                    "files (reference layout datasets/3DMatch/info/"
+                    f"{info_sub}/<scene>/gt.info)")
+            ds = ThreeDMatchPredator(args.root, pkl_path, info_dir=info_dir)
+            # Stream item dicts: save_test_splits takes the pair fields and
+            # the sidecar info from each dict in one pass.
+            counts = pp.save_test_splits((ds[i] for i in range(len(ds))), **split_kwargs)
+            print(f"test splits from {pkl}: "
+                  + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    else:
+        # OpenGF: .las/.laz scenes -> tiled [dsm | dem] patches (reference
+        # process_open_gf.py:13-261). The canonical S7/S8/S9 file names are
+        # tried first; otherwise every .las/.laz under <root>/<split>/ is
+        # ingested, in sorted order (it numbers the patches).
+        from scream_tpu_torch.data import las
+
+        for split, canonical, stride, centers in (
+            ("train", las.OPENGF_TRAIN_FILES, pp.OPENGF_TRAIN_STRIDE, False),
+            ("val", las.OPENGF_VAL_FILES, None, False),
+            ("test", las.OPENGF_TEST_FILES, None, True),
+        ):
+            paths = las._existing(args.root, canonical)
+            if not paths:
+                paths = sorted(glob.glob(os.path.join(args.root, split, "*.la[sz]")))
+            if not paths:
+                print(f"skip OpenGF_{split}: no .las/.laz under "
+                      f"{os.path.join(args.root, split)}")
+                continue
+
+            def patches(paths=paths, stride=stride):
+                for p in paths:
+                    pts, cls = las.read_opengf_cloud(p)
+                    yield from pp.tile_opengf_scene(pts, cls, stride=stride)
+
+            n = pp.save_opengf_split(patches(), os.path.join(args.out, f"OpenGF_{split}"),
+                                     save_centers=centers)
+            print(f"OpenGF_{split}: {n} patches from {len(paths)} scenes")
+
+
 def _load_cloud(path: str, name: str):
     from scream_tpu_torch.data.ply import load_cloud_any
 
@@ -583,6 +719,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the model and the kernels "
                         "(cpu runs the plain PyTorch versions)")
     r.set_defaults(fn=cmd_register)
+
+    pr = sub.add_parser("preprocess", help="raw data -> .npy artifacts")
+    pr.add_argument("task", choices=["3dmatch", "kitti", "opengf", "collate"])
+    pr.add_argument("--root", required=True)
+    pr.add_argument("--out", default="data")
+    pr.add_argument("--protocol", choices=sorted(EVAL_SPLITS), default="3dmatch",
+                    help="(collate) which eval split/normalization to collate")
+    pr.add_argument("--max-points", type=int, default=4096,
+                    help="(collate) padding-bucket ceiling")
+    pr.add_argument("--device", default="cuda",
+                    help="(kitti) torch device of the GT-refining ICP and its "
+                         "bounded NN kernel (cpu runs the plain PyTorch version)")
+    pr.set_defaults(fn=cmd_preprocess)
     return p
 
 

@@ -17,6 +17,7 @@ import numpy as np
 
 from scream_tpu_torch.data import transforms
 from scream_tpu_torch.data.synthetic import make_pair
+from scream_tpu_torch.native import voxel_downsample
 
 # Canonical split sizes (reference datasets/three_d_match.py:173,200,226,252,278,
 # datasets/kitti.py:281,308,333, datasets/open_gf.py:16,36,56).
@@ -70,23 +71,6 @@ def _check_canonical_size(split_dir: str, discovered: int) -> None:
             "metrics over this split will not be comparable.",
             stacklevel=3,
         )
-
-
-def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
-    """Centroid per occupied voxel, ordered by the linearized voxel key
-    (the numpy version of the JAX package's ``ops/voxel.py``, which its
-    native ``pointops.cpp`` matches; float64 sums, fp32 out)."""
-    pts = np.asarray(points, dtype=np.float64)
-    origin = pts.min(axis=0)
-    coords = np.floor((pts - origin) / voxel_size).astype(np.int64)
-    dims = coords.max(axis=0) + 1
-    key = (coords[:, 0] * dims[1] + coords[:, 1]) * dims[2] + coords[:, 2]
-    order = np.argsort(key, kind="stable")
-    key_sorted = key[order]
-    starts = np.flatnonzero(np.concatenate([[True], key_sorted[1:] != key_sorted[:-1]]))
-    sums = np.add.reduceat(pts[order], starts, axis=0)
-    counts = np.diff(np.concatenate([starts, [len(pts)]]))
-    return (sums / counts[:, None]).astype(np.float32)
 
 
 def _norm_fn(name: str):
@@ -206,8 +190,9 @@ class PairDataset:
 
 class OpenGFDataset:
     """OpenGF patches: ``[dsm | dem]`` columns, the coarse DEM derived on
-    read, the DEM voxel-downsampled at resolution 20 before the /50
-    coordinate scaling (reference ``datasets/open_gf.py:18-28``)."""
+    read, the DEM voxel-downsampled at resolution 20 by the native point ops
+    (as the JAX package's loader does) before the /50 coordinate scaling
+    (reference ``datasets/open_gf.py:18-28``)."""
 
     def __init__(self, root: str, split: str = "train", with_centers: bool = False):
         self.dir = os.path.join(root, f"OpenGF_{split}")

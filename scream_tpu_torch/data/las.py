@@ -14,15 +14,15 @@ preprocessing gap first-party:
     error tells the user to either install laspy/lazrs or convert to .las.
   * :func:`write_las` — minimal LAS 1.2 / format-0 writer (test fixtures,
     interchange).
-
-The OpenGF ingestion helpers of the JAX module (``read_opengf_cloud`` and
-the scene lists) belong to preprocessing, which is not ported yet.
+  * :func:`read_opengf_cloud`, the reference's scene lists and
+    :func:`_existing` — the OpenGF ingestion of ``preprocess opengf``.
 
 Header/record layouts follow the public ASPRS LAS 1.4 specification.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Tuple
 
@@ -156,3 +156,39 @@ def write_las(path: str, xyz: np.ndarray, classification: np.ndarray,
     with open(path, "wb") as f:
         f.write(bytes(header))
         f.write(rec.tobytes())
+
+
+def read_opengf_cloud(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenGF ingestion semantics (reference ``process_open_gf.py:26-32``):
+    read xyz + classification and drop never-classified (class 0) points.
+
+    Returns RAW OpenGF classes (1 = non-ground, 2 = ground): the reference's
+    stored ``class - 1`` column with its later ``== 1`` ground test is the
+    same predicate as ``ground_classes=(2,)`` in
+    ``data/preprocess.py:tile_opengf_scene``.
+    """
+    xyz, cls = read_las(path)
+    keep = cls != 0
+    return xyz[keep], cls[keep]
+
+
+# The reference's scene lists (reference ``process_open_gf.py:16-20,42``).
+OPENGF_TRAIN_FILES = (
+    [f"train/S7_{i}.laz" for i in range(1, 10)]
+    + [f"train/S8_{i}.laz" for i in range(1, 10)]
+    + [f"train/S9_{i}.laz" for i in range(1, 20)]
+)
+OPENGF_VAL_FILES = [f"val/S{i}_v.laz" for i in range(7, 10)]
+OPENGF_TEST_FILES = ["test/test.laz"]
+
+
+def _existing(root: str, rel_paths) -> list:
+    """Resolve the canonical .laz names, accepting .las twins."""
+    out = []
+    for rel in rel_paths:
+        p = os.path.join(root, rel)
+        if os.path.exists(p):
+            out.append(p)
+        elif os.path.exists(p[:-4] + ".las"):
+            out.append(p[:-4] + ".las")
+    return out

@@ -5,7 +5,9 @@ Two entry points, as in the JAX package:
 * :func:`registration_icp` refines ONE pair, ``(N, 3)`` clouds and a
   ``(4, 4)`` init, and stops on Open3D's convergence test like the TPU's
   ``lax.while_loop``: a host loop reads one flag back from the device per
-  iteration (the TPU evaluates the same test on the device). Its NN is the
+  iteration (the TPU evaluates the same test on the device), with the loop
+  state, so that a loop caught in an exact cycle of states leaves at once
+  with the result of running to ``max_iteration``. Its NN is the
   unbatched bounded kernel (``nn_cuda.nn_bounded_single``).
 * :func:`registration_icp_batched` refines ``B`` pairs at once, the
   ``vmap``ped loop of the JAX package (its ``chunk=None`` path): all lanes
@@ -181,8 +183,11 @@ def registration_icp(
     """Refine an initial pose aligning ``src`` ``(N, 3)`` onto ``tgt``
     ``(M, 3)`` (padded ok, with masks); ``init`` ``(4, 4)``, identity if
     None. Stops when Open3D's convergence test holds or after
-    ``max_iteration`` updates; each iteration reads the test's flag back to
-    the host. Returns an unbatched :class:`ICPResult` whose
+    ``max_iteration`` updates; each iteration reads the test's flag and the
+    loop state back to the host. A loop whose state repeats exactly is in a
+    cycle that never converges; it is answered at once with the state the
+    loop would hold after ``max_iteration`` updates (KITTI's GT refinement
+    allows 50,000). Returns an unbatched :class:`ICPResult` whose
     ``transformation`` maps src -> tgt frame.
     """
     if init is None:
@@ -196,13 +201,30 @@ def registration_icp(
         src, tgt, src_mask, tgt_mask, _f32_square(max_correspondence_distance),
         relative_fitness, relative_rmse, nn=nn_bounded_single)
 
-    s = _init_icp_state(init)
-    for _ in range(max_iteration):
-        if bool(converged(s)[0]):  # the one host read per iteration
-            break
+    def advance(s):
         # One NN pass serves both the metrics at T_pending and the next update.
         T_new, fitness, rmse = step(s.T_pending)
-        s = _State(s.T_pending, T_new, fitness, rmse, s.fitness, s.rmse, s.it + 1)
+        return _State(s.T_pending, T_new, fitness, rmse, s.fitness, s.rmse, s.it + 1)
+
+    s = _init_icp_state(init)
+    seen = {}  # the loop state's bytes (all but `it`) -> the step it was seen at
+    for n in range(max_iteration):
+        # The one host read per iteration: the convergence flag and the state.
+        host = torch.cat([converged(s).float(), *(x.reshape(-1) for x in s[:-1])]).cpu()
+        if host[0]:
+            break
+        key = host.numpy().tobytes()
+        if key in seen:
+            # The state repeats: the loop is in a cycle of period n - seen[key]
+            # whose every state failed the convergence test, so it runs to
+            # max_iteration. Take the cycle's state at that step (the same
+            # bits: each step is a deterministic function of the state).
+            for _ in range((max_iteration - n) % (n - seen[key])):
+                s = advance(s)
+            s = s._replace(it=torch.full_like(s.it, max_iteration))
+            break
+        seen[key] = n
+        s = advance(s)
     return ICPResult(*(x[0] for x in _finish(s, converged, measure)))
 
 

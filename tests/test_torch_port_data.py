@@ -139,7 +139,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|scream_tpu)\
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_port_make_raw.py")]
     for root, _, names in os.walk(os.path.join(REPO, "scream_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -152,6 +153,7 @@ class TestPackageRules:
         ``__init__`` imports jax). ``scream_tpu_torch`` itself is allowed."""
         files = _port_sources()
         assert len(files) > 10
+        assert os.path.join(REPO, "scream_tpu_torch", "native", "__init__.py") in files
         offenders = []
         for path in files:
             with open(path) as f:
@@ -159,6 +161,25 @@ class TestPackageRules:
             for m in _FORBIDDEN.finditer(src):
                 offenders.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
         assert not offenders, offenders
+
+    def test_port_compiles_no_source_of_the_jax_package(self):
+        """Both native builds take their sources from ``scream_tpu_torch/``:
+        the CUDA library from ``csrc/``, the host point ops from ``native/``
+        (the port's own copy of the JAX package's ``pointops.cpp``)."""
+        from scream_tpu_torch import native
+        from scream_tpu_torch.ops import _build
+
+        pkg = os.path.join(REPO, "scream_tpu_torch") + os.sep
+        sources = [str(p) for p in _build._sources()] + [str(native.SRC)]
+        assert all(os.path.realpath(p).startswith(pkg) for p in sources), sources
+        jax_src = os.path.join(REPO, "scream_tpu") + os.sep
+        for path in _port_sources():
+            with open(path) as f:
+                src = f.read()
+            for m in re.finditer(r"[\"'][^\"']*\.(?:cpp|cu|cc|c)[\"']", src):
+                assert "scream_tpu/" not in m.group(0).replace("scream_tpu_torch/", ""), (
+                    path, m.group(0))
+        assert not native.library_path().is_relative_to(jax_src)
 
     def test_no_torch_extension_builder(self):
         """Kernels build with plain nvcc + ctypes, never through PyTorch's

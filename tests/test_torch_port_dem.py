@@ -196,10 +196,13 @@ class TestDatasets:
 
     def test_voxel_downsample_matches(self):
         from scream_tpu.ops.voxel import voxel_downsample_np
+        from scream_tpu_torch import native
 
+        # The loader's downsample (the native library) and its plain version.
         pts = np.random.default_rng(8).uniform(-300, 300, (4000, 3))
-        got = datasets.voxel_downsample(pts, 20.0)
-        assert np.array_equal(got, voxel_downsample_np(pts, 20.0))
+        want = voxel_downsample_np(pts, 20.0)
+        assert np.array_equal(datasets.voxel_downsample(pts, 20.0), want)
+        assert np.array_equal(native.voxel_downsample_plain(pts, 20.0), want)
 
 
 class TestMetrics:
