@@ -18,8 +18,8 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
    plain version) and made per call (identical), gated at 0.10 ms; both on
    exact ties (16 lanes, one dead for the bounded NN: the lowest index
    wins, bit for bit); the stats projection alone as one ``torch.matmul``
-   (a reference line); ptxas's lines, with no spill allowed in the splat
-   and exact-NN kernels;
+   (a reference line); ptxas's lines, with no spill allowed in the splat,
+   exact-NN and fp32 kernels;
 4. path 1, ``register_batch`` at 16 pairs x 4,096 points, the shipped
    full-width point-generator (``scream_tpu_torch/weights/point-generator``:
    d 256, 6 + 6 layers), 30 ICP iterations, distinct
@@ -113,7 +113,24 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     1 x 131,072 against its plain version on 4,096 src rows, timed, its
     live tiles per sub-slab, the refinement's steps, wall, peak memory and
     launches, ICP's pose within 0.01 deg and 1 mm of its truth;
-14. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+14. path 7, the float32 configuration (the shipped weights loaded with
+    ``dtype="float32"``; ``csrc/attn_f32.cu`` and ``csrc/tail_f32.cu``):
+    fp32 stats and apply against their plain versions at path 1's 16 x
+    4,096 (stats bit identical across launches, a zero-mask batch exactly
+    0), at 8 x 4,000 and at the serving shape 8 x 512 (d 128), the fused
+    block against the literal plain block; the fp32 tail at d 384 on a
+    seeded random-init DEMTransformer's first block (8 x 4,096, and 65,536
+    - 37 rows) and at d 256 through ``fused_attention=False``; the tail's
+    products as fp32 ``torch.matmul`` (a reference line); the card's fp32
+    forwards of the point-generator and the hint-free model against the JAX
+    package's (``tests/data/torch_port_fp32_reference.npz``) and the CPU
+    path's; ``register_batch`` at 16 x 4,096 (pairs/s, median RE, launches)
+    and the 1,024 bucket of path 5's tree card vs CPU; ``evaluate 3dmatch
+    --bucketed --dtype float32`` in a subprocess; path 2's GT-free serving
+    on the card and the CPU path, with its bistable pairs; the ``register``
+    CLI and ``train opengf --d-model 384`` with ``--dtype float32`` in
+    subprocesses (the train CLI's tail launches > 0);
+15. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -124,7 +141,8 @@ into a stack dump and exit code 1. Every printed line also goes to
 only the named kernels' checks (the splat's of phase 10, the exact NN's of
 phase 3 and its ties), on the same inputs, gates included: the short
 build-and-compare after a change to either kernel; ``--only ingest`` runs
-phases 1-2 and path 6. Neither prints a result line.
+phases 1-2 and path 6, ``--only fp32`` phases 1-2 and path 7. None prints a
+result line.
 """
 
 import faulthandler
@@ -143,6 +161,12 @@ HINTFREE = os.path.join("scream_tpu_torch", "weights", "point-generator-hintfree
 GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED = 16, 448, 100  # measure_gt_free.py
 SERVE_BATCH, SERVE_PAIRS = 8, 64  # the README's serving shape: 8 x 512
 TRANSFORM_TOL = 5e-2  # card vs CPU path, per transform entry (bf16 forward)
+# Kernels against their plain versions, relative to the largest value: in
+# bf16 one ulp of the output is 4e-3..8e-3 of it; in fp32 only the order of
+# the fp32 sums differs (the JAX fp32 tail's CPU bar is 2e-5). fp32 forwards
+# on the card against the JAX package's and the port's CPU forwards: 1e-4.
+BF16_BARS = {"stats": 5e-3, "apply": 1e-2, "block": 5e-2}
+FP32_BARS = {"stats": 1e-5, "apply": 2e-5, "block": 2e-5, "tail": 2e-5, "forward": 1e-4}
 PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded", "nn_tile_boxes")
 PATH2_KERNELS = PATH1_KERNELS + ("nn_bounded_single",)
 # Path 3: threedmatch_presets() (batch 8, max_points 4,096) with use_gan;
@@ -182,6 +206,15 @@ OPENGF_CPU_PATCHES, OPENGF_TOL = 2, 2e-2
 INGEST_SCALE, KITTI_GT_TOL = 0.002, 1e-3
 RAW_POINTS, RAW_POSE_ERR, RAW_RE_TOL, RAW_TE_TOL = 120_000, (0.1, 0.04), 0.01, 1e-3
 RAW_CHECK_ROWS, RAW_THRESH = 4096, 0.2
+# Path 7, the float32 configuration: the fp32 tail at d 384 on the first DSM
+# stem block of a seeded random-init DEMTransformer at 16 x 4,096 (the first
+# 8 pairs, and all rows cut to 65,536 - 37); the train CLI at d 384, two
+# steps of 16 patches at capacity 2,048; path 2's bistable pairs (PERF.md);
+# the JAX package's fp32 forwards, written by the script below.
+F32_TAIL_D, F32_TAIL_B, F32_TAIL_CAP, F32_TAIL_RAGGED = 384, 16, 4096, 65536 - 37
+F32_CLI_BATCH, F32_CLI_CAP = 16, 2048
+BISTABLE_PAIRS = (0, 4, 15)
+REFERENCE_SCRIPT = os.path.join("scripts", "torch_port_make_fp32_reference.py")
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
 # FMA counted as two operations), HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -219,7 +252,7 @@ SPLAT_GATE_MS, NN_EXACT_GATE_MS = 1.6378, 0.177
 TIME_ROUNDS = 3
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact")  # kernels --only can check alone
-ONLY_PATHS = ("ingest",)  # paths --only can run alone
+ONLY_PATHS = ("ingest", "fp32")  # paths --only can run alone
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -319,8 +352,10 @@ def phase_build():
             log(f"  ptxas: {ln.strip()}")
             if "spill" in ln and fn:
                 spills[fn] = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()][1:]
-    # The kernels redesigned last keep their registers: no spills.
-    for name in ("max_splat_kernel", "nn_exact_kernel"):
+    # The kernels redesigned last, and the fp32 kernels, keep their
+    # registers: no spills.
+    for name in ("max_splat_kernel", "nn_exact_kernel", "attn_stats_f32_kernel",
+                 "attn_apply_f32_kernel", "tail_f32_kernel"):
         hits = {f: v for f, v in spills.items() if name in f}
         check(hits and all(not any(v) for v in hits.values()),
               f"ptxas: {name} spills or is missing from the report: {hits}")
@@ -366,27 +401,34 @@ def check_pack(Wm, W1, W2, Wq=None, suffix=""):
         f"pack {same} | {cuda_ms(lambda: pack(*ws)):.4f} ms")
 
 
-def check_attention(blk, m_bool, suffix="", x=None):
+def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     """Kernels 1 and 2 against their plain versions on the card, for the
-    attention block ``blk`` on the bf16 input ``x`` (B, L, d), seeded random
-    if None, with the mask ``m_bool`` (B, L); and the whole fused block
-    against the literal plain block. Returns records."""
+    attention block ``blk`` on the input ``x`` (B, L, d), seeded random if
+    None, with the mask ``m_bool`` (B, L); and the whole fused block against
+    the literal plain block. In bf16 (``csrc/attn.cu``), or with ``dtype``
+    fp32 the fp32 kernels (``csrc/attn_f32.cu``) under the fp32 bars.
+    Returns records."""
     import torch
 
     from scream_tpu_torch.ops import attn_cuda
 
     dev = torch.device(DEV)
     bf, f32 = torch.bfloat16, torch.float32
+    cd = dtype or bf
+    fp32 = cd == f32
+    bars = FP32_BARS if fp32 else BF16_BARS
+    isz, peak = (4, PEAK_FP32) if fp32 else (2, PEAK_BF16)
+    src = "scream_tpu_torch/csrc/attn_f32.cu" if fp32 else "scream_tpu_torch/csrc/attn.cu"
     records = []
     H, d = blk.num_heads, blk.d_model
     hid = d * blk.ffn_mult
     g = torch.Generator(device=dev).manual_seed(0)
     Bx, L = m_bool.shape
     if x is None:
-        x = torch.randn((Bx, L, d), generator=g, device=dev).to(bf)
-    x = x.to(bf).contiguous()
+        x = torch.randn((Bx, L, d), generator=g, device=dev)
+    x = x.to(cd).contiguous()
     m = m_bool.float().contiguous()
-    c = lambda w: w.detach().to(bf).contiguous()
+    c = lambda w: w.detach().to(cd).contiguous()
     p = lambda w: w.detach().float().contiguous()
     Wq, Wk, Wv, Wm = (c(blk.q_proj.kernel), c(blk.k_proj.kernel),
                       c(blk.v_proj.kernel), c(blk.merge.kernel))
@@ -402,7 +444,8 @@ def check_attention(blk, m_bool, suffix="", x=None):
     torch.cuda.synchronize()
     err = max(rel_err(KV, KVp), rel_err(ks, ksp))
     abs_err = max(float((KV - KVp).abs().max()), float((ks - ksp).abs().max()))
-    check(err <= 5e-3, f"attn_stats{suffix}: relative error {err:.3g} > 5e-3")
+    check(err <= bars["stats"], f"attn_stats{suffix}: relative error {err:.3g} > "
+          f"{bars['stats']}")
     KV2, ks2 = attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H)
     same = bool(torch.equal(KV, KV2) and torch.equal(ks, ks2))
     m0 = m.clone()
@@ -410,7 +453,7 @@ def check_attention(blk, m_bool, suffix="", x=None):
     KV0, ks0 = attn_cuda.attn_stats(x, m0, Wk, Wv, num_heads=H)
     zero = bool((KV0[0] == 0).all() and (ks0[0] == 0).all())
     err0 = max(rel_err(KV0[1:], KVp[1:]), rel_err(ks0[1:], ksp[1:])) if Bx > 1 else 0.0
-    check(same and zero and err0 <= 5e-3,
+    check(same and zero and err0 <= bars["stats"],
           f"attn_stats{suffix}: two launches identical {same}, all-masked batch zero "
           f"{zero}, the other batches' relative error {err0:.3g}")
     ms, ms_all = timed(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H))
@@ -426,15 +469,17 @@ def check_attention(blk, m_bool, suffix="", x=None):
         f"{', '.join(f'{t:.4f}' for t in pms_all)} ms"
         + (f" (gate {gate} ms on the best)" if gate is not None else ""))
     hd = d // H
-    b_ms, b_by = bound(Bx * L * d * 2 + Bx * L * 4 + 2 * d * d * 2 + Bx * (H * hd * hd + d) * 4,
-                       [(2 * Bx * L * d * 2 * d + 2 * Bx * L * H * hd * hd, PEAK_BF16)])
+    b_ms, b_by = bound(Bx * L * d * isz + Bx * L * 4 + 2 * d * d * isz
+                       + Bx * (H * hd * hd + d) * 4,
+                       [(2 * Bx * L * d * 2 * d + 2 * Bx * L * H * hd * hd, peak)])
     records.append(dict(name="attn_stats" + suffix, err=err, max_abs_err=abs_err, ms=ms,
-                        plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="5e-3 rel",
-                        route="cuda", source="scream_tpu_torch/csrc/attn.cu",
+                        plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        bar=f"{bars['stats']} rel", route="cuda", source=src,
                         replaces="scream_tpu/ops/attn_pallas.py:117"))
 
     # Kernel 2: attention apply + block tail (fed the plain stats).
-    check_pack(Wm, W1, W2, Wq, suffix="_apply" + suffix)
+    if not fp32:  # the fp32 kernels read the weights as they are
+        check_pack(Wm, W1, W2, Wq, suffix="_apply" + suffix)
     args = (x, m, KVp, ksp, Wq, Wm, g1, b1, W1, W2, g2, b2)
     kw = dict(attn_eps=1e-6, ln_eps=1e-5, norm_dtype=f32)
     out = attn_cuda.attn_apply(*args, **kw)
@@ -442,35 +487,37 @@ def check_attention(blk, m_bool, suffix="", x=None):
     torch.cuda.synchronize()
     err = rel_err(out, outp, rows=m_bool)
     abs_err = float((out.float() - outp.float())[m_bool].abs().max())
-    # One bf16 ulp at the output's largest values is 2^-8..2^-7 of them, so a
+    # bf16: one ulp at the output's largest values is 2^-8..2^-7 of them, so a
     # single final-rounding flip reaches 4e-3..8e-3.
-    check(err <= 1e-2, f"attn_apply{suffix}: relative error {err:.3g} > 1e-2")
+    check(err <= bars["apply"], f"attn_apply{suffix}: relative error {err:.3g} > "
+          f"{bars['apply']}")
     ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
     pms = cuda_ms(lambda: attn_cuda.attn_apply_plain(*args, **kw))
-    b_ms, b_by = bound(2 * Bx * L * d * 2 + Bx * L * 4 + (2 * d * d + 2 * d * hid) * 2
+    b_ms, b_by = bound(2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz
                        + Bx * (H * hd * hd + d) * 4 + 4 * d * 4,
-                       [(2 * Bx * L * d * (2 * d + 2 * hid), PEAK_BF16),
+                       [(2 * Bx * L * d * (2 * d + 2 * hid), peak),
                         (2 * Bx * L * H * hd * hd, PEAK_FP32)])
     records.append(dict(name="attn_apply" + suffix, err=err, max_abs_err=abs_err, ms=ms,
-                        plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="1e-2 rel",
-                        route="cuda", source="scream_tpu_torch/csrc/attn.cu",
+                        plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        bar=f"{bars['apply']} rel", route="cuda", source=src,
                         replaces="scream_tpu/ops/attn_pallas.py:147"))
 
-    # The whole fused block against the literal plain block in bf16, the
+    # The whole fused block against the literal plain block; in bf16 the
     # comparison the TPU selftest gates the Pallas kernels at (5e-2).
     weights = (blk.q_proj.kernel, blk.k_proj.kernel, blk.v_proj.kernel,
                blk.merge.kernel, blk.norm1.scale, blk.norm1.bias, blk.ffn_in.kernel,
                blk.ffn_out.kernel, blk.norm2.scale, blk.norm2.bias)
     with torch.no_grad():
         fused = attn_cuda.attention_block_fused(x, x, m_bool, m_bool, *weights,
-                                                num_heads=H, dtype=bf, norm_dtype=f32)
+                                                num_heads=H, dtype=cd, norm_dtype=f32)
         plain = attn_cuda.block_plain(x, x, m_bool, m_bool, *weights, num_heads=H,
-                                      cd=bf, nd=f32, attn_eps=1e-6, ln_eps=1e-5)
+                                      cd=cd, nd=f32, attn_eps=1e-6, ln_eps=1e-5)
     torch.cuda.synchronize()
     blk_err = rel_err(fused, plain, rows=m_bool)
-    check(blk_err <= 5e-2, f"fused block{suffix} vs plain block: {blk_err:.3g} > 5e-2")
-    log(f"kernel fused_block_vs_plain_block{suffix} (d {d}, head dim {hd}, {Bx} x {L}): "
-        f"rel_err {blk_err:.3e} (bar 5e-2)")
+    check(blk_err <= bars["block"], f"fused block{suffix} vs plain block: {blk_err:.3g} > "
+          f"{bars['block']}")
+    log(f"kernel fused_block_vs_plain_block{suffix} (d {d}, head dim {hd}, {Bx} x {L}, "
+        f"{cd}): rel_err {blk_err:.3e} (bar {bars['block']})")
     return records
 
 
@@ -797,8 +844,9 @@ def phase_forward(model, batch):
         f"{err:.3e} (bar 5e-2)")
 
 
-def run_path(model, batches, icp_subsample):
-    """register_batch over distinct batches; returns (pairs/s, outputs)."""
+def run_path(model, batches, icp_subsample, label="trained point-generator"):
+    """register_batch over distinct batches; returns (pairs/s, launch
+    counts, median RE in degrees)."""
     import torch
 
     from scream_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -830,8 +878,8 @@ def run_path(model, batches, icp_subsample):
         f"icp_subsample={icp_subsample}: {pps:.2f} pairs/s over {len(outs)} batches "
         f"({elapsed / len(outs) * 1e3:.1f} ms/batch) | launches {json.dumps(counts)}, bounded "
         f"NN device launches {nn_dev} | "
-        f"all finite | median RE {float(re.median()):.2f} deg (trained point-generator)")
-    return pps, counts
+        f"all finite | median RE {float(re.median()):.2f} deg ({label})")
+    return pps, counts, float(re.median())
 
 
 def phase_oracle(batch):
@@ -881,15 +929,10 @@ def gt_transform(pair):
     return T
 
 
-def load_hintfree(device):
-    """The shipped hint-free checkpoint as a PointTransformer on ``device``."""
-    from scream_tpu_torch.models import PointTransformer
-    from scream_tpu_torch.utils.checkpoint import load_params
-
-    cfg, normalize, state = load_params(HINTFREE)
-    model = PointTransformer(cfg, device=device)
-    model.load_state_dict(state, strict=True)
-    return model.eval(), normalize
+def load_hintfree(device, dtype=None):
+    """The shipped hint-free checkpoint as a PointTransformer on ``device``
+    (its sidecar's compute dtype, or ``dtype``)."""
+    return load_weights(HINTFREE, device, dtype=dtype)
 
 
 def phase_kernels_gt_free(model, normalize, pairs, pair_4096):
@@ -1028,14 +1071,15 @@ def log_icp_launches(model, normalize, pair):
     log("ICP NN launches (GT-free pass, 448 points): " + "; ".join(parts))
 
 
-def phase_gt_free(model, model_cpu, normalize, pairs):
+def phase_gt_free(model, model_cpu, normalize, pairs, label="path 2"):
     """Path 2: GT-free serving with the trained hint-free weights, each API
     on the card and on the CPU path over the same pairs:
     register_pair(passes=2), register_pairs (batch SERVE_BATCH) and
     register_pair_robust (axis7). Recall (RE <= 15 deg, TE <= 0.3) and
     median RE/TE of each; per API the card may trail the CPU path's recall
     by at most 2/16 and its transforms may leave TRANSFORM_TOL on at most
-    2/16 of the pairs. Returns the launch counts of the card's run."""
+    2/16 of the pairs; how many of the bistable pairs (``BISTABLE_PAIRS``)
+    agree within it is logged. Returns the launch counts of the card's run."""
     import numpy as np
     import torch
 
@@ -1092,20 +1136,24 @@ def phase_gt_free(model, model_cpu, normalize, pairs):
                      f"{sum(r.ambiguous for r in cpu)}, median margin card "
                      f"{float(np.median([r.score_margin for r in got])):.4f} CPU "
                      f"{float(np.median([r.score_margin for r in cpu])):.4f}")
-        log(f"path 2 GT-free {name}, hint-free d128 checkpoint, {len(pairs)} x "
-            f"{GT_FREE_POINTS} pts, seed {GT_FREE_SEED}, poses <= 30 deg: card recall "
+        bistable = sum(diff[i] <= TRANSFORM_TOL for i in BISTABLE_PAIRS)
+        log(f"{label} GT-free {name}, hint-free d128 checkpoint, {model.cfg.dtype}, "
+            f"{len(pairs)} x {GT_FREE_POINTS} pts, seed {GT_FREE_SEED}, poses <= 30 deg: "
+            f"card recall "
             f"{rc[0]:.4f}, median RE {rc[1]:.4f} deg, TE {rc[2]:.5f} ({t_card:.2f} s) | "
             f"CPU path recall {rcpu[0]:.4f}, median RE {rcpu[1]:.4f} deg, TE "
             f"{rcpu[2]:.5f} ({t_cpu:.2f} s) | transforms card vs CPU: max "
             f"{max(diff):.3e}, median {float(np.median(diff)):.3e}, {n_far} beyond "
-            f"{TRANSFORM_TOL} (bar <= {n_tol * len(pairs):g}){extra}")
-    log(f"path 2 launches: {json.dumps(counts)}")
+            f"{TRANSFORM_TOL} (bar <= {n_tol * len(pairs):g}), bistable pairs "
+            f"{BISTABLE_PAIRS} within it {bistable} of {len(BISTABLE_PAIRS)}{extra}")
+    log(f"{label} launches: {json.dumps(counts)}")
     return counts
 
 
-def phase_cli(model, normalize, pair):
+def phase_cli(model, normalize, pair, dtype=None):
     """``python -m scream_tpu_torch register`` in a subprocess on two .npy
-    clouds; its transform against the in-process register_pair (1e-5)."""
+    clouds (``--dtype`` if given); its transform against the in-process
+    register_pair (1e-5)."""
     import numpy as np
 
     from scream_tpu_torch.pipeline import register_pair
@@ -1117,6 +1165,7 @@ def phase_cli(model, normalize, pair):
     np.save(tgt, pair["tgt"])
     cmd = [sys.executable, "-m", "scream_tpu_torch", "register", "--src", src,
            "--tgt", tgt, "--params", HINTFREE, "--device", DEV]
+    cmd += ["--dtype", dtype] if dtype else []
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root,
                           env=env)
@@ -1129,7 +1178,8 @@ def phase_cli(model, normalize, pair):
     check(err <= 1e-5 and out["n_corr"] == ref.n_corr,
           f"CLI vs in-process: transform error {err:.3g}, n_corr {out['n_corr']} "
           f"vs {ref.n_corr}")
-    log(f"cli: python -m scream_tpu_torch register --params {HINTFREE} ({wall:.1f} s "
+    log(f"cli: python -m scream_tpu_torch register --params {HINTFREE}"
+        f"{' --dtype ' + dtype if dtype else ''} ({wall:.1f} s "
         f"wall, subprocess): transform vs in-process max err {err:.2e} (bar 1e-5), "
         f"n_corr {out['n_corr']} equal, fitness {out['fitness']:.4f}")
 
@@ -1717,54 +1767,61 @@ def tail_inputs(model, block, args):
     return x, q, m_bool
 
 
-def check_tail(block, x, q, m_bool, suffix=""):
+def check_tail(block, x, q, m_bool, suffix="", dtype=None):
     """The tail kernel against its plain version on the card, on the block's
     weights and the real input (x, q): the forward within 1e-2 of the
     largest output on the valid rows (one bf16 ulp at the output scale, the
     apply kernel's bar); the gradients with respect to x, q and the seven
     weights through ``_FusedTail`` against those through ``tail_plain``,
     same upstream gradient, each within 3e-2 of its largest (the TPU
-    selftest's tail bar). Returns a record."""
+    selftest's tail bar). With ``dtype`` fp32 the fp32 kernel
+    (``csrc/tail_f32.cu``), forward and gradients within 2e-5. Returns a
+    record."""
     import torch
 
     from scream_tpu_torch.ops import tail_cuda
     from scream_tpu_torch.ops.ffn import tail_plain
 
     bf, f32 = torch.bfloat16, torch.float32
+    cd = dtype or bf
+    fp32 = cd == f32
+    bar, g_bar = (FP32_BARS["tail"], FP32_BARS["tail"]) if fp32 else (1e-2, 3e-2)
+    isz, peak = (4, PEAK_FP32) if fp32 else (2, PEAK_BF16)
     w = [t.detach() for t in (block.merge.kernel, block.norm1.scale, block.norm1.bias,
                               block.ffn_in.kernel, block.ffn_out.kernel,
                               block.norm2.scale, block.norm2.bias)]
-    check_pack(w[0], w[3], w[4], suffix="_tail" + suffix)
-    kern = lambda *a: tail_cuda.block_tail(*a, dtype=bf, norm_dtype=f32)
-    plain = lambda *a: tail_plain(*a, cd=bf, nd=f32, eps=1e-5)
+    if not fp32:
+        check_pack(w[0], w[3], w[4], suffix="_tail" + suffix)
+    kern = lambda *a: tail_cuda.block_tail(*a, dtype=cd, norm_dtype=f32)
+    plain = lambda *a: tail_plain(*a, cd=cd, nd=f32, eps=1e-5)
     with torch.no_grad():
         out, ref = kern(x, q, *w), plain(x, q, *w)
     torch.cuda.synchronize()
     err = rel_err(out, ref, rows=m_bool)
     abs_err = float((out.float() - ref.float())[m_bool].abs().max())
     g = torch.Generator(device=DEV).manual_seed(4)
-    up = (torch.randn(out.shape, generator=g, device=DEV) * m_bool[..., None]).to(bf)
+    up = (torch.randn(out.shape, generator=g, device=DEV) * m_bool[..., None]).to(cd)
     grads = []
     for fn in (kern, plain):
         ins = [t.clone().requires_grad_(True) for t in (x, q, *w)]
         grads.append(torch.autograd.grad(fn(*ins), ins, up))
     torch.cuda.synchronize()
     g_err = max(rel_err(a, b) for a, b in zip(*grads))
-    check(err <= 1e-2 and g_err <= 3e-2 and bool(torch.isfinite(out.float()).all()),
-          f"block_tail{suffix}: forward relative error {err:.3g} (bar 1e-2), gradient "
-          f"relative error {g_err:.3g} (bar 3e-2)")
+    check(err <= bar and g_err <= g_bar and bool(torch.isfinite(out.float()).all()),
+          f"block_tail{suffix}: forward relative error {err:.3g} (bar {bar}), gradient "
+          f"relative error {g_err:.3g} (bar {g_bar})")
     with torch.no_grad():
         ms = cuda_ms(lambda: kern(x, q, *w))
         pms = cuda_ms(lambda: plain(x, q, *w))
     d, hid = x.shape[-1], w[3].shape[1]
     R = x.numel() // d
-    b_ms, b_by = bound((3 * R * d + d * d + 2 * d * hid) * 2 + 4 * d * 4,
-                       [(2 * R * d * (d + 2 * hid), PEAK_BF16)])
-    log(f"kernel block_tail{suffix} (d {d}, {tuple(x.shape[:-1])} rows): gradient rel err "
-        f"{g_err:.3e} (bar 3e-2)")
+    b_ms, b_by = bound((3 * R * d + d * d + 2 * d * hid) * isz + 4 * d * 4,
+                       [(2 * R * d * (d + 2 * hid), peak)])
+    log(f"kernel block_tail{suffix} (d {d}, {tuple(x.shape[:-1])} rows, {cd}): gradient "
+        f"rel err {g_err:.3e} (bar {g_bar})")
     return dict(name="block_tail" + suffix, err=err, max_abs_err=abs_err, ms=ms,
-                plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar="1e-2 rel", route="cuda",
-                source="scream_tpu_torch/csrc/tail.cu",
+                plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar=f"{bar} rel", route="cuda",
+                source=f"scream_tpu_torch/csrc/{'tail_f32' if fp32 else 'tail'}.cu",
                 replaces="scream_tpu/ops/ffn_pallas.py:86")
 
 
@@ -1988,18 +2045,29 @@ def phase_dem_training(trainer, groups):
                         dem_train_launches_per_iteration=per_iter, dem_val=val)
 
 
-def run_cli(args, label):
+# The CLI's own entry point, then the kernels' launch counts on stderr.
+CLI_COUNTED = ("import json, sys; from scream_tpu_torch import cli; "
+               "from scream_tpu_torch.ops import launch_counts; cli.main(sys.argv[1:]); "
+               "print('\\n# launches ' + json.dumps(launch_counts()), file=sys.stderr)")
+
+
+def run_cli(args, label, counted=False):
     """``python -m scream_tpu_torch <args>`` in a subprocess: (final_val,
-    stdout, wall seconds)."""
+    stdout, wall seconds); with ``counted`` the same entry point through
+    ``CLI_COUNTED``, and stdout is then (stdout, launch counts)."""
     root, env = repo_env()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", *args],
+    head = ["-c", CLI_COUNTED] if counted else ["-m", "scream_tpu_torch"]
+    proc = subprocess.run([sys.executable, *head, *args],
                           capture_output=True, text=True, timeout=400, cwd=root, env=env)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"{label}: exit {proc.returncode}:\n{proc.stderr[-3000:]}")
     final = json.loads(proc.stdout.strip().splitlines()[-1])["final_val"]
     check(bool(final) and all(math.isfinite(v) for v in final.values()),
           f"{label}: final_val {final}")
+    if counted:
+        line = [ln for ln in proc.stderr.splitlines() if ln.startswith("# launches ")][-1]
+        return final, (proc.stdout, json.loads(line[len("# launches "):])), wall
     return final, proc.stdout, wall
 
 
@@ -2118,13 +2186,18 @@ def write_split_tree(root):
         np.save(os.path.join(d, "centers", f"{i}.npy"), np.zeros(3, np.float32))
 
 
-def load_weights(path, device, cls=None):
-    """A shipped checkpoint as a model in eval mode on ``device``, and its
-    normalization."""
+def load_weights(path, device, cls=None, dtype=None):
+    """A shipped checkpoint as a model in eval mode on ``device`` (its
+    sidecar's compute dtype, or ``dtype``: the fp32 weights serve both),
+    and its normalization."""
+    import dataclasses
+
     from scream_tpu_torch.models import PointTransformer
     from scream_tpu_torch.utils.checkpoint import load_params
 
     cfg, normalize, state = load_params(path)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     model = (cls or PointTransformer)(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model.eval(), normalize
@@ -2168,14 +2241,10 @@ def phase_eval_3dmatch(model, model_cpu, root):
     """3DMatch through the bucketed loader and the collated cache (equal
     metrics), 3DZeroMatch once, the 1,024 bucket on the CPU path, and the
     evaluate CLI in a subprocess (its dict equal to the in-process one)."""
-    import numpy as np
-    import torch
-
     from scream_tpu_torch.cli import _buckets_for
     from scream_tpu_torch.config import eval_preset
     from scream_tpu_torch.data import BucketedPairLoader, PairDataset, collated_or_build
     from scream_tpu_torch.eval import evaluate_registration
-    from scream_tpu_torch.pipeline.register import register_batch
 
     ds = PairDataset(root, "3DMatch_test", normalize="unit_sphere", with_info=True,
                      max_points=CAP)
@@ -2211,27 +2280,7 @@ def phase_eval_3dmatch(model, model_cpu, root):
     log(f"path 5 evaluate 3dzeromatch: {t_z:.2f} s ({zero['n_pairs'] / t_z:.2f} pairs/s) | "
         f"{json.dumps(zero)}")
 
-    # The 1,024 bucket, pair by pair, on the card and on the CPU path.
-    card, cpu = [], []
-    kw = dict(icp_max_iter=ICP_ITERS)
-    for b in collated_loader:
-        if b["src"].shape[1] != buckets[0]:
-            continue
-        b = {k: np.array(v) for k, v in b.items()}
-        card.append(register_batch(model, b, device=DEV, **kw))
-        cpu.append(register_batch(model_cpu, b, device="cpu", **kw))
-    cat = lambda ms, f: torch.cat([getattr(m, f).cpu() for m in ms]).numpy()
-    rc, rx = cat(card, "rmse") < 0.2, cat(cpu, "rmse") < 0.2
-    d_re = np.abs(cat(card, "re_deg") - cat(cpu, "re_deg"))
-    d_te = np.abs(cat(card, "te") - cat(cpu, "te"))
-    off = int(((d_re > TRANSFORM_TOL) | (d_te > TRANSFORM_TOL)).sum())
-    check(int(rc.sum()) == int(rx.sum()) and off <= 2,
-          f"1,024 bucket, card vs CPU path: recall {int(rc.sum())} / {int(rx.sum())}, "
-          f"{off} pairs off by > {TRANSFORM_TOL}")
-    log(f"path 5 1,024 bucket ({len(rc)} pairs) card vs CPU path: pair recall "
-        f"{int(rc.sum())} / {int(rx.sum())} (equal), {off} pairs with RE or TE off by > "
-        f"{TRANSFORM_TOL} (bar 2), max dRE {float(d_re.max()):.3e} deg, max dTE "
-        f"{float(d_te.max()):.3e}")
+    check_bucket(model, model_cpu, collated_loader, buckets[0], "path 5")
 
     root_repo, env = repo_env()
     t0 = time.perf_counter()
@@ -2246,6 +2295,38 @@ def phase_eval_3dmatch(model, model_cpu, root):
         f"--bucketed ({wall:.1f} s wall, subprocess): JSON equal to the in-process dict")
     return dict(eval_3dmatch=bucketed, eval_3dmatch_s=t_b, eval_3dmatch_collated_s=t_c,
                 eval_3dzeromatch=zero, eval_3dzeromatch_s=t_z)
+
+
+def check_bucket(model, model_cpu, loader, cap, label):
+    """The ``cap`` bucket of ``loader``, pair by pair, through
+    ``register_batch`` on the card and on the CPU path: pair recall (RMSE <
+    0.2) equal, at most 2 pairs with RE or TE off by more than
+    ``TRANSFORM_TOL``."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.pipeline.register import register_batch
+
+    card, cpu = [], []
+    kw = dict(icp_max_iter=ICP_ITERS)
+    for b in loader:
+        if b["src"].shape[1] != cap:
+            continue
+        b = {k: np.array(v) for k, v in b.items()}
+        card.append(register_batch(model, b, device=DEV, **kw))
+        cpu.append(register_batch(model_cpu, b, device="cpu", **kw))
+    cat = lambda ms, f: torch.cat([getattr(m, f).cpu() for m in ms]).numpy()
+    rc, rx = cat(card, "rmse") < 0.2, cat(cpu, "rmse") < 0.2
+    d_re = np.abs(cat(card, "re_deg") - cat(cpu, "re_deg"))
+    d_te = np.abs(cat(card, "te") - cat(cpu, "te"))
+    off = int(((d_re > TRANSFORM_TOL) | (d_te > TRANSFORM_TOL)).sum())
+    check(int(rc.sum()) == int(rx.sum()) and off <= 2,
+          f"{label} {cap:,} bucket, card vs CPU path: recall {int(rc.sum())} / "
+          f"{int(rx.sum())}, {off} pairs off by > {TRANSFORM_TOL}")
+    log(f"{label} {cap:,} bucket ({len(rc)} pairs, {model.cfg.dtype}) card vs CPU path: "
+        f"pair recall {int(rc.sum())} / {int(rx.sum())} (equal), {off} pairs with RE or TE "
+        f"off by > {TRANSFORM_TOL} (bar 2), max dRE {float(d_re.max()):.3e} deg, max dTE "
+        f"{float(d_te.max()):.3e}")
 
 
 def phase_eval_kitti(root):
@@ -2778,12 +2859,253 @@ def path6():
     return raw_counts, eval_counts, rec, results
 
 
-def run_only(names):
+def reference_module():
+    """``scripts/torch_port_make_fp32_reference.py`` as a module: its input
+    maker and file path (it imports JAX only inside its writer)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_make_fp32_reference",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), REFERENCE_SCRIPT))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_kernels_f32(model, batch, hf):
+    """The fp32 kernels against their plain versions on the card: stats and
+    apply on ``model``'s first block (the trained point-generator in fp32)
+    at path 1's 16 x 4,096 with its mask, cut to 8 x 4,000 (ragged), and on
+    the hint-free checkpoint's at the serving shape 8 x 512 (448 valid rows);
+    the fused block against the literal plain block at each; the tail at
+    d 384 on the first DSM stem block's real input of a seeded random-init
+    DEMTransformer (8 x 4,096, and 16 x 4,096 cut to 65,536 - 37 rows), and
+    at d 256 through ``ModelConfig(dtype="float32", fused_attention=False)``
+    on ``model``'s weights and path 1's batch, whose forward must run the
+    tail kernel in all 24 blocks and the fused kernels in none; the tail's
+    three products as fp32 ``torch.matmul`` (a reference line)."""
+    import dataclasses
+
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import DEMTransformer, PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+
+    f32 = torch.float32
+    tb = to_device(batch, DEV)
+    m_bool = tb["tgt_mask"]
+    blk = model.trunk.stem_0
+    records = check_attention(blk, m_bool, suffix="_f32", dtype=f32)
+    records += check_attention(blk, m_bool[:8, :RAGGED_L].contiguous(),
+                               suffix="_f32_L4000", dtype=f32)
+    m_serve = torch.zeros((SERVE_BATCH, 512), dtype=torch.bool, device=DEV)
+    m_serve[:, :GT_FREE_POINTS] = True
+    records += check_attention(hf.trunk.stem_0, m_serve, suffix="_f32_d128", dtype=f32)
+
+    model_cfg, _ = dem_config()
+    dem = DEMTransformer(dataclasses.replace(model_cfg, d_model=F32_TAIL_D, dtype="float32"),
+                         device=DEV, generator=torch.Generator().manual_seed(0))
+    db = to_device(dem_batch(make_dem_items(1, seed=1300, batch=F32_TAIL_B,
+                                            points=F32_TAIL_CAP)[0],
+                             cap=F32_TAIL_CAP, coarse=F32_TAIL_CAP // 8), DEV)
+    args = (db["dsm"], db["dem_coarse"], db["dsm_mask"], db["dem_coarse_mask"])
+    x, q, m = tail_inputs(dem, dem.trunk.stem_src_0, args)
+    d = x.shape[-1]
+    records.append(check_tail(dem.trunk.stem_src_0, x[:8].contiguous(), q[:8].contiguous(),
+                              m[:8], suffix="_f32", dtype=f32))
+    records.append(check_tail(dem.trunk.stem_src_0, x.reshape(-1, d)[:F32_TAIL_RAGGED],
+                              q.reshape(-1, d)[:F32_TAIL_RAGGED],
+                              m.reshape(-1)[:F32_TAIL_RAGGED],
+                              suffix=f"_f32_r{F32_TAIL_RAGGED}", dtype=f32))
+    refs = [tail_matmul_reference(dem.trunk.stem_src_0, x[:8])]
+    del dem, x, q
+
+    unfused = PointTransformer(ModelConfig(dtype="float32", fused_attention=False),
+                               device=DEV)
+    unfused.load_state_dict(model.state_dict())
+    pargs = (tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+             gt_center_hint(tb["rot"], tb["trans"]))
+    reset_launch_counts()
+    with torch.no_grad():
+        unfused(*pargs)
+    counts = launch_counts()
+    check(counts["block_tail"] == 24 and counts["attn_apply"] == 0,
+          f"ModelConfig(dtype='float32', fused_attention=False) at d 256: launches "
+          f"{counts}, expected 24 tail kernels and no fused block")
+    x, q, m = tail_inputs(unfused, unfused.trunk.stem_0, pargs)
+    records.append(check_tail(unfused.trunk.stem_0, x, q, m, suffix="_f32_d256", dtype=f32))
+    refs.append(tail_matmul_reference(unfused.trunk.stem_0, x))
+    log(f"path 7 fused_attention=False at d 256, fp32 ({B} x {CAP}): one forward launched "
+        f"{counts['block_tail']} tail kernels, {counts['attn_apply']} fused blocks")
+    log("reference (not library_ms): the tail's three products as fp32 torch.matmul: "
+        + ", ".join(refs))
+    log_records(records)
+    return records
+
+
+def tail_matmul_reference(block, x):
+    """The tail's three products (x @ Wm, y @ W1, h @ W2) as fp32
+    ``torch.matmul`` on the block's weights: the time of that one line."""
+    import torch
+
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    Wm, W1, W2 = (w.detach().float() for w in (block.merge.kernel, block.ffn_in.kernel,
+                                                block.ffn_out.kernel))
+    h = torch.relu(x2 @ W1)
+    ms = cuda_ms(lambda: (x2 @ Wm, x2 @ W1, h @ W2))
+    return f"d {x2.shape[1]}, {x2.shape[0]} rows {ms:.4f} ms"
+
+
+def phase_reference_f32(models):
+    """The fp32 forwards on the card against the JAX package's (the file
+    of ``REFERENCE_SCRIPT``, made on the CPU) and against the port's CPU
+    path, both within ``FP32_BARS["forward"]`` of the largest value;
+    ``models`` maps the file's keys to (card model, CPU model)."""
+    import numpy as np
+    import torch
+
+    mod = reference_module()
+    bar = FP32_BARS["forward"]
+    with np.load(mod.OUT) as f:
+        ref = {k: f[k] for k in f.files}
+    for key, (card, cpu) in models.items():
+        inputs = mod.reference_inputs(key, int(ref["seed"]))
+        with torch.no_grad():
+            got = card(*(torch.as_tensor(a, device=DEV) for a in inputs))
+            on_cpu = cpu(*map(torch.as_tensor, inputs))
+        torch.cuda.synchronize()
+        want = torch.as_tensor(ref[key], device=DEV)
+        e_jax = rel_err(got, want)
+        e_cpu = rel_err(got, on_cpu.to(DEV))
+        check(got.dtype == torch.float32 and e_jax <= bar and e_cpu <= bar,
+              f"path 7 {key} fp32 forward on the card: {e_jax:.3g} from the JAX package's, "
+              f"{e_cpu:.3g} from the CPU path's (bar {bar})")
+        log(f"path 7 {key} fp32 forward ({tuple(got.shape)}, seed {int(ref['seed'])}): card "
+            f"vs the JAX package's (CPU, {REFERENCE_SCRIPT}) rel_err {e_jax:.3e}, vs the "
+            f"port's CPU path {e_cpu:.3e} (bar {bar})")
+
+
+def phase_eval_f32(model, model_cpu, model_bf16):
+    """On path 5's split tree: the 1,024 bucket of 3DMatch pair by pair on
+    the card and the CPU path in fp32 (path 5's bars), then ``evaluate
+    3dmatch --bucketed --dtype float32`` in a subprocess: its JSON finite,
+    equal to the in-process fp32 dict, and the bf16 run's pair count."""
+    import shutil
+    import tempfile
+
+    from scream_tpu_torch.cli import _buckets_for
+    from scream_tpu_torch.config import eval_preset
+    from scream_tpu_torch.data import BucketedPairLoader, PairDataset
+    from scream_tpu_torch.eval import evaluate_registration
+
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_f32_splits_", dir="build")
+    try:
+        write_split_tree(root)
+        ds = PairDataset(root, "3DMatch_test", normalize="unit_sphere", with_info=True,
+                         max_points=CAP)
+        buckets = _buckets_for(CAP, smallest=1024)
+        loader = lambda: BucketedPairLoader(ds, EVAL_BATCH, buckets)
+        check_bucket(model, model_cpu, loader(), buckets[0], "path 7")
+        t0 = time.perf_counter()
+        got = evaluate_registration(model, loader(), eval_preset("3dmatch"), device=DEV)
+        t_f32 = time.perf_counter() - t0
+        bf = evaluate_registration(model_bf16, loader(), eval_preset("3dmatch"), device=DEV)
+        root_repo, env = repo_env()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "evaluate",
+                               "3dmatch", "--root", root, "--params", POINT_GEN,
+                               "--bucketed", "--dtype", "float32", "--device", DEV],
+                              capture_output=True, text=True, timeout=300, cwd=root_repo,
+                              env=env)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(proc.returncode == 0, f"evaluate --dtype float32 exit {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(all(math.isfinite(v) for v in cli.values()) and cli == got
+          and cli["n_pairs"] == bf["n_pairs"],
+          f"evaluate --dtype float32: CLI {cli}, in-process {got}, bf16 pairs "
+          f"{bf['n_pairs']}")
+    log(f"path 7 cli: python -m scream_tpu_torch evaluate 3dmatch --params {POINT_GEN} "
+        f"--bucketed --dtype float32 ({wall:.1f} s wall, subprocess): JSON finite, equal to "
+        f"the in-process fp32 dict ({t_f32:.2f} s), {cli['n_pairs']} pairs as the bf16 run | "
+        f"fp32 {json.dumps(got)} | bf16 {json.dumps(bf)}")
+    return got
+
+
+def phase_train_cli_f32():
+    """``train opengf --d-model 384 --dtype float32`` in a subprocess, one
+    epoch (``--epochs 2``: the reference's exclusive bound) of two steps of
+    16 of the 32 synthetic patches at capacity 2,048, and a validation: the
+    only CLI route to the fp32 tail kernel (every block at d 384). Finite
+    losses; returns the launch counts of the CLI's run."""
+    import shutil
+
+    ck = os.path.join(WORK_DIR, "cli_opengf_f32")
+    shutil.rmtree(ck, ignore_errors=True)
+    final, (_, counts), wall = run_cli(
+        ["train", "opengf", "--d-model", str(F32_TAIL_D), "--dtype", "float32", "--epochs",
+         "2", "--batch-size", str(F32_CLI_BATCH), "--max-points", str(F32_CLI_CAP),
+         "--checkpoint-dir", ck, "--device", DEV], "train opengf --dtype float32",
+        counted=True)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    check(counts["block_tail"] > 0 and counts["attn_apply"] == 0,
+          f"train opengf --d-model {F32_TAIL_D} --dtype float32: launches {counts}")
+    log(f"path 7 cli: train opengf --d-model {F32_TAIL_D} --dtype float32 --epochs 2 "
+        f"--batch-size {F32_CLI_BATCH} --max-points {F32_CLI_CAP} ({wall:.1f} s, "
+        f"subprocess): final_val {json.dumps(final)} | launches {json.dumps(counts)}")
+    return counts
+
+
+def path7(smi, path1_re=None):
+    """Path 7: the float32 configuration on the card (the shipped weights
+    loaded with ``dtype="float32"``). Returns (records, launch counts of
+    its main runs, results)."""
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"path 7 (float32) on {smi}")
+    model, _ = load_weights(POINT_GEN, DEV, dtype="float32")
+    model_cpu, _ = load_weights(POINT_GEN, "cpu", dtype="float32")
+    hf, normalize = load_hintfree(DEV, dtype="float32")
+    hf_cpu, _ = load_hintfree("cpu", dtype="float32")
+    # Path 1's batches (per-item seeds: the same pairs), so the median RE
+    # compares with path 1's bf16 figure pair for pair.
+    batches = make_batches(TIMED_BATCHES + 2, seed=0)
+    records = phase_kernels_f32(model, batches[-1], hf)
+    phase_reference_f32({"point_generator": (model, model_cpu),
+                         "point_generator_hintfree": (hf, hf_cpu)})
+    pps, counts, re = run_path(model, batches[:TIMED_BATCHES + 1], None,
+                               label="trained point-generator, float32")
+    log(f"path 7 register_batch fp32 ({B} x {CAP}, {ICP_ITERS} ICP iterations): "
+        f"{pps:.2f} pairs/s, median RE {re:.4f} deg | path 1 (bf16) median RE "
+        + (f"{path1_re:.4f} deg" if path1_re is not None else "not run") + f" | {smi}")
+    model_bf16, _ = load_weights(POINT_GEN, DEV)
+    evaluation = phase_eval_f32(model, model_cpu, model_bf16)
+    del model_bf16, model_cpu
+    pairs = make_gt_free_pairs(GT_FREE_PAIRS, GT_FREE_POINTS, GT_FREE_SEED)
+    serve_counts = phase_gt_free(hf, hf_cpu, normalize, pairs, label="path 7")
+    phase_cli(hf, normalize, pairs[1], dtype="float32")
+    cli_counts = phase_train_cli_f32()
+    del model, hf
+    torch.cuda.empty_cache()
+    log(f"path 7 took {time.perf_counter() - t0:.1f} s")
+    return records, {"main": counts, "serving": serve_counts, "train_cli": cli_counts}, dict(
+        pairs_per_s_f32=pps, median_re_deg_f32=re, eval_3dmatch_f32=evaluation,
+        launches_f32=counts, launches_gt_free_serving_f32=serve_counts,
+        launches_train_cli_f32=cli_counts)
+
+
+def run_only(names, smi):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
     exact NN at path 1's shape and on exact ties at B = 1 and 16; the splat
     at path 3's and the KITTI shape and on the adversarial scenes; or path
-    6 (``ingest``) whole. No result line is printed."""
+    6 (``ingest``) or path 7 (``fp32``) whole. No result line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
         log("kernels on exact ties: "
@@ -2791,6 +3113,8 @@ def run_only(names):
         log_records([rec])
     if "ingest" in names:
         path6()
+    if "fp32" in names:
+        path7(smi)
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -2825,7 +3149,7 @@ def main():
 
     phase_build()
     if only:
-        run_only(only)
+        run_only(only, smi)
         faulthandler.cancel_dump_traceback_later()
         return
     batches = make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)
@@ -2833,8 +3157,8 @@ def main():
     model, _ = load_weights(POINT_GEN, DEV)
     records = phase_kernels(model, batches[-1])
     phase_forward(model, batches[-1])
-    pps, counts = run_path(model, batches[:TIMED_BATCHES + 1], None)
-    pps_sub, counts_sub = run_path(model, batches[TIMED_BATCHES + 1:-1], ICP_SUB)
+    pps, counts, path1_re = run_path(model, batches[:TIMED_BATCHES + 1], None)
+    pps_sub, counts_sub, _ = run_path(model, batches[TIMED_BATCHES + 1:-1], ICP_SUB)
     phase_oracle(batches[-1])
 
     # Path 2: GT-free serving with the shipped hint-free checkpoint.
@@ -2887,6 +3211,10 @@ def main():
     raw_counts, ingest_eval_counts, raw_rec, ingestion = path6()
     records.append(raw_rec)
 
+    # Path 7: the float32 configuration.
+    f32_records, f32_counts, f32_results = path7(smi, path1_re)
+    records += f32_records
+
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
         "attn_stats": counts["attn_stats"], "attn_apply": counts["attn_apply"],
@@ -2898,12 +3226,17 @@ def main():
         "attn_apply_train": train_counts["attn_apply"],
         "max_splat": train_counts["max_splat"],
         "block_tail": dem_counts["block_tail"],
-        "nn_bounded_single_kitti_raw": raw_counts["nn_bounded_single"]}
+        "nn_bounded_single_kitti_raw": raw_counts["nn_bounded_single"],
+        "attn_stats_f32": f32_counts["main"]["attn_stats"],
+        "attn_apply_f32": f32_counts["main"]["attn_apply"],
+        "attn_stats_f32_d128": f32_counts["serving"]["attn_stats"],
+        "attn_apply_f32_d128": f32_counts["serving"]["attn_apply"],
+        "block_tail_f32": f32_counts["train_cli"]["block_tail"]}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
             continue  # extra shapes (the ICP subsample, B=1 at 4,096, KITTI GAN,
-            # the coarse DEM stem, the tail at d 256), logged above
+            # the coarse DEM stem, the tail at d 256, ragged rows), logged above
         launches = launches_of[r["name"]]
         kernels.append({
             "name": r["name"], "status": "ported, within its bar",
@@ -2919,7 +3252,8 @@ def main():
                     "launches_dem_training": dem_counts, **dem_training,
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
-                    "launches_raw_kitti_refinement": raw_counts, **ingestion}))
+                    "launches_raw_kitti_refinement": raw_counts, **ingestion,
+                    **f32_results}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

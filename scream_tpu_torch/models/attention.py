@@ -112,11 +112,11 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
         if on_cuda and not attn_cuda.kernels_take(d, hid, num_heads, dtype):
             raise NotImplementedError(
                 f"fused attention block at d_model {d}, {num_heads} heads, "
-                f"{dtype}: the CUDA kernels take bf16, d_model in "
-                f"{attn_cuda.KERNEL_WIDTHS} and {attn_cuda.KERNEL_HEADS} heads; "
-                "other shapes and fp32 are queued in ROADMAP.md (TPU kernels "
-                "still to port); pass fused_attention=False for the plain "
-                "attention")
+                f"{dtype}: the CUDA kernels take bf16 or fp32 at d_model in "
+                f"{attn_cuda.KERNEL_WIDTHS} with {attn_cuda.KERNEL_HEADS} heads; "
+                "bf16 at d_model 384 and other head counts are queued in "
+                "ROADMAP.md (TPU kernels still to port); pass "
+                "fused_attention=False for the plain attention")
         return "fused"
     tail = fused_tail if fused_tail is not None else (
         on_cuda and jax_fusable_tail(d, hid, dtype))
@@ -124,9 +124,11 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
         if on_cuda and not tail_cuda.kernel_takes(d, hid, dtype):
             raise NotImplementedError(
                 f"block tail at d_model {d}, hidden {hid}, {dtype}: the CUDA "
-                f"kernel takes bf16 at d_model in {tail_cuda.KERNEL_WIDTHS}; "
-                "fp32 is queued in ROADMAP.md (TPU kernels still to port); "
-                "pass fused_block_tail=False for the plain tail")
+                f"kernels take bf16 at d_model in {tail_cuda.KERNEL_WIDTHS} and "
+                f"fp32 at {tail_cuda.KERNEL_WIDTHS_F32} (every width where the "
+                "JAX rule admits the kernel; see ROADMAP.md), with a hidden "
+                "width a multiple of 128; pass fused_block_tail=False for the "
+                "plain tail")
         return "tail"
     return "plain"
 

@@ -107,6 +107,9 @@ def _declare(lib) -> None:
         "scream_splat_expf_check": [P, P],
         "scream_block_tail": [P] * 8 + [I, I, I, F, P],
         "scream_pack_weights": [P, P, P, P, I, P, I, I, P],
+        "scream_attn_stats_f32": [P] * 7 + [I, I, I, P],
+        "scream_attn_apply_f32": [P] * 13 + [I, I, I, I, F, F, I, P],
+        "scream_block_tail_f32": [P] * 10 + [I, I, I, F, I, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -19,9 +19,14 @@ hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py
   (``csrc/tail_tile.cuh``); its weights stream through a shared-memory ring,
   packed by ``ops/tail_cuda.py:pack_weights``.
 
-The kernels take bf16 at d_model 128 and 256 with 8 heads (head dim 16 and
-32, ``KERNEL_WIDTHS``). Each wrapper launches its kernel for CUDA tensors
-(raising on what the kernel does not take) and runs its plain PyTorch version, defined beside it,
+The kernels take d_model 128 and 256 with 8 heads (head dim 16 and 32,
+``KERNEL_WIDTHS``), in bf16 and in fp32. The fp32 configuration has its own
+pair, ``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
+``attn_stats_f32_reduce_kernel``, and ``attn_apply_f32_kernel``): fp32 FMA
+throughout, the weights read as they are (no pack), the stats summed per
+64-row tile and then over the tiles in tile order. Each wrapper dispatches on
+the compute dtype, launches its kernel for CUDA tensors (raising on what the
+kernel does not take) and runs its plain PyTorch version, defined beside it,
 only for CPU tensors. The stats are kept per head, ``(B, H, hd, hd)``: the
 TPU kernel's full ``d x d`` KV has zeros outside those diagonal blocks.
 
@@ -39,14 +44,18 @@ from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
 from scream_tpu_torch.ops.tail_cuda import pack_weights
 
 # What the CUDA kernels take: d_model 128 or 256 split into 8 heads (head
-# dim 16 or 32), a hidden width in 128-column chunks, bf16 compute.
+# dim 16 or 32), a hidden width in 128-column chunks, bf16 or fp32 compute.
 KERNEL_WIDTHS = (128, 256)
 KERNEL_HEADS = 8
 KERNEL_HID_CHUNK = 128
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
 # (batch, tile) items, and the workspace holds S rounded up to it.
 STATS_TILE = 128
 STATS_STAGE_COLS = 64  # packed [Wk|Wv] columns a ring stage
+# The fp32 stats kernel's row tile (csrc/attn_f32.cu TS): one workspace slot
+# of partial sums per (batch, tile), added in tile order.
+STATS_F32_TILE = 64
 
 
 def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
@@ -63,7 +72,7 @@ def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> b
 def kernels_take(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether the CUDA kernels are written for this shape."""
     return (d in KERNEL_WIDTHS and num_heads == KERNEL_HEADS
-            and hid % KERNEL_HID_CHUNK == 0 and dtype == torch.bfloat16)
+            and hid % KERNEL_HID_CHUNK == 0 and dtype in KERNEL_DTYPES)
 
 
 def _elu1(x):
@@ -175,6 +184,8 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     if d not in KERNEL_WIDTHS or num_heads != KERNEL_HEADS:
         raise ValueError(f"attn_stats kernel takes d in {KERNEL_WIDTHS} with "
                          f"{KERNEL_HEADS} heads, got d={d}, heads={num_heads}")
+    if x.dtype == torch.float32:
+        return _attn_stats_f32(x, mask, Wk, Wv, num_heads=num_heads)
     _check(x, "x", torch.bfloat16, (B, S, d))
     _check(mask, "mask", torch.float32, (B, S))
     hd = d // num_heads
@@ -196,6 +207,32 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
 attn_stats.launches = 0
 
 
+def _attn_stats_f32(x, mask, Wk, Wv, *, num_heads):
+    """The fp32 stats kernel (``csrc/attn_f32.cu``): Wk and Wv read as they
+    are; partials per 64-row tile into a workspace, added in tile order by
+    the second launch."""
+    B, S, d = x.shape
+    f32 = torch.float32
+    _check(x, "x", f32, (B, S, d))
+    _check(mask, "mask", f32, (B, S))
+    _check(Wk, "Wk", f32, (d, d))
+    _check(Wv, "Wv", f32, (d, d))
+    hd = d // num_heads
+    nkv, per = num_heads * hd * hd, num_heads * hd * hd + d
+    nt = -(-S // STATS_F32_TILE)
+    # One allocation: KV, K_sum, then the partials (B, nt, per).
+    buf = torch.empty(B * per * (1 + nt), device=x.device, dtype=f32)
+    KV = buf[:B * nkv].view(B, num_heads, hd, hd)
+    ksum = buf[B * nkv:B * per].view(B, d)
+    err = _build.kernels().scream_attn_stats_f32(
+        x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
+        buf[B * per:].data_ptr(), KV.data_ptr(), ksum.data_ptr(), B, S, d,
+        _build.stream_ptr(x))
+    _build.check(err, "attn_stats")
+    attn_stats.launches += 1
+    return KV, ksum
+
+
 def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                attn_eps, ln_eps, norm_dtype):
     """Query projection, attention, merge, LayerNorms and FFN (kernel 2)."""
@@ -213,6 +250,9 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                          f"hidden {hid}")
     if norm_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attn_apply kernel: norm dtype {norm_dtype} unsupported")
+    if x.dtype == torch.float32:
+        return _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2,
+                               attn_eps=attn_eps, ln_eps=ln_eps, norm_dtype=norm_dtype)
     bf, f32 = torch.bfloat16, torch.float32
     _check(x, "x", bf, (B, L, d))
     _check(mask, "mask", f32, (B, L))
@@ -242,6 +282,32 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
 
 
 attn_apply.launches = 0
+
+
+def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
+                    attn_eps, ln_eps, norm_dtype):
+    """The fp32 apply kernel (``csrc/attn_f32.cu``): every tensor fp32, the
+    weights read as they are."""
+    B, L, d = x.shape
+    hid, H = W1.shape[1], KV.shape[1]
+    f32 = torch.float32
+    for name, t, shape in (("x", x, (B, L, d)), ("mask", mask, (B, L)),
+                           ("KV", KV, (B, H, d // H, d // H)), ("ksum", ksum, (B, d)),
+                           ("Wq", Wq, (d, d)), ("Wm", Wm, (d, d)), ("W1", W1, (d, hid)),
+                           ("W2", W2, (hid, d)), ("g1", g1, (d,)), ("b1", b1, (d,)),
+                           ("g2", g2, (d,)), ("b2", b2, (d,))):
+        _check(t, name, f32, shape)
+    out = torch.empty((B, L, d), device=x.device, dtype=f32)
+    if B * L == 0:
+        return out
+    err = _build.kernels().scream_attn_apply_f32(
+        x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(), ksum.data_ptr(),
+        Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(), W1.data_ptr(), W2.data_ptr(),
+        g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, hid, float(attn_eps),
+        float(ln_eps), int(norm_dtype == torch.bfloat16), _build.stream_ptr(x))
+    _build.check(err, "attn_apply")
+    attn_apply.launches += 1
+    return out
 
 
 def _fused_forward(xq, xkv, qm, km, Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2,

@@ -11,7 +11,10 @@ only for CPU tensors; a shape the kernel does not take raises.
 
 The kernel takes bf16 at d_model 128, 256, 384 and 512 (every bf16 width at
 hidden 4d where the JAX package's tail rule holds) with a hidden width in
-128-column chunks (:func:`kernel_takes`). fp32 has no kernel yet (ROADMAP).
+128-column chunks (:func:`kernel_takes`). The fp32 configuration has its own
+kernel, ``tail_f32_kernel`` (``csrc/tail_f32.cu``), at d_model 128, 256 and
+384 (every fp32 width where the rule holds): fp32 FMA throughout, the
+weights read as they are, no pack.
 
 The kernel streams its weights through a ring of shared-memory stages
 (``csrc/tail_tile.cuh``), one bulk copy a stage; :func:`pack_weights` lays
@@ -34,13 +37,14 @@ from scream_tpu_torch.ops import _build
 from scream_tpu_torch.ops.ffn import tail_plain
 
 KERNEL_WIDTHS = (128, 256, 384, 512)
+KERNEL_WIDTHS_F32 = (128, 256, 384)
 KERNEL_HID_CHUNK = 128
 
 
 def kernel_takes(d: int, hid: int, dtype: torch.dtype) -> bool:
-    """Whether the CUDA kernel is written for this shape and compute dtype."""
-    return (d in KERNEL_WIDTHS and hid % KERNEL_HID_CHUNK == 0
-            and dtype == torch.bfloat16)
+    """Whether a CUDA kernel is written for this shape and compute dtype."""
+    widths = {torch.bfloat16: KERNEL_WIDTHS, torch.float32: KERNEL_WIDTHS_F32}.get(dtype, ())
+    return d in widths and hid % KERNEL_HID_CHUNK == 0
 
 
 def _kmajor(W, ks):
@@ -121,11 +125,13 @@ def _tail_forward(x, q, Wm, g1, b1, W1, W2, g2, b2, kw):
     *lead, d = x.shape
     hid = W1.shape[1]
     if not kernel_takes(d, hid, cd):
-        raise ValueError(f"block_tail kernel takes bf16, d in {KERNEL_WIDTHS} and a "
-                         f"hidden multiple of {KERNEL_HID_CHUNK}; got {cd}, d={d}, "
-                         f"hidden {hid}")
+        raise ValueError(f"block_tail kernels take bf16 at d in {KERNEL_WIDTHS} or fp32 "
+                         f"at d in {KERNEL_WIDTHS_F32}, and a hidden multiple of "
+                         f"{KERNEL_HID_CHUNK}; got {cd}, d={d}, hidden {hid}")
     if nd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"block_tail kernel: norm dtype {nd} unsupported")
+    if cd == torch.float32:
+        return _tail_forward_f32(x, q, Wm, g1, b1, W1, W2, g2, b2, nd, eps)
     bf, f32 = torch.bfloat16, torch.float32
     c = lambda t: t.to(bf).contiguous()
     p = lambda t: t.to(f32).contiguous()
@@ -147,6 +153,32 @@ def _tail_forward(x, q, Wm, g1, b1, W1, W2, g2, b2, kw):
         x2.data_ptr(), q2.data_ptr(), wpack.data_ptr(), g1.data_ptr(), b1.data_ptr(),
         g2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, d, hid, float(eps),
         _build.stream_ptr(x))
+    _build.check(err, "block_tail")
+    block_tail.launches += 1
+    return out.reshape(*lead, d)
+
+
+def _tail_forward_f32(x, q, Wm, g1, b1, W1, W2, g2, b2, nd, eps):
+    """The fp32 tail kernel (``csrc/tail_f32.cu``) on CUDA tensors: every
+    tensor fp32, the weights read as they are."""
+    *lead, d = x.shape
+    hid = W1.shape[1]
+    f32 = torch.float32
+    c = lambda t: t.to(f32).contiguous()
+    x2, q2 = c(x).reshape(-1, d), c(q).reshape(-1, d)
+    R = x2.shape[0]
+    ws = [c(t) for t in (Wm, g1, b1, W1, W2, g2, b2)]
+    for name, t, shape in zip(("x", "q", "Wm", "g1", "b1", "W1", "W2", "g2", "b2"),
+                              [x2, q2] + ws,
+                              ((R, d), (R, d), (d, d), (d,), (d,), (d, hid), (hid, d),
+                               (d,), (d,))):
+        _check(t, name, f32, shape)
+    out = torch.empty((R, d), device=x.device, dtype=f32)
+    if R == 0:
+        return out.reshape(*lead, d)
+    err = _build.kernels().scream_block_tail_f32(
+        x2.data_ptr(), q2.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(), R, d,
+        hid, float(eps), int(nd == torch.bfloat16), _build.stream_ptr(x))
     _build.check(err, "block_tail")
     block_tail.launches += 1
     return out.reshape(*lead, d)

@@ -251,8 +251,8 @@ class TestBuild:
         assert p == _build.library_path()
         assert p.parent == _build.BUILD_DIR
         assert "build" in p.parts and p.suffix == ".so"
-        assert {s.name for s in _build._sources()} == {"attn.cu", "nn.cu", "splat.cu",
-                                                        "tail.cu"}
+        assert {s.name for s in _build._sources()} == {"attn.cu", "attn_f32.cu", "nn.cu",
+                                                        "splat.cu", "tail.cu", "tail_f32.cu"}
 
     def test_launch_counters_reset(self):
         from scream_tpu_torch import ops

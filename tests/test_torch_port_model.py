@@ -176,11 +176,13 @@ class TestAttentionBlock:
         fusable = lambda *a: attn_cuda.jax_fusable_block(*a) and attn_cuda.kernels_take(*a)
         assert fusable(256, 1024, 8, torch.bfloat16)
         assert fusable(128, 512, 8, torch.bfloat16)
-        assert not fusable(256, 1024, 8, torch.float32)
+        assert fusable(256, 1024, 8, torch.float32)
+        assert fusable(128, 512, 8, torch.float32)
         assert not fusable(256, 1024, 16, torch.bfloat16)
         assert not fusable(512, 2048, 16, torch.bfloat16)
-        # The JAX rule alone admits fp32 and other head splits.
-        assert attn_cuda.jax_fusable_block(128, 512, 8, torch.float32)
+        # The JAX rule alone admits other head splits, and bf16 at d 384.
+        assert attn_cuda.jax_fusable_block(384, 1536, 8, torch.bfloat16)
+        assert not attn_cuda.kernels_take(384, 1536, 8, torch.bfloat16)
         assert attn_cuda.jax_fusable_block(256, 1024, 16, torch.bfloat16)
         assert not attn_cuda.jax_fusable_block(512, 2048, 16, torch.bfloat16)
 
@@ -255,14 +257,13 @@ class TestCudaRouting:
         x = torch.zeros((1, 4, d))
         return blk(x, x, x)
 
-    @pytest.mark.parametrize("d", [128, 256])
-    def test_kernel_shapes_run_the_fused_kernels(self, cuda_like, d):
-        self._run(d, 8)
+    @pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (256, torch.bfloat16),
+                                         (128, torch.float32), (256, torch.float32)])
+    def test_kernel_shapes_run_the_fused_kernels(self, cuda_like, d, dtype):
+        self._run(d, 8, dtype)
         assert cuda_like == [8]
 
-    @pytest.mark.parametrize("d,heads,dtype", [(128, 8, torch.float32),
-                                               (256, 8, torch.float32),
-                                               (256, 16, torch.bfloat16),
+    @pytest.mark.parametrize("d,heads,dtype", [(256, 16, torch.bfloat16),
                                                (384, 8, torch.bfloat16)])
     def test_admitted_shapes_the_kernels_do_not_take_raise(self, cuda_like, d, heads,
                                                            dtype):
@@ -272,18 +273,21 @@ class TestCudaRouting:
 
     def test_tail_kernel_shapes_raise(self, cuda_like):
         """d 512: the fused block is out of the JAX rule's budget and the TPU
-        runs its tail kernel, so the port runs its tail kernel; fp32 at d 384,
-        where the TPU runs the tail kernel too, raises (no fp32 kernel)."""
+        runs its tail kernel, so the port runs its tail kernel; so it does at
+        fp32 d 384, where the TPU runs the tail kernel too. Only a tail asked
+        for where no kernel is written raises: fp32 at d 512, which the JAX
+        rule does not admit, under ``fused_block_tail=True``."""
         self._run(512, 16)
         # fused_attn=True with separate k and v: the plain attention, whose
         # tail the TPU runs as its kernel.
         blk = AttentionBlock(256, 8, 4, dtype=torch.bfloat16, fused_attn=True)
         x = torch.zeros((1, 4, 256))
         blk(x, x, x.clone())
-        assert cuda_like == ["tail", "tail"]
+        self._run(384, 8, torch.float32)
+        assert cuda_like == ["tail", "tail", "tail"]
         with pytest.raises(NotImplementedError, match="tail"):
-            self._run(384, 8, torch.float32)
-        assert cuda_like == ["tail", "tail"]
+            self._run(512, 8, torch.float32, fused_tail=True)
+        assert cuda_like == ["tail", "tail", "tail"]
 
     def test_explicit_plain_requests_run_the_plain_body(self, cuda_like):
         out = self._run(512, 16, fused_tail=False)

@@ -11,7 +11,8 @@ JAX package on the CPU.
 * The route of every block shape and flag against the one the JAX
   package's own rules give (``attn_pallas.fusable_block``,
   ``ffn_pallas.fusable``, the auto/True/False flags), a CUDA tensor standing
-  for the TPU, and "raise" where the port has no kernel for the route.
+  for the TPU, and "raise" where the port has no kernel for the route (only
+  ``fused_attention=True`` at a width the fused kernels do not take).
 """
 
 import itertools
@@ -98,17 +99,19 @@ class TestBlockTail:
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
 
     def test_kernel_widths_are_the_jax_rules_bf16_widths(self):
-        """The kernel is written for every bf16 width at hidden 4d where the
-        JAX tail rule admits its kernel, and the port's copy of the rule is
-        the JAX package's, in both dtypes."""
+        """The kernels are written for every width at hidden 4d where the
+        JAX tail rule admits its kernel, bf16 (``csrc/tail.cu``) and fp32
+        (``csrc/tail_f32.cu``), and for no other; the port's copy of the rule
+        is the JAX package's, in both dtypes."""
         widths = range(128, 1152, 128)
-        admitted = [d for d in widths if ffn_pallas.fusable(d, 4 * d, jnp.bfloat16)]
-        assert admitted == list(tail_cuda.KERNEL_WIDTHS)
-        for d, (tdt, jdt) in itertools.product(
-                widths, ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32))):
-            assert jax_fusable_tail(d, 4 * d, tdt) == ffn_pallas.fusable(d, 4 * d, jdt)
-        assert all(tail_cuda.kernel_takes(d, 4 * d, torch.bfloat16) for d in admitted)
-        assert not tail_cuda.kernel_takes(384, 1536, torch.float32)
+        for tdt, jdt, kernel_widths in ((torch.bfloat16, jnp.bfloat16, tail_cuda.KERNEL_WIDTHS),
+                                        (torch.float32, jnp.float32,
+                                         tail_cuda.KERNEL_WIDTHS_F32)):
+            admitted = [d for d in widths if ffn_pallas.fusable(d, 4 * d, jdt)]
+            assert admitted == list(kernel_widths)
+            assert [d for d in widths if tail_cuda.kernel_takes(d, 4 * d, tdt)] == admitted
+            for d in widths:
+                assert jax_fusable_tail(d, 4 * d, tdt) == ffn_pallas.fusable(d, 4 * d, jdt)
 
 
 # Every block shape and flag of the routing table: d_model (8 heads), compute
@@ -116,8 +119,9 @@ class TestBlockTail:
 ROUTES = list(itertools.product((128, 256, 384, 512, 640), ("bfloat16", "float32"),
                                 (None, False, True), (None, False), (True, False)))
 # The shapes the port's CUDA kernels are written for (8 heads, hidden 4d).
-FUSED_KERNEL = {(128, "bfloat16"), (256, "bfloat16")}
-TAIL_KERNEL = {(d, "bfloat16") for d in (128, 256, 384, 512)}
+FUSED_KERNEL = {(d, dt) for d in (128, 256) for dt in ("bfloat16", "float32")}
+TAIL_KERNEL = ({(d, "bfloat16") for d in (128, 256, 384, 512)}
+               | {(d, "float32") for d in (128, 256, 384)})
 
 
 def jax_route(d, dtype, fused_attn, fused_tail, shared_kv, heads=8):
