@@ -6,8 +6,9 @@ It needs one CUDA card, the CUDA toolkit (``nvcc``) and ``nvidia-smi``; it
 imports nothing of JAX or of the JAX package. Phases, one line each:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the kernels from ``scream_tpu_torch/csrc`` in one ``nvcc`` call
-   (compiler report in ``chiprun_out/chip_smoke_build.log``);
+2. build: the kernels from ``scream_tpu_torch/csrc``, one ``nvcc`` process a
+   source, all at once, then the link (compiler report in
+   ``chip_smoke_build.log`` of the output directory, ``OUT_DIR``);
 3. kernels @ d=256: each kernel against its plain PyTorch version on the
    card, at the ``register_batch`` path's shapes, with its time, the plain
    version's time and the least time the card could take for the same work;
@@ -19,7 +20,7 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
    exact ties (16 lanes, one dead for the bounded NN: the lowest index
    wins, bit for bit); the stats projection alone as one ``torch.matmul``
    (a reference line); ptxas's lines, with no spill allowed in the splat,
-   exact-NN and fp32 kernels;
+   exact-NN and fp32 kernels; apply gated at 0.50 ms at path 1's shape;
 4. path 1, ``register_batch`` at 16 pairs x 4,096 points, the shipped
    full-width point-generator (``scream_tpu_torch/weights/point-generator``:
    d 256, 6 + 6 layers), 30 ICP iterations, distinct
@@ -130,7 +131,23 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     on the card and the CPU path, with its bistable pairs; the ``register``
     CLI and ``train opengf --d-model 384`` with ``--dtype float32`` in
     subprocesses (the train CLI's tail launches > 0);
-15. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+15. path 8, bf16 at d 384 (8 heads of 48) and the other head counts: a
+    seeded random-init ``opengf_presets()`` DEMTransformer at d 384, stats
+    and apply against their plain versions on the first DSM stem block's
+    real input (8 x 8,192, and 65,536 - 37 rows as one sequence; stats bit
+    identical across launches, a zero-mask batch exactly 0), the fused
+    block against the literal plain block and its gradients against the
+    plain block's; one DEM step on the card and the CPU path; timed
+    ``DEMTrainer.train_epoch`` at 8 x 8,192 (patches/s, stage times,
+    stats and apply launches); every other (d, heads, dtype) cell of the
+    kernels against its plain version at its path's shape (bf16 d 128 at
+    8 x 512, d 256 at 16 x 4,096, d 384 at 8 x 4,096; fp32 under path 7's
+    bars), with its launches in one ``ModelConfig(num_heads=...)``
+    forward; then in subprocesses ``train opengf|3dmatch --d-model 384``,
+    and on the 3DMatch checkpoint train wrote ``evaluate 3dmatch
+    --bucketed --d-model 384 --params`` and ``register --d-model 384
+    --params`` (stats and apply launches > 0 in each);
+16. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -140,9 +157,12 @@ into a stack dump and exit code 1. Every printed line also goes to
 ``python3 chip_smoke.py --only splat,nn_exact`` runs phases 1-2 and then
 only the named kernels' checks (the splat's of phase 10, the exact NN's of
 phase 3 and its ties), on the same inputs, gates included: the short
-build-and-compare after a change to either kernel; ``--only ingest`` runs
-phases 1-2 and path 6, ``--only fp32`` phases 1-2 and path 7. None prints a
-result line.
+build-and-compare after a change to either kernel. ``--only tail`` checks
+the tail kernel at every width it takes (bf16 d 128-512 at ragged and the
+DEM path's row counts, fp32 d 128-384), ``--only apply`` stats and apply at
+path 1's shape (gates included) and at every (d, heads, dtype) cell;
+``--only ingest`` runs phases 1-2 and path 6, ``--only fp32`` path 7,
+``--only d384`` path 8. None prints a result line.
 """
 
 import faulthandler
@@ -215,6 +235,22 @@ F32_TAIL_D, F32_TAIL_B, F32_TAIL_CAP, F32_TAIL_RAGGED = 384, 16, 4096, 65536 - 3
 F32_CLI_BATCH, F32_CLI_CAP = 16, 2048
 BISTABLE_PAIRS = (0, 4, 15)
 REFERENCE_SCRIPT = os.path.join("scripts", "torch_port_make_fp32_reference.py")
+# Path 8, bf16 at d 384 (8 heads of 48) and the other head counts: path 4's
+# DEM model at d 384 (8 x 8,192, and 65,536 - 37 rows in one sequence); every
+# (d, heads) cell of the kernels (csrc/attn.cu ATTN_CELLS, csrc/attn_f32.cu
+# ATTN_F32_CELLS) at its path's shape: d 128 at the serving 8 x 512, d 256 at
+# path 1's 16 x 4,096, d 384 at 8 x 4,096; the launches of each cell from one
+# forward of a ModelConfig(d_model=d, num_heads=heads) PointTransformer (1 + 1
+# layers, 2 x 1,024 points).
+D384, D384_RAGGED = 384, 65536 - 37
+CELL_SHAPES = {128: (SERVE_BATCH, 512), 256: (B, CAP), 384: (8, 4096)}
+CELL_HEADS = {"bfloat16": {128: (8, 4, 2), 256: (16, 8, 4), 384: (24, 12, 8, 6)},
+              "float32": {128: (8, 4, 2), 256: (16, 8, 4)}}
+CELL_FORWARD_B, CELL_FORWARD_N = 2, 1024
+# The tail kernel's rows for --only tail (every width, ragged counts, the
+# DEM path's 65,536 and 8,192 with one-off counts).
+TAIL_ROWS = {128: (300,), 256: (1000, 65536), 384: (777, 8192), 512: (33, 8192, 8192 + 5,
+                                                                      65536, 65536 - 37)}
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
 # FMA counted as two operations), HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -244,6 +280,9 @@ SPLAT_NEED_BAND = 2.0 ** -12
 # neighbours does not decide it; every round is logged. Other rows time
 # one round on both sides.
 STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12}
+# Apply at path 1's 16 x 4,096, d 256: above the runs of PRs 8-13
+# (0.3918-0.4418 ms), so that generalizing the kernel cannot slow it unseen.
+APPLY_GATE_MS = {"": 0.50}
 NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
 # The splat at 48 x 8,192 x 64^2, rho 24, and the exact NN at 16 x 4,096:
 # below the best of their first versions (PERF.md), so that a redesign that
@@ -251,8 +290,8 @@ NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
 SPLAT_GATE_MS, NN_EXACT_GATE_MS = 1.6378, 0.177
 TIME_ROUNDS = 3
 OUT_DIR = "chiprun_out"
-ONLY_KERNELS = ("splat", "nn_exact")  # kernels --only can check alone
-ONLY_PATHS = ("ingest", "fp32")  # paths --only can run alone
+ONLY_KERNELS = ("splat", "nn_exact", "tail", "apply")  # kernels --only can check alone
+ONLY_PATHS = ("ingest", "fp32", "d384")  # paths --only can run alone
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -343,7 +382,8 @@ def phase_build():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.build_log)
-    log(f"build: {secs:.1f} s, one nvcc call -> {path.name}")
+    log(f"build: {secs:.1f} s, one nvcc process a source at once, then the link -> "
+        f"{path.name}")
     fn, spills = None, {}
     for ln in _build.build_log.splitlines():
         if "Function properties for" in ln or "Compiling entry function" in ln:
@@ -491,8 +531,18 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     # single final-rounding flip reaches 4e-3..8e-3.
     check(err <= bars["apply"], f"attn_apply{suffix}: relative error {err:.3g} > "
           f"{bars['apply']}")
-    ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
-    pms = cuda_ms(lambda: attn_cuda.attn_apply_plain(*args, **kw))
+    gate = APPLY_GATE_MS.get(suffix)
+    if gate is None:
+        ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
+        pms = cuda_ms(lambda: attn_cuda.attn_apply_plain(*args, **kw))
+    else:
+        ms, ms_all = timed(lambda: attn_cuda.attn_apply(*args, **kw))
+        pms, pms_all = timed(lambda: attn_cuda.attn_apply_plain(*args, **kw))
+        check(ms <= gate, f"attn_apply{suffix}: {ms:.4f} ms (rounds {ms_all}) against the "
+              f"{gate} ms gate")
+        log(f"kernel attn_apply{suffix} ({Bx} x {L}, d {d}): timing rounds "
+            f"{', '.join(f'{t:.4f}' for t in ms_all)} ms (gate {gate} ms on the best), plain "
+            f"{', '.join(f'{t:.4f}' for t in pms_all)} ms")
     b_ms, b_by = bound(2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz
                        + Bx * (H * hd * hd + d) * 4 + 4 * d * 4,
                        [(2 * Bx * L * d * (2 * d + 2 * hid), peak),
@@ -516,7 +566,7 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     blk_err = rel_err(fused, plain, rows=m_bool)
     check(blk_err <= bars["block"], f"fused block{suffix} vs plain block: {blk_err:.3g} > "
           f"{bars['block']}")
-    log(f"kernel fused_block_vs_plain_block{suffix} (d {d}, head dim {hd}, {Bx} x {L}, "
+    log(f"kernel fused_block_vs_plain_block{suffix} (d {d}, {H} heads of {hd}, {Bx} x {L}, "
         f"{cd}): rel_err {blk_err:.3e} (bar {bars['block']})")
     return records
 
@@ -1719,15 +1769,15 @@ def phase_training(model, disc, batches):
                         train_launches_per_iteration_gan=per_iter)
 
 
-def dem_config():
-    """``opengf_presets()`` at d_model 512: the model config and the train
-    config (batch 8, GAN off)."""
+def dem_config(d=DEM_D):
+    """``opengf_presets()`` at d_model ``d`` (8 heads): the model config and
+    the train config (batch 8, GAN off)."""
     import dataclasses
 
     from scream_tpu_torch.config import opengf_presets
 
     model_cfg, train_cfg, _, _ = opengf_presets()
-    return dataclasses.replace(model_cfg, d_model=DEM_D), train_cfg
+    return dataclasses.replace(model_cfg, d_model=d), train_cfg
 
 
 def make_dem_items(n_batches, seed, batch=DEM_B, points=DEM_CAP):
@@ -1748,10 +1798,9 @@ def dem_batch(items, cap=DEM_CAP, coarse=DEM_COARSE):
     return collate_dem(items, cap, cap, coarse)
 
 
-def tail_inputs(model, block, args):
-    """The tail input (x, q) and the row mask of ``block`` on ``model(*args)``:
-    a pre-hook takes the block's input q and mask; x is the block's plain
-    attention message of it."""
+def block_input(model, block, args):
+    """The input q and the row mask of ``block``'s first call in
+    ``model(*args)``, taken by a pre-hook."""
     import torch
 
     seen = []
@@ -1760,10 +1809,20 @@ def tail_inputs(model, block, args):
     try:
         with torch.no_grad():
             model(*args)
-            q, m_bool = seen[0]
-            x = block.message(q, q, q, m_bool, m_bool)
     finally:
         hook.remove()
+    return seen[0]
+
+
+def tail_inputs(model, block, args):
+    """The tail input (x, q) and the row mask of ``block`` on ``model(*args)``:
+    q and the mask from :func:`block_input`; x is the block's plain
+    attention message of q."""
+    import torch
+
+    q, m_bool = block_input(model, block, args)
+    with torch.no_grad():
+        x = block.message(q, q, q, m_bool, m_bool)
     return x, q, m_bool
 
 
@@ -1898,9 +1957,9 @@ def phase_dem_forward(model, batch):
         f"rel_err {err:.3e} (bar 5e-2)")
 
 
-def dem_step(device, init_state, batch):
-    """One ``make_dem_train_step`` (GAN off) on ``device`` from the weights
-    ``init_state``: (point_loss, gradient norm)."""
+def dem_step(device, init_state, batch, d=DEM_D):
+    """One ``make_dem_train_step`` (GAN off) at d_model ``d`` on ``device``
+    from the weights ``init_state``: (point_loss, gradient norm)."""
     import torch
 
     from scream_tpu_torch.models import DEMTransformer
@@ -1908,7 +1967,7 @@ def dem_step(device, init_state, batch):
     from scream_tpu_torch.train import (generator_optimizer, init_train_state,
                                         make_dem_train_step)
 
-    model_cfg, tcfg = dem_config()
+    model_cfg, tcfg = dem_config(d)
     model = DEMTransformer(model_cfg, device=device)
     model.load_state_dict(init_state)
     opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
@@ -1918,19 +1977,20 @@ def dem_step(device, init_state, batch):
     return float(metrics["point_loss"]), float(gnorm)
 
 
-def phase_dem_card_vs_cpu(init_state, batch):
-    """Path 4 on the card against the port's CPU path (plain bodies, bf16):
-    one DEM step at full depth, d 512, 2 x 1,024 (coarse 128). Bars, path
-    3's: point_loss 2e-2 relative, the gradient norm 5e-2 relative."""
+def phase_dem_card_vs_cpu(init_state, batch, d=DEM_D, label="path 4"):
+    """A DEM path on the card against the port's CPU path (plain bodies,
+    bf16): one DEM step at full depth, d_model ``d``, 2 x 1,024 (coarse
+    128). Bars, path 3's: point_loss 2e-2 relative, the gradient norm 5e-2
+    relative."""
     t0 = time.perf_counter()
-    card = dem_step(DEV, init_state, batch)
-    cpu = dem_step("cpu", init_state, batch)
+    card = dem_step(DEV, init_state, batch, d)
+    cpu = dem_step("cpu", init_state, batch, d)
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     e_loss, e_grad = rel(card[0], cpu[0]), rel(card[1], cpu[1])
     check(all(math.isfinite(v) for v in card + cpu) and e_loss <= 2e-2 and e_grad <= 5e-2,
-          f"path 4 card vs CPU path: point_loss {card[0]} / {cpu[0]}, grad norm "
+          f"{label} card vs CPU path: point_loss {card[0]} / {cpu[0]}, grad norm "
           f"{card[1]} / {cpu[1]}")
-    log(f"path 4 DEM step card vs CPU path (d {DEM_D}, 2 x 1,024, coarse 128): point_loss "
+    log(f"{label} DEM step card vs CPU path (d {d}, 2 x 1,024, coarse 128): point_loss "
         f"{card[0]:.6f} / {cpu[0]:.6f} (rel {e_loss:.2e}, bar 2e-2), grad norm "
         f"{card[1]:.6f} / {cpu[1]:.6f} (rel {e_grad:.2e}, bar 5e-2) "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1958,8 +2018,9 @@ def dem_loader(groups):
                      coarse_capacity=DEM_COARSE)
 
 
-def phase_dem_training(trainer, groups):
-    """Path 4's main path: ``DEMTrainer.train_epoch`` over 1 warm-up batch,
+def phase_dem_training(trainer, groups, label="path 4", kernels=("block_tail",)):
+    """Path 4's main path (and path 8's at d 384): ``DEMTrainer.train_epoch``
+    over 1 warm-up batch,
     then over its own loader of DEM_ITERS distinct batches, timed (the host
     reads the losses every iteration: ``log_every`` 1), stage times by CUDA
     events and the kernels' launches; ``evaluate`` on two batches; then
@@ -2006,11 +2067,12 @@ def phase_dem_training(trainer, groups):
     stages = {n: sum(e["start" if i == 0 else names[i - 1]].elapsed_time(e[n])
                      for e in events) / len(events) for i, n in enumerate(names)}
     pps = DEM_B * len(events) / elapsed
-    check(len(events) == DEM_ITERS and counts["block_tail"] > 0
+    check(len(events) == DEM_ITERS and all(counts[k] > 0 for k in kernels)
           and all(math.isfinite(v) for v in losses.values()),
-          f"path 4 training: {len(events)} iterations, launches {counts}, losses {losses}")
+          f"{label} training: {len(events)} iterations, launches {counts}, losses {losses}")
     per_iter = {k: v / DEM_ITERS for k, v in counts.items() if v}
-    log(f"path 4 training, opengf d {DEM_D}, {DEM_B} x {DEM_CAP} (coarse {DEM_COARSE}): "
+    d = trainer.model_cfg.d_model
+    log(f"{label} training, opengf d {d}, {DEM_B} x {DEM_CAP} (coarse {DEM_COARSE}): "
         f"{pps:.2f} patches/s over {DEM_ITERS} iterations ({elapsed / DEM_ITERS * 1e3:.1f} "
         f"ms each) | stage ms (CUDA events) "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} | launches per iteration "
@@ -2018,8 +2080,8 @@ def phase_dem_training(trainer, groups):
 
     t0 = time.perf_counter()
     val = trainer.evaluate()
-    check(all(math.isfinite(v) for v in val.values()), f"path 4 evaluate: {val}")
-    log(f"path 4 evaluate ({len(trainer.val_loader)} x {DEM_B} patches): {json.dumps(val)} "
+    check(all(math.isfinite(v) for v in val.values()), f"{label} evaluate: {val}")
+    log(f"{label} evaluate ({len(trainer.val_loader)} x {DEM_B} patches): {json.dumps(val)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     state_dir = os.path.join(WORK_DIR, "dem_state")
@@ -2035,9 +2097,9 @@ def phase_dem_training(trainer, groups):
         other.model.parameters(), trainer.model.parameters()))
     l_err = abs(outs[1] - outs[0]) / max(abs(outs[0]), 1e-30)
     check(l_err <= 1e-5 and p_err <= 1e-5 and other.state.step == trainer.state.step,
-          f"path 4 resume: loss {outs}, parameter error {p_err:.3g}, steps "
+          f"{label} resume: loss {outs}, parameter error {p_err:.3g}, steps "
           f"{other.state.step} / {trainer.state.step}")
-    log(f"path 4 save_state -> restore_state into a seed-1 trainer -> one more step on "
+    log(f"{label} save_state -> restore_state into a seed-1 trainer -> one more step on "
         f"both: loss {outs[0]:.6f} / {outs[1]:.6f} (rel {l_err:.1e}, bar 1e-5), parameters "
         f"rel {p_err:.1e} (bar 1e-5), step {trainer.state.step}")
     del other
@@ -3100,12 +3162,280 @@ def path7(smi, path1_re=None):
         launches_train_cli_f32=cli_counts)
 
 
+def cell_suffix(d, heads, dtype):
+    """The suffix of a cell's kernel records: ``_d{d}_h{heads}[_f32]``."""
+    return f"_d{d}_h{heads}" + ("_f32" if dtype == "float32" else "")
+
+
+def attention_cells(new_only):
+    """Every (d, heads, dtype) cell the attention kernels take, or only
+    those beyond d 128 / 256 with 8 heads and bf16 d 384 with 8 (which
+    paths 1-3, 7 and path 8's DEM phase check on real inputs)."""
+    return [(d, h, dt) for dt, widths in CELL_HEADS.items() for d, heads in widths.items()
+            for h in heads
+            if not new_only or not (h == 8 and (d < 384 or dt == "bfloat16"))]
+
+
+def phase_attention_cells(cells):
+    """Kernels 1 and 2 against their plain versions at each (d, heads,
+    dtype) of ``cells`` (check_attention, under that dtype's bars), on a
+    seeded random-init block and input at the cell's shape, the first
+    batch's last 37 rows masked; then the kernels' launches in one forward
+    of a ``ModelConfig(d_model=d, num_heads=heads)`` PointTransformer (1 + 1
+    layers) at 2 x 1,024 points, the model route a user reaches the cell
+    by. Returns (records, launches by record name)."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import AttentionBlock, PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    records, launches = [], {}
+    g = torch.Generator(device=DEV).manual_seed(21)
+    for d, heads, dt in cells:
+        cd = getattr(torch, dt)
+        blk = AttentionBlock(d, heads, 4, dtype=cd,
+                             generator=torch.Generator().manual_seed(d + heads)).to(DEV)
+        Bc, L = CELL_SHAPES[d]
+        m = torch.ones((Bc, L), dtype=torch.bool, device=DEV)
+        m[0, L - 37:] = False
+        x = torch.randn((Bc, L, d), generator=g, device=DEV)
+        suffix = cell_suffix(d, heads, dt)
+        records += check_attention(blk, m, suffix=suffix, x=x, dtype=cd)
+        model = PointTransformer(ModelConfig(d_model=d, num_heads=heads, self_layers=1,
+                                             cross_layers=1, dtype=dt), device=DEV,
+                                 generator=torch.Generator().manual_seed(heads))
+        pts = lambda: torch.rand((CELL_FORWARD_B, CELL_FORWARD_N, 3), generator=g,
+                                 device=DEV) * 2 - 1
+        mask = torch.ones((CELL_FORWARD_B, CELL_FORWARD_N), dtype=torch.bool, device=DEV)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = model(pts(), pts(), mask, mask)
+        counts = launch_counts()
+        check(counts["attn_stats"] > 0 and counts["attn_apply"] > 0
+              and bool(torch.isfinite(out.float()).all()),
+              f"ModelConfig(d_model={d}, num_heads={heads}, dtype={dt}) forward: launches "
+              f"{counts}")
+        for k in ("attn_stats", "attn_apply"):
+            launches[k + suffix] = counts[k]
+        log(f"cell d {d}, {heads} heads of {d // heads}, {dt}: one ModelConfig(d_model={d}, "
+            f"num_heads={heads}) forward ({CELL_FORWARD_B} x {CELL_FORWARD_N}, 1 + 1 layers) "
+            f"launched stats {counts['attn_stats']}, apply {counts['attn_apply']}")
+        del blk, model
+    log_records(records)
+    return records, launches
+
+
+def check_block_grads(blk, x, m_bool, suffix):
+    """The fused block's gradients (``_FusedBlock``, whose backward
+    recomputes the plain block) against the literal plain block's, with
+    respect to the input and the ten weights, the same upstream gradient:
+    each within 3e-2 of its largest (path 4's tail bar)."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    bf, f32 = torch.bfloat16, torch.float32
+    ws = [w.detach() for w in (blk.q_proj.kernel, blk.k_proj.kernel, blk.v_proj.kernel,
+                               blk.merge.kernel, blk.norm1.scale, blk.norm1.bias,
+                               blk.ffn_in.kernel, blk.ffn_out.kernel, blk.norm2.scale,
+                               blk.norm2.bias)]
+    H = blk.num_heads
+    fused = lambda xx, *w: attn_cuda.attention_block_fused(
+        xx, xx, m_bool, m_bool, *w, num_heads=H, dtype=bf, norm_dtype=f32)
+    plain = lambda xx, *w: attn_cuda.block_plain(
+        xx, xx, m_bool, m_bool, *w, num_heads=H, cd=bf, nd=f32, attn_eps=1e-6, ln_eps=1e-5)
+    g = torch.Generator(device=DEV).manual_seed(8)
+    up = (torch.randn(x.shape, generator=g, device=DEV) * m_bool[..., None]).to(bf)
+    grads = []
+    for fn in (fused, plain):
+        ins = [t.clone().requires_grad_(True) for t in (x.to(bf), *ws)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, up))
+    torch.cuda.synchronize()
+    g_err = max(rel_err(a, b) for a, b in zip(*grads))
+    check(g_err <= 3e-2 and all(bool(torch.isfinite(a.float()).all()) for a in grads[0]),
+          f"fused block{suffix} gradients: relative error {g_err:.3g} (bar 3e-2)")
+    log(f"fused block{suffix} gradients (input and ten weights) vs the plain block's: rel_err "
+        f"{g_err:.3e} (bar 3e-2)")
+
+
+def phase_kernels_d384(model, batch):
+    """Kernels 1 and 2 at d 384 (8 heads of 48) on the first DSM stem block's
+    real input of ``model`` (8 x 8,192), and on that input as one sequence
+    of 65,536 - 37 rows; the fused block against the literal plain block
+    and its gradients against the plain block's."""
+    from scream_tpu_torch.pipeline.register import to_device
+
+    tb = to_device(batch, DEV)
+    args = (tb["dsm"], tb["dem_coarse"], tb["dsm_mask"], tb["dem_coarse_mask"])
+    blk = model.trunk.stem_src_0
+    q, m = block_input(model, blk, args)
+    records = check_attention(blk, m, suffix="_d384", x=q)
+    d = q.shape[-1]
+    records += check_attention(blk, m.reshape(1, -1)[:, :D384_RAGGED].contiguous(),
+                               suffix=f"_d384_r{D384_RAGGED}",
+                               x=q.reshape(1, -1, d)[:, :D384_RAGGED].contiguous())
+    check_block_grads(blk, q, m, "_d384")
+    log_records(records)
+    return records
+
+
+def cli_launches(stderr, label):
+    """The launch counts ``CLI_COUNTED`` printed on stderr."""
+    lines = [ln for ln in stderr.splitlines() if ln.startswith("# launches ")]
+    check(bool(lines), f"{label}: no launch counts on stderr")
+    return json.loads(lines[-1][len("# launches "):])
+
+
+def phase_cli_d384():
+    """The CLI at d 384 in bf16 (the default dtype), in subprocesses:
+    ``train opengf --d-model 384`` (one epoch of two steps of 16 patches at
+    capacity 2,048) and ``train 3dmatch --d-model 384`` (two steps of 8
+    synthetic pairs) at once; then, on the 3DMatch checkpoint that train
+    wrote (``<checkpoint-dir>/best``) and path 5's split tree, ``evaluate
+    3dmatch --bucketed --d-model 384 --params`` and ``register --d-model 384
+    --params`` at once. Each finite, each with stats and apply launches > 0.
+    Returns the launch counts by command."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    ck_o, ck_3 = (os.path.join(WORK_DIR, f"cli_d384_{k}") for k in ("opengf", "3dmatch"))
+    for ck in (ck_o, ck_3):
+        shutil.rmtree(ck, ignore_errors=True)
+    d = ["--d-model", str(D384), "--device", DEV]
+    runs = {
+        "train opengf": ["-c", CLI_COUNTED, "train", "opengf", *d, "--epochs", "2",
+                         "--batch-size", str(F32_CLI_BATCH), "--max-points", str(F32_CLI_CAP),
+                         "--checkpoint-dir", ck_o],
+        "train 3dmatch": ["-c", CLI_COUNTED, "train", "3dmatch", *d, "--epochs", "2",
+                          "--synthetic-pairs", "16", "--checkpoint-dir", ck_3]}
+    out = run_parallel(runs, timeout=400)
+    best = os.path.join(ck_3, "best")
+    root = tempfile.mkdtemp(prefix="chip_smoke_d384_splits_", dir="build")
+    try:
+        write_split_tree(root)
+        rng = np.random.default_rng(1500)
+        pair = {k: os.path.join(root, f"{k}.npy") for k in ("src", "tgt")}
+        for k, path in pair.items():
+            np.save(path, rng.uniform(-1, 1, (2048, 3)).astype(np.float32))
+        out.update(run_parallel({
+            "evaluate 3dmatch": ["-c", CLI_COUNTED, "evaluate", "3dmatch", "--root", root,
+                                 "--params", best, "--bucketed", *d],
+            "register": ["-c", CLI_COUNTED, "register", "--src", pair["src"], "--tgt",
+                         pair["tgt"], "--params", best, *d]}, timeout=400))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+    counts = {}
+    for label, (stdout, stderr, wall) in out.items():
+        res = json.loads(stdout.strip().splitlines()[-1])
+        vals = res.get("final_val", res)
+        flat = [v for v in vals.values() if isinstance(v, (int, float))]
+        if label == "register":
+            flat = [v for row in res["transform"] for v in row] + [res["fitness"]]
+        counts[label] = cli_launches(stderr, label)
+        check(bool(flat) and all(math.isfinite(v) for v in flat)
+              and counts[label]["attn_stats"] > 0 and counts[label]["attn_apply"] > 0
+              and (label != "evaluate 3dmatch" or res["n_pairs"] == EVAL_PAIRS),
+              f"{label} --d-model {D384}: {res}, launches {counts[label]}")
+        log(f"path 8 cli: {label} --d-model {D384} ({wall:.1f} s, subprocess): "
+            f"{json.dumps(vals if label != 'register' else {'fitness': res['fitness']})} | "
+            f"launches {json.dumps(counts[label])}")
+    return counts
+
+
+def path8(smi):
+    """Path 8: bf16 at d 384 (8 heads of 48) and the other head counts.
+    Returns (records, launches by record name, results)."""
+    import dataclasses
+
+    import torch
+
+    from scream_tpu_torch.train import DEMTrainer
+
+    t0 = time.perf_counter()
+    log(f"path 8 (bf16 d {D384}, other head counts) on {smi}")
+    model_cfg, train_cfg = dem_config(D384)
+    groups = make_dem_items(DEM_ITERS + 2, seed=1400)
+    small = dem_batch(make_dem_items(1, seed=1000, batch=2, points=1024)[0], cap=1024,
+                      coarse=128)
+    trainer = DEMTrainer(dem_loader(groups[1:1 + DEM_ITERS]),
+                         dem_loader(make_dem_items(2, seed=900)), model_cfg=model_cfg,
+                         train_cfg=dataclasses.replace(train_cfg, log_every=1), device=DEV)
+    trainer.init(seed=0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"path 8 model: opengf_presets() at d {D384}, {model_cfg.num_heads} heads of "
+        f"{D384 // model_cfg.num_heads}, {model_cfg.self_layers} + {model_cfg.cross_layers} "
+        f"layers, {model_cfg.dtype}, {n_params:,} parameters")
+    records = phase_kernels_d384(trainer.model, dem_batch(groups[-1]))
+    init_state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    phase_dem_card_vs_cpu(init_state, small, d=D384, label="path 8")
+    counts, results = phase_dem_training(trainer, groups[:-1], label="path 8",
+                                         kernels=("attn_stats", "attn_apply"))
+    del trainer
+    torch.cuda.empty_cache()
+    cell_records, launches = phase_attention_cells(attention_cells(new_only=True))
+    launches.update(attn_stats_d384=counts["attn_stats"], attn_apply_d384=counts["attn_apply"])
+    cli_counts = phase_cli_d384()
+    log(f"path 8 took {time.perf_counter() - t0:.1f} s")
+    return records + cell_records, launches, {
+        "d384_train_patches_per_s": results["dem_train_patches_per_s"],
+        "d384_train_stage_ms": results["dem_train_stage_ms"],
+        "d384_train_launches_per_iteration": results["dem_train_launches_per_iteration"],
+        "d384_cli_launches": cli_counts}
+
+
+def phase_tail_widths():
+    """``--only tail``: the tail kernel against its plain version at every
+    width it takes (check_tail: the pack bit for bit, forward, gradients),
+    bf16 at d 128, 256, 384 and 512 on the rows of TAIL_ROWS and fp32 at
+    d 128, 256 and 384, on seeded random-init blocks and inputs (one row in
+    ten masked)."""
+    import torch
+
+    from scream_tpu_torch.models import AttentionBlock
+    from scream_tpu_torch.ops import tail_cuda
+
+    g = torch.Generator(device=DEV).manual_seed(31)
+    records = []
+    for cd, rows_of in ((torch.bfloat16, TAIL_ROWS),
+                        (torch.float32, {d: (4096,) for d in tail_cuda.KERNEL_WIDTHS_F32})):
+        for d, all_rows in rows_of.items():
+            blk = AttentionBlock(d, 8, 4, dtype=cd,
+                                 generator=torch.Generator().manual_seed(d)).to(DEV)
+            for R in all_rows:
+                x, q = (torch.randn((R, d), generator=g, device=DEV) for _ in range(2))
+                m = torch.rand((R,), generator=g, device=DEV) > 0.1
+                records.append(check_tail(blk, x, q, m, suffix=f"_d{d}_r{R}"
+                                          + ("_f32" if cd == torch.float32 else ""), dtype=cd))
+    log_records(records)
+
+
+def phase_apply_cells():
+    """``--only apply``: stats and apply at path 1's shape on the trained
+    point-generator's first block (apply gated at 0.50 ms, stats at 0.25),
+    then at every (d, heads, dtype) cell of the kernels
+    (:func:`phase_attention_cells`)."""
+    from scream_tpu_torch.pipeline.register import to_device
+
+    model, _ = load_weights(POINT_GEN, DEV)
+    batch = make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1]
+    log_records(check_attention(model.trunk.stem_0, to_device(batch, DEV)["tgt_mask"]))
+    del model
+    phase_attention_cells(attention_cells(new_only=False))
+
+
 def run_only(names, smi):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
     exact NN at path 1's shape and on exact ties at B = 1 and 16; the splat
-    at path 3's and the KITTI shape and on the adversarial scenes; or path
-    6 (``ingest``) or path 7 (``fp32``) whole. No result line is printed."""
+    at path 3's and the KITTI shape and on the adversarial scenes; the tail
+    at every width (``tail``); stats and apply at path 1's shape, gates
+    included, and at every (d, heads, dtype) cell (``apply``); or path 6
+    (``ingest``), path 7 (``fp32``) or path 8 (``d384``) whole. No result
+    line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
         log("kernels on exact ties: "
@@ -3115,6 +3445,12 @@ def run_only(names, smi):
         path6()
     if "fp32" in names:
         path7(smi)
+    if "tail" in names:
+        phase_tail_widths()
+    if "apply" in names:
+        phase_apply_cells()
+    if "d384" in names:
+        path8(smi)
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -3215,6 +3551,10 @@ def main():
     f32_records, f32_counts, f32_results = path7(smi, path1_re)
     records += f32_records
 
+    # Path 8: bf16 at d 384 and the other head counts.
+    d384_records, d384_launches, d384_results = path8(smi)
+    records += d384_records
+
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
         "attn_stats": counts["attn_stats"], "attn_apply": counts["attn_apply"],
@@ -3231,7 +3571,7 @@ def main():
         "attn_apply_f32": f32_counts["main"]["attn_apply"],
         "attn_stats_f32_d128": f32_counts["serving"]["attn_stats"],
         "attn_apply_f32_d128": f32_counts["serving"]["attn_apply"],
-        "block_tail_f32": f32_counts["train_cli"]["block_tail"]}
+        "block_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
@@ -3253,7 +3593,7 @@ def main():
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
                     "launches_raw_kitti_refinement": raw_counts, **ingestion,
-                    **f32_results}))
+                    **f32_results, **d384_results}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

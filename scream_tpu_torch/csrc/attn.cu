@@ -39,18 +39,25 @@
 //     count). Each block loads its tile of x once into shared memory (x is
 //     read from HBM once per call, not once per head) and streams [Wk|Wv]
 //     past it through the ring, packed once per call (stats_pack_kernel)
-//     with its columns regrouped per head as [k_h | v_h]: a ring stage is
-//     64 columns by all d k-rows, one head at d 256 and two at d 128 (so
-//     every stage is one m64n64 product and N = 32 is never needed). Per
-//     stage each consumer warpgroup projects its 64 rows on wgmma, rounds
+//     with its columns regrouped per head as [k_h | v_h]: a ring stage
+//     holds whole [k_h | v_h] groups, at least 64 columns (two heads at
+//     head dim 16, one at 32, 48 or 64: m64n64, m64n96 or m64n128, so
+//     N = 32 is never needed), by all d k-rows where that stays within
+//     32 KB (d 128, and d 256 at head dim <= 32), else by 128 k-rows, the
+//     products of one column group then chaining over d / 128 stages (at
+//     d 384 a 96-column stage by all 384 k-rows is 72 KB, and the 96 KB x
+//     tile with two of them would not fit in 227 KB; a 64-row x tile would
+//     halve the rows each weight byte feeds). Per column group each
+//     consumer warpgroup projects its 64 rows on wgmma, rounds
 //     to bf16, applies elu1 to the k half, masks, and writes K'_h and V_h
 //     through a shared-memory tile to a bf16 workspace, one contiguous run
 //     of rows per (batch, head): 67 MB at 16 x 4096, d 256, about 20 us of
 //     HBM each way. The second kernel (one block per (head, batch))
 //     streams those rows through a cp.async ring and sums them in row
 //     order over the whole sequence: KV_h = K'_h^T V_h on mma.sync
-//     (wmma m16n16k16, 16-row steps chained in one fp32 accumulator, ~6 %
-//     of the projection's operations) and K_sum row by row in fp32: the
+//     (wmma m16n16k16, 16-row steps chained in one fp32 accumulator per
+//     16 x 16 block of KV, ~6 % of the projection's operations at head dim
+//     32) and K_sum row by row in fp32, one column a lane: the
 //     order of one block walking the sequence, the same at every shape,
 //     batch and grid. (Per-chunk partials added afterwards would change
 //     the last bits of KV, and GT-free serving's bistable pairs follow
@@ -62,14 +69,18 @@
 //     (K' and V): Q, the message and the FFN hidden stay in shared memory
 //     or registers.
 //
-// Widths: one source serves d_model 256 (head_dim 32, the full model) and
-// d_model 128 (head_dim 16, the hint-free GT-free checkpoint), both with 8
-// heads; every kernel is a template on D and the C entry points dispatch on
-// d. In the apply kernel a row's head dims lie in one quad of lanes at both
-// widths.
+// Widths: every kernel is a template on (D, HD), the width and the head
+// dim, and the C entry points dispatch on (d, heads) over ATTN_CELLS: d
+// 128 and 256 with head dim 16, 32 or 64 (8 heads of 32 at d 256 is the
+// full model, 8 of 16 at d 128 the hint-free GT-free checkpoint) and d 384
+// with head dim 16, 32, 48 or 64 (8 heads of 48: `--d-model 384`). At
+// d 384 the apply tile is 64 rows and each consumer warpgroup owns 192
+// output columns (tail_tile.cuh, COLS 2): a whole number of heads at every
+// head dim, so each attends its own heads with no exchange. In the apply
+// kernel a row's head dims lie in one quad of lanes at every width.
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py):
-// d_model 128 or 256, 8 heads, hidden a multiple of 128, all tensors
+// (d, heads) a cell of ATTN_CELLS, hidden a multiple of 128, all tensors
 // contiguous, bf16 activations and weights ((in, out) row-major, packed by
 // stats_pack_kernel for stats and by ops/tail_cuda.py:pack_weights for
 // apply), fp32 masks, LayerNorm params and statistics.
@@ -84,24 +95,43 @@ using namespace nvcuda;
 using namespace scream;
 using hopper::bf16;
 
-constexpr int H = 8;          // heads (both widths)
 constexpr int TM = 128;       // stats: rows a tile (two warpgroups of 64)
+
+// The (d, head dim) cells the kernels are instantiated for.
+#define ATTN_CELLS(X) \
+  X(128, 16) X(128, 32) X(128, 64) X(256, 16) X(256, 32) X(256, 64) \
+  X(384, 16) X(384, 32) X(384, 48) X(384, 64)
+
+// A stats ring stage: whole [k_h | v_h] groups, at least 64 columns, by all
+// d k-rows where the stage stays within 32 KB, else by 128 k-rows (the
+// pack and the kernel both read these).
+__host__ __device__ constexpr int stats_cols(int hd) { return 2 * hd > 64 ? 2 * hd : 64; }
+__host__ __device__ constexpr int stats_krows(int d, int hd) {
+  return stats_cols(hd) * d * 2 <= 32768 ? d : 128;
+}
+// Threads of the sum block: a warp per 16 x 16 block of KV, + the K_sum warp.
+__host__ __device__ constexpr int stats_sum_threads(int hd) {
+  return 32 * ((hd / 16) * (hd / 16) + 1);
+}
 
 // elu(x) + 1 as where(x > 0, x + 1, exp(x)), in fp32 (attn_pallas._elu1).
 __device__ __forceinline__ float elu1(float v) {
   return v > 0.f ? v + 1.f : expf(v);
 }
 
-// Stats geometry at width D (head dim HD = D / 8). A ring stage is NSC = 64
-// columns of the packed [Wk|Wv] by all D k-rows: HPS heads' [k_h | v_h].
-template <int D>
+// Stats geometry at width D, head dim HD. A ring stage is NSC columns of
+// the packed [Wk|Wv] (a column group: HPS heads' [k_h | v_h]) by KS
+// k-rows; a column group's product chains over its KP stages.
+template <int D, int HD>
 struct Stats {
-  static constexpr int HD = D / H;            // 32, 16
+  static constexpr int H = D / HD;
   static constexpr int W2 = 2 * HD;           // a head's [K'_h | V_h] row
-  static constexpr int NSC = 64;              // columns of a ring stage
-  static constexpr int HPS = NSC / W2;        // heads a stage: 1, 2
-  static constexpr int NS = 2 * D / NSC;      // stages a tile: 8, 4
-  static constexpr int STAGE = NSC * D * 2;   // bytes a stage: 32 KB, 16 KB
+  static constexpr int NSC = stats_cols(HD);  // columns of a stage: 64, 96, 128
+  static constexpr int HPS = NSC / W2;        // heads a stage: 2 at hd 16, else 1
+  static constexpr int KS = stats_krows(D, HD);  // k-rows of a stage: D or 128
+  static constexpr int KP = D / KS;           // stages of a column group
+  static constexpr int NS = 2 * D / NSC * KP; // stages a tile
+  static constexpr int STAGE = NSC * KS * 2;  // bytes a stage: 16-32 KB
   static constexpr int TILE_BYTES = TM * D * 2;
   static constexpr int OLD = NSC + 8;         // out tile row stride (bf16), bank-shifted
   static constexpr int OUT_BYTES = 64 * OLD * 2;  // per warpgroup
@@ -114,31 +144,34 @@ struct Stats {
   static constexpr int BYTES = BARS + 16 * NST;
   // Pass 2: SUM_ROWS-row tiles of one head's [K'_h | V_h] rows, SUM_ST in
   // flight, rows SUM_LD bf16 apart in shared memory (bank-shifted).
-  static constexpr int KVF = HD / 16;         // 16 x 16 KV fragments a side: 2, 1
-  static constexpr int KV_W = KVF * KVF;      // warps of the KV product: 4, 1
-  static constexpr int SUM_THREADS = 32 * (KV_W + 1);  // + the K_sum warp
+  static constexpr int KVF = HD / 16;         // 16 x 16 KV fragments a side: 1-4
+  static constexpr int KV_W = KVF * KVF;      // warps of the KV product: 1-16
+  static constexpr int KSW = (HD + 31) / 32;  // K_sum columns a lane: 1, 2
+  static constexpr int SUM_THREADS = stats_sum_threads(HD);  // KV_W + the K_sum warp
   static constexpr int SUM_ROWS = 128;
   static constexpr int SUM_ST = 4;
   static constexpr int SUM_LD = W2 + 8;
-  static constexpr int SUM_TILE = SUM_ROWS * SUM_LD * 2;  // bytes: 18 KB, 10 KB
-  static_assert(NS * NSC == 2 * D && NST >= 2 && BYTES <= tail::kSmemMax &&
-                TM % SUM_ROWS == 0, "stats layout");
+  static constexpr int SUM_TILE = SUM_ROWS * SUM_LD * 2;  // bytes: 10-34 KB
+  static_assert(HD % 16 == 0 && NSC % W2 == 0 && KS % 16 == 0 && KP * KS == D &&
+                NST >= 2 && BYTES <= tail::kSmemMax && TM % SUM_ROWS == 0,
+                "stats layout");
   using Ring = hopper::Ring<NST, STAGE, BARS>;
 };
 
 // Stats, pass 1: the projection. A persistent grid walks the (batch, tile)
 // items, item it = b * T + t; warpgroup w of the block takes rows
-// 64 w .. 64 w + 63 of the tile. Per ring stage it projects its rows onto
-// the stage's heads on wgmma, rounds to bf16, applies elu1 to k (rounded
-// again) and the mask, and writes K'_h and V_h row by row to kvw, laid out
-// (B, 8, Sp, 2 HD) bf16 with Sp = 128 T (rows at or past S are zeros).
-template <int D>
+// 64 w .. 64 w + 63 of the tile. Per column group (KP ring stages, its
+// k-rows in order) it projects its rows onto the group's heads on wgmma,
+// rounds to bf16, applies elu1 to k (rounded again) and the mask, and
+// writes K'_h and V_h row by row to kvw, laid out (B, H, Sp, 2 HD) bf16
+// with Sp = 128 T (rows at or past S are zeros).
+template <int D, int HD>
 __global__ void __launch_bounds__(tail::kThreads, 1)
 attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
                   const unsigned char* __restrict__ wpack, bf16* __restrict__ kvw,
                   int S, int nitems) {
-  using C = Stats<D>;
-  constexpr int HD = C::HD, W2 = C::W2;
+  using C = Stats<D, HD>;
+  constexpr int H = C::H, W2 = C::W2, NSC = C::NSC;
   extern __shared__ __align__(128) unsigned char smem[];
   const typename C::Ring ring0(hopper::smem_u32(smem));
   const int T = (S + TM - 1) / TM, Sp = T * TM;
@@ -170,9 +203,9 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   // The projection's accumulators. They are zeroed only where no wgmma is
   // in flight: a write to an accumulator register inside an open wgmma
   // window makes ptxas serialize every wgmma of the kernel.
-  float acc[32];
+  float acc[NSC / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NSC / 2; ++i) acc[i] = 0.f;
   hopper::fence_acc(acc);
 
   for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
@@ -189,17 +222,19 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
                                    : 0.f;
 
     for (int st = 0; st < C::NS; ++st) {
-      // [k_h | v_h] of this stage's heads for the warpgroup's 64 rows.
+      // [k_h | v_h] of column group st / KP's heads for the warpgroup's 64
+      // rows, over the k-rows of part st % KP.
+      const int kp = st % C::KP;
       const uint32_t sa = ring.wait_full();
-      uint64_t da = hopper::desc(xa, 128, 16 * D);
+      uint64_t da = hopper::desc(xa + 16 * C::KS * kp, 128, 16 * D);
       uint64_t db = hopper::desc(sa, 128, 256);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < D / 16; ++k) {
-        hopper::Wgmma<64>::mma(acc, da, db);
-        if (k + 1 < D / 16) {  // A 256 bytes on, B one k16 step (2,048 bytes) on
+      for (int k = 0; k < C::KS / 16; ++k) {
+        hopper::Wgmma<NSC>::mma(acc, da, db);
+        if (k + 1 < C::KS / 16) {  // A 256 bytes on, B one k16 step (32 NSC bytes) on
           asm volatile("add.s64 %0, %0, 16;\n" : "+l"(da));
-          asm volatile("add.s64 %0, %0, 128;\n" : "+l"(db));
+          asm volatile("add.s64 %0, %0, %1;\n" : "+l"(db) : "n"(2 * NSC));
         }
       }
       hopper::wgmma_commit();
@@ -207,11 +242,12 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
       hopper::fence_acc(acc);
       if (wt == 0) ring.release(ring.slot);
       ring.advance();
+      if (kp + 1 < C::KP) continue;  // the group's next k-rows add on
       // Round to bf16, elu1 on k (rounded again), mask, into the out tile
-      // (row-major, 64 stage columns). acc[4j + 2hh + e] is row r0 + 8hh,
+      // (row-major, NSC stage columns). acc[4j + 2hh + e] is row r0 + 8hh,
       // stage column 8j + 2(lane%4) + e.
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NSC / 8; ++j) {
         const bool is_k = (8 * j) % W2 < HD;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -227,14 +263,14 @@ attn_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
         }
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // for the next stage
+      for (int i = 0; i < NSC / 2; ++i) acc[i] = 0.f;  // for the next group
       hopper::fence_acc(acc);
       hopper::named_sync(bar, 128);  // the out tile is written
       // Out: 64 rows x HPS heads x W2 columns, 16 bytes a thread-step.
 #pragma unroll
-      for (int q = 0; q < 64 * C::NSC / 8 / 128; ++q) {
-        const int i = wt + 128 * q, r = i / (C::NSC / 8), c = 8 * (i % (C::NSC / 8));
-        const int h = st * C::HPS + c / W2;
+      for (int q = 0; q < 64 * NSC / 8 / 128; ++q) {
+        const int i = wt + 128 * q, r = i / (NSC / 8), c = 8 * (i % (NSC / 8));
+        const int h = st / C::KP * C::HPS + c / W2;
         *reinterpret_cast<uint4*>(kvw + (((size_t)b * H + h) * Sp + row0 + r) * W2 + c % W2) =
             *reinterpret_cast<const uint4*>(ot + r * C::OLD + c);
       }
@@ -249,19 +285,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 // Stats, pass 2: KV and K_sum of head h of batch b, one block each (grid
-// (8, B)), in row order over the whole sequence. Warp w < KV_W chains its
+// (H, B)), in row order over the whole sequence. Warp w < KV_W chains its
 // 16 x 16 block of K'_h^T V_h through wmma (mma.sync m16n16k16, fp32
 // accumulator) over every 16-row step; the K_sum warp adds K'_h row by row
-// in fp32. Rows stream through SUM_ST tiles of SUM_ROWS rows by cp.async
+// in fp32, lane l columns l and l + 32. Rows stream through SUM_ST tiles of SUM_ROWS rows by cp.async
 // (rows SUM_LD apart in shared memory, so the 8 rows of a fragment fall in
 // 8 bank groups); rows past S read the workspace's zeros, which leave both
 // sums as they are.
-template <int D>
-__global__ void __launch_bounds__(Stats<D>::SUM_THREADS)
+template <int D, int HD>
+__global__ void __launch_bounds__(stats_sum_threads(HD))
 attn_stats_reduce_kernel(const bf16* __restrict__ kvw, float* __restrict__ kv,
                          float* __restrict__ ksum, int S) {
-  using C = Stats<D>;
-  constexpr int HD = C::HD, W2 = C::W2, LD = C::SUM_LD, CH = C::SUM_ROWS * W2 / 8;
+  using C = Stats<D, HD>;
+  constexpr int H = C::H, W2 = C::W2, LD = C::SUM_LD, CH = C::SUM_ROWS * W2 / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -279,7 +315,7 @@ attn_stats_reduce_kernel(const bf16* __restrict__ kvw, float* __restrict__ kv,
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
   wmma::fill_fragment(acc, 0.f);
-  float ks = 0.f;  // the K_sum warp: column `lane` (lane < HD)
+  float ks[C::KSW] = {};  // the K_sum warp: columns lane + 32 c (< HD)
   const int bi = warp / C::KVF, bj = warp % C::KVF;
   for (int t = 0; t < nt; ++t) {
     fetch(t + C::SUM_ST - 1);
@@ -297,9 +333,14 @@ attn_stats_reduce_kernel(const bf16* __restrict__ kvw, float* __restrict__ kv,
       }
 #pragma unroll
       for (int k = 0; k < KS; ++k) wmma::mma_sync(acc, fa[k], fb[k], acc);
-    } else if (lane < HD) {
+    } else {
+#pragma unroll
+      for (int c = 0; c < C::KSW; ++c)
+        if (lane + 32 * c < HD) {
 #pragma unroll 16
-      for (int r = 0; r < C::SUM_ROWS; ++r) ks += __bfloat162float(tile[r * LD + lane]);
+          for (int r = 0; r < C::SUM_ROWS; ++r)
+            ks[c] += __bfloat162float(tile[r * LD + lane + 32 * c]);
+        }
     }
     __syncthreads();  // tile t is read before its slot is refilled
   }
@@ -307,23 +348,28 @@ attn_stats_reduce_kernel(const bf16* __restrict__ kvw, float* __restrict__ kv,
   if (warp < C::KV_W)
     wmma::store_matrix_sync(kv + (((size_t)b * H + h) * HD + bi * 16) * HD + bj * 16, acc, HD,
                             wmma::mem_row_major);
-  else if (lane < HD)
-    ksum[(size_t)b * D + h * HD + lane] = ks;
+  else
+#pragma unroll
+    for (int c = 0; c < C::KSW; ++c)
+      if (lane + 32 * c < HD) ksum[(size_t)b * D + h * HD + lane + 32 * c] = ks[c];
 }
 
 // [Wk|Wv] (d, d) bf16 each -> the stats ring's blob: stage s holds packed
-// columns 64 s .. 64 s + 63 by all d k-rows in the stage layout of
-// hopper_tile.cuh, where packed column c is column w of k_h (w < hd) or
-// column w - hd of v_h, h = c / (2 hd), w = c % (2 hd). One output element
-// a thread.
+// columns nsc g .. nsc g + nsc - 1 by k-rows ks p .. ks p + ks - 1, g = s /
+// (d / ks), p = s % (d / ks), in the stage layout of hopper_tile.cuh, where
+// packed column c is column w of k_h (w < hd) or column w - hd of v_h,
+// h = c / (2 hd), w = c % (2 hd). One output element a thread.
 __global__ void stats_pack_kernel(const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                                  bf16* __restrict__ out, unsigned d) {
-  const unsigned hd = d / H, n = 2 * d * d;
+                                  bf16* __restrict__ out, unsigned d, unsigned hd,
+                                  unsigned nsc, unsigned ks) {
+  const unsigned n = 2 * d * d, kp = d / ks;
   for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < n;
        o += gridDim.x * blockDim.x) {
     unsigned k, col;
-    hopper::kmajor_src(o % (64 * d), 64, d, k, col);
-    col += 64 * (o / (64 * d));
+    const unsigned s = o / (nsc * ks);
+    hopper::kmajor_src(o % (nsc * ks), nsc, ks, k, col);
+    k += ks * (s % kp);
+    col += nsc * (s / kp);
     const unsigned h = col / (2 * hd), w = col % (2 * hd);
     out[o] = w < hd ? wk[k * d + h * hd + w] : wv[k * d + h * hd + w - hd];
   }
@@ -331,36 +377,39 @@ __global__ void stats_pack_kernel(const bf16* __restrict__ wk, const bf16* __res
 
 // Apply: the query projection on the ring, the attention on CUDA cores, then
 // the tail of tail_tile.cuh on the message. Extra shared memory: the
-// batch's KV (8 x HD x HD fp32) and K_sum (D fp32).
-template <int D>
+// batch's KV (H x HD x HD fp32) and K_sum (D fp32). A warpgroup's NW output
+// columns hold NH whole heads (all H at d <= 256; at d 384 half of them).
+template <int D, int HD>
 struct Apply {
   using C = tail::Cfg<D>;
-  static constexpr int HD = D / H;
+  static constexpr int H = D / HD;
   static constexpr int EXTRA = H * HD * HD * 4 + D * 4;
   using L = tail::Layout<D, EXTRA>;
-  static_assert(C::COLS == 1 && HD % 8 == 0, "apply: one warpgroup owns whole rows");
+  static_assert(C::NW % HD == 0 && HD % 8 == 0, "apply: a warpgroup owns whole heads");
 };
 
-// Q' = (elu(bf16(q)) + 1) * mask in bf16 from the projection's accumulators,
-// then per head msg = bf16(Q' KV / (Q'.K_sum + eps)) in fp32, written into the
-// tile as the merge input. A row's head dims lie in the 4 lanes of a quad;
-// each lane takes the row's Q' values from its quad by shuffles and makes
-// the message for its own columns.
-template <int D, class Consumer>
-__device__ __forceinline__ void attend(const Consumer& c, float (&acc)[D / 2],
+// Q' = (elu(bf16(q)) + 1) * mask in bf16 from the projection's accumulators
+// (the warpgroup's NW columns), then per head of the warpgroup msg =
+// bf16(Q' KV / (Q'.K_sum + eps)) in fp32, written into the tile as the merge
+// input. A row's head dims lie in the 4 lanes of a quad; each lane takes the
+// row's Q' values from its quad by shuffles and makes the message for its
+// own columns.
+template <int D, int HD, class Consumer>
+__device__ __forceinline__ void attend(const Consumer& c, float (&acc)[Consumer::C::NW / 2],
                                        const float* __restrict__ mrow, int nvalid,
                                        const float* kvs, const float* kss, float eps) {
-  constexpr int HD = D / H, HJ = HD / 8;
+  constexpr int NW = Consumer::C::NW, HJ = HD / 8, NH = NW / HD;
   float m[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) m[hh] = c.row(hh) < nvalid ? mrow[c.row(hh)] : 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i)
+  for (int i = 0; i < NW / 2; ++i)
     acc[i] = hopper::round_bf16(elu1(hopper::round_bf16(acc[i]))) * m[(i >> 1) & 1];
   const int base = c.lane & ~3, q4 = c.lane & 3;
   unsigned char* t = reinterpret_cast<unsigned char*>(c.tile);
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
+  for (int hl = 0; hl < NH; ++hl) {
+    const int h = c.cp * NH + hl;  // the head, of H
     float att[2][HJ][2], z[2] = {0.f, 0.f};
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
@@ -368,9 +417,9 @@ __device__ __forceinline__ void attend(const Consumer& c, float (&acc)[D / 2],
       for (int jj = 0; jj < HJ; ++jj) att[hh][jj][0] = att[hh][jj][1] = 0.f;
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      // Q'[row][h HD + d] is register 4 (h HJ + d/8) + 2 hh + d%2 of lane
+      // Q'[row][h HD + d] is register 4 (hl HJ + d/8) + 2 hh + d%2 of lane
       // base + (d%8)/2.
-      const int i = 4 * (h * HJ + d / 8) + (d & 1);
+      const int i = 4 * (hl * HJ + d / 8) + (d & 1);
       const int src = base | ((d & 7) >> 1);
       const float q0 = __shfl_sync(0xffffffffu, acc[i], src);
       const float q1 = __shfl_sync(0xffffffffu, acc[i + 2], src);
@@ -399,9 +448,9 @@ __device__ __forceinline__ void attend(const Consumer& c, float (&acc)[D / 2],
   }
 }
 
-// Apply: persistent grid over (batch, 128-row tile) pairs; a tile never
-// spans two batches, whose KV differ.
-template <int D>
+// Apply: persistent grid over (batch, row tile) pairs (128 rows, 64 at
+// d 384); a tile never spans two batches, whose KV differ.
+template <int D, int HD>
 __global__ void __launch_bounds__(tail::kThreads, 1)
 attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
                   const unsigned char* __restrict__ wpack, const float* __restrict__ kv,
@@ -409,10 +458,10 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
                   const float* __restrict__ b1, const float* __restrict__ g2,
                   const float* __restrict__ b2, bf16* __restrict__ out, int B, int L,
                   int hid, float attn_eps, float ln_eps) {
-  using A = Apply<D>;
+  using A = Apply<D, HD>;
   using C = typename A::C;
   using Lay = typename A::L;
-  constexpr int HD = A::HD;
+  constexpr int H = A::H;
   extern __shared__ __align__(128) unsigned char smem[];
   const typename Lay::Ring ring = Lay::ring(smem);
   const int tpb = (L + C::TM - 1) / C::TM, ntiles = B * tpb;
@@ -444,13 +493,13 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
       hopper::fence_proxy_async();
       hopper::named_sync(3, NC);
 
-      float acc[D / 2];
+      float acc[C::NW / 2];  // q, the warpgroup's NW columns
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-      hopper::ring_mma<D, 2>(acc, c.ring, C::S_D, hopper::smem_u32(c.tile), 16 * D, 0,
-                             32 * D, c.wt);
+      for (int i = 0; i < C::NW / 2; ++i) acc[i] = 0.f;
+      hopper::ring_mma<C::NW, 2>(acc, c.ring, C::S_D, hopper::smem_u32(c.tile), 16 * D,
+                                 32 * c.cp * C::NW, 32 * D, c.wt);
       c.sync();  // every warp's wgmma on the tile has completed
-      attend<D>(c, acc, mask + row0, nvalid, kvs, kss, attn_eps);
+      attend<D, HD>(c, acc, mask + row0, nvalid, kvs, kss, attn_eps);
       hopper::fence_proxy_async();
       c.sync();
       c.run(x + row0 * D, out + row0 * D, nvalid, g1, b1, g2, b2, hid, ln_eps);
@@ -458,89 +507,109 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
-template <int D>
+template <int D, int HD>
 int launch_stats(const void* x, const void* mask, const void* wpack, void* kvw, void* kv,
                  void* ksum, int B, int S, cudaStream_t stream) {
-  using C = Stats<D>;
+  using C = Stats<D, HD>;
   const int nitems = B * ((S + TM - 1) / TM);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+      attn_stats_kernel<D, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return (int)err;
   const int grid = nitems < tail::num_sms() ? nitems : tail::num_sms();
-  attn_stats_kernel<D><<<grid, tail::kThreads, C::BYTES, stream>>>(
+  attn_stats_kernel<D, HD><<<grid, tail::kThreads, C::BYTES, stream>>>(
       (const bf16*)x, (const float*)mask, (const unsigned char*)wpack, (bf16*)kvw, S, nitems);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr int smem = C::SUM_ST * C::SUM_TILE;
-  err = cudaFuncSetAttribute(attn_stats_reduce_kernel<D>,
+  err = cudaFuncSetAttribute(attn_stats_reduce_kernel<D, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_stats_reduce_kernel<D><<<dim3(H, B), C::SUM_THREADS, smem, stream>>>(
+  attn_stats_reduce_kernel<D, HD><<<dim3(C::H, B), C::SUM_THREADS, smem, stream>>>(
       (const bf16*)kvw, (float*)kv, (float*)ksum, S);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int HD>
 int launch_apply(const void* x, const void* mask, const void* wpack, const void* kv,
                  const void* ksum, const void* g1, const void* b1, const void* g2,
                  const void* b2, void* out, int B, int L, int hid, float attn_eps,
                  float ln_eps, cudaStream_t stream) {
   using C = tail::Cfg<D>;
-  constexpr int smem = Apply<D>::L::BYTES;
+  constexpr int smem = Apply<D, HD>::L::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_apply_kernel<D, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int ntiles = B * ((L + C::TM - 1) / C::TM);
   const int grid = ntiles < tail::num_sms() ? ntiles : tail::num_sms();
-  attn_apply_kernel<D><<<grid, tail::kThreads, smem, stream>>>(
+  attn_apply_kernel<D, HD><<<grid, tail::kThreads, smem, stream>>>(
       (const bf16*)x, (const float*)mask, (const unsigned char*)wpack, (const float*)kv,
       (const float*)ksum, (const float*)g1, (const float*)b1, (const float*)g2,
       (const float*)b2, (bf16*)out, B, L, hid, attn_eps, ln_eps);
   return (int)cudaGetLastError();
 }
 
+// Whether (d, d / heads) is a cell of ATTN_CELLS.
+bool attn_cell(int d, int heads) {
+  if (heads <= 0 || d % heads) return false;
+  const int hd = d / heads;
+#define ATTN_IS_CELL(D, HD) \
+  if (d == D && hd == HD) return true;
+  ATTN_CELLS(ATTN_IS_CELL)
+#undef ATTN_IS_CELL
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (B, S, d) bf16, d in {128, 256}, wpack from scream_pack_stats, kvw a
-// bf16 workspace of B * 8 * Sp * 2 hd (Sp = S rounded up to 128) -> KV (B, 8,
-// hd, hd) fp32, ksum (B, d) fp32. Two launches: the projection into kvw,
-// then the per-head sums in row order.
+// x (B, S, d) bf16, (d, heads) a cell of ATTN_CELLS, wpack from
+// scream_pack_stats, kvw a bf16 workspace of B * Sp * 2 d (Sp = S rounded up
+// to 128) -> KV (B, H, hd, hd) fp32, ksum (B, d) fp32. Two launches: the
+// projection into kvw, then the per-head sums in row order.
 int scream_attn_stats(const void* x, const void* mask, const void* wpack, void* kvw,
-                      void* kv, void* ksum, int B, int S, int d, void* stream) {
+                      void* kv, void* ksum, int B, int S, int d, int heads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  if (d == 256) return launch_stats<256>(x, mask, wpack, kvw, kv, ksum, B, S, s);
-  if (d == 128) return launch_stats<128>(x, mask, wpack, kvw, kv, ksum, B, S, s);
+  if (B <= 0 || S <= 0 || !attn_cell(d, heads)) return (int)cudaErrorInvalidValue;
+  const int hd = d / heads;
+#define ATTN_STATS(D, HD) \
+  if (d == D && hd == HD) return launch_stats<D, HD>(x, mask, wpack, kvw, kv, ksum, B, S, s);
+  ATTN_CELLS(ATTN_STATS)
+#undef ATTN_STATS
   return (int)cudaErrorInvalidValue;
 }
 
-// Wk, Wv (d, d) bf16, (in, out), d in {128, 256} -> the stats blob out,
-// 2 d^2 bf16 (stats_pack_kernel). One launch.
-int scream_pack_stats(const void* wk, const void* wv, void* out, int d, void* stream) {
-  if (d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+// Wk, Wv (d, d) bf16, (in, out), (d, heads) a cell of ATTN_CELLS -> the
+// stats blob out, 2 d^2 bf16 (stats_pack_kernel). One launch.
+int scream_pack_stats(const void* wk, const void* wv, void* out, int d, int heads,
+                      void* stream) {
+  if (!attn_cell(d, heads)) return (int)cudaErrorInvalidValue;
+  const int hd = d / heads;
   const unsigned n = 2u * d * d;
   const int grid = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   stats_pack_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)wk, (const bf16*)wv, (bf16*)out, (unsigned)d);
+      (const bf16*)wk, (const bf16*)wv, (bf16*)out, (unsigned)d, (unsigned)hd,
+      (unsigned)stats_cols(hd), (unsigned)stats_krows(d, hd));
   return (int)cudaGetLastError();
 }
 
-// x (B, L, d) bf16, d in {128, 256}, hidden a multiple of 128, wpack the
-// packed Wq, Wm, W1, W2 (pack_weights) -> out (B, L, d) bf16.
+// x (B, L, d) bf16, (d, heads) a cell of ATTN_CELLS, hidden a multiple of
+// 128, wpack the packed Wq, Wm, W1, W2 (pack_weights), KV (B, H, hd, hd)
+// -> out (B, L, d) bf16.
 int scream_attn_apply(const void* x, const void* mask, const void* wpack, const void* kv,
                       const void* ksum, const void* g1, const void* b1, const void* g2,
-                      const void* b2, void* out, int B, int L, int d, int hid,
+                      const void* b2, void* out, int B, int L, int d, int heads, int hid,
                       float attn_eps, float ln_eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || L <= 0 || hid <= 0 || hid % 128) return (int)cudaErrorInvalidValue;
-  if (d == 256)
-    return launch_apply<256>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L, hid,
-                             attn_eps, ln_eps, s);
-  if (d == 128)
-    return launch_apply<128>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L, hid,
-                             attn_eps, ln_eps, s);
+  if (B <= 0 || L <= 0 || hid <= 0 || hid % 128 || !attn_cell(d, heads))
+    return (int)cudaErrorInvalidValue;
+  const int hd = d / heads;
+#define ATTN_APPLY(D, HD)                                                                  \
+  if (d == D && hd == HD)                                                                  \
+    return launch_apply<D, HD>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L, hid,  \
+                               attn_eps, ln_eps, s);
+  ATTN_CELLS(ATTN_APPLY)
+#undef ATTN_APPLY
   return (int)cudaErrorInvalidValue;
 }
 

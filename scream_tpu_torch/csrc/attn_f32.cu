@@ -28,7 +28,7 @@
 //   * stats, in two launches. attn_stats_f32_kernel: one block per (tile
 //     of 64 rows, batch); the tile of x is loaded once, then [Wk|Wv] is
 //     projected 128 columns at a time, a column group holding [k_h | v_h]
-//     of 2 heads (d 256) or 4 (d 128), read straight from Wk and Wv (no
+//     of 128 / (2 hd) heads (1, 2 or 4), read straight from Wk and Wv (no
 //     pack). The group's K' and V go to a shared tile, and the tile's
 //     partial K'^T V and K_sum of those heads are summed over its 64 rows
 //     in row order and written to a workspace, one slot per (batch, tile).
@@ -42,13 +42,14 @@
 //     order, and the message into the row tile for the tail body. No
 //     register tile is live across that loop (one was, and spilled).
 //
-// Widths: d_model 128 and 256 with 8 heads (head dim 16, 32); a template
-// on D, the C entry points dispatch on d. Rows past the sequence's end are
-// zero in the tiles and never stored.
+// Widths: d_model 128 and 256 with head dim 16, 32 or 64 (ATTN_F32_CELLS;
+// 8 heads at both widths is the shipped models' split); a template on
+// (D, H), the C entry points dispatch on (d, heads). Rows past the
+// sequence's end are zero in the tiles and never stored.
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py): all
 // tensors fp32, contiguous, 16-byte aligned; weights (in, out) row-major;
-// masks (B, S) / (B, L) fp32; KV (B, 8, hd, hd), K_sum (B, d).
+// masks (B, S) / (B, L) fp32; KV (B, H, hd, hd), K_sum (B, d).
 
 #include "f32_tile.cuh"
 
@@ -56,7 +57,9 @@ namespace {
 
 using namespace scream::f32;
 
-constexpr int H = 8;    // heads
+// The (d, heads) cells the kernels are instantiated for: head dim 16, 32, 64.
+#define ATTN_F32_CELLS(X) X(128, 8) X(128, 4) X(128, 2) X(256, 16) X(256, 8) X(256, 4)
+
 constexpr int TS = 64;  // rows of a stats tile (and of an apply tile)
 constexpr int RM = 8;   // rows a warp
 
@@ -67,14 +70,15 @@ constexpr int stats_smem() {
   return (TS * D + TS * 128 + 2 * KC * 128 + TS) * 4;
 }
 
-template <int D>
+template <int D, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                       const float* __restrict__ wk, const float* __restrict__ wv,
                       float* __restrict__ ws, int S) {
   constexpr int HD = D / H, HPG = 128 / (2 * HD), PER = H * HD * HD + D;
-  constexpr int JT = HPG * HD * HD / kThreads;  // KV outputs a thread, per group
-  static_assert(JT % 4 == 0 && HD % JT == 0, "stats: a thread's KV outputs in one row");
+  constexpr int JT = HPG * HD * HD / kThreads;  // KV outputs a thread, per group: 4, 8, 16
+  static_assert(HPG * 2 * HD == 128 && JT % 4 == 0 && HD % JT == 0,
+                "stats: whole heads a group, a thread's KV outputs in one row");
   extern __shared__ __align__(16) float smem[];
   float* X = smem;
   float* P = X + TS * D;
@@ -165,13 +169,14 @@ __global__ void attn_stats_f32_reduce_kernel(const float* __restrict__ ws, float
 
 // Shared memory of an apply block: the row tile (TS x D), one hidden chunk
 // (TS x 128), the weight chunks (tail_wbuf: two of KC x D), the batch's KV
-// and K_sum, the tile's mask.
-template <int D>
-constexpr int apply_smem() {
-  return (TS * D + TS * 128 + tail_wbuf<D>() + H * (D / H) * (D / H) + D + TS) * 4;
+// (H x hd x hd = D hd) and K_sum, the tile's mask. At d 256, head dim 64:
+// 229,456 bytes of the 232,448.
+template <int D, int H>
+__host__ __device__ constexpr int apply_smem() {
+  return (TS * D + TS * 128 + tail_wbuf<D>() + D * (D / H) + D + TS) * 4;
 }
 
-template <int D>
+template <int D, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                       const float* __restrict__ wq, const float* __restrict__ kv,
@@ -182,7 +187,8 @@ attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
                       float* __restrict__ out, int L, int hid, float attn_eps, float ln_eps,
                       int norm_bf16) {
   constexpr int G = D / 128, HD = D / H;
-  static_assert(tail_wbuf<D>() >= TS * D, "apply: Q' fits the weight buffer");
+  static_assert(tail_wbuf<D>() >= TS * D && HD % 4 == 0 && apply_smem<D, H>() <= 232448,
+                "apply: Q' fits the weight buffer, a lane's 4 columns in one head");
   extern __shared__ __align__(16) float smem[];
   float* A = smem;
   float* Hs = A + TS * D;
@@ -253,7 +259,7 @@ attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
                       out + ((size_t)b * L + row0) * D, nvalid, hid, ln_eps, norm_bf16 != 0);
 }
 
-template <int D>
+template <int D, int H>
 int launch_stats(const void* x, const void* mask, const void* wk, const void* wv, void* ws,
                  void* kv, void* ksum, int B, int S, cudaStream_t stream) {
   constexpr int HD = D / H, PER = H * HD * HD + D;
@@ -261,9 +267,9 @@ int launch_stats(const void* x, const void* mask, const void* wk, const void* wv
   if (nt > 0) {
     constexpr int smem = stats_smem<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        attn_stats_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_stats_f32_kernel<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attn_stats_f32_kernel<D><<<dim3(nt, B), kThreads, smem, stream>>>(
+    attn_stats_f32_kernel<D, H><<<dim3(nt, B), kThreads, smem, stream>>>(
         (const float*)x, (const float*)mask, (const float*)wk, (const float*)wv, (float*)ws, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -274,17 +280,17 @@ int launch_stats(const void* x, const void* mask, const void* wk, const void* wv
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int H>
 int launch_apply(const void* x, const void* mask, const void* wq, const void* kv,
                  const void* ksum, const void* wm, const void* g1, const void* b1,
                  const void* w1, const void* w2, const void* g2, const void* b2, void* out,
                  int B, int L, int hid, float attn_eps, float ln_eps, int norm_bf16,
                  cudaStream_t stream) {
-  constexpr int smem = apply_smem<D>();
+  constexpr int smem = apply_smem<D, H>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_apply_f32_kernel<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_apply_f32_kernel<D><<<dim3((L + TS - 1) / TS, B), kThreads, smem, stream>>>(
+  attn_apply_f32_kernel<D, H><<<dim3((L + TS - 1) / TS, B), kThreads, smem, stream>>>(
       (const float*)x, (const float*)mask, (const float*)wq, (const float*)kv,
       (const float*)ksum, (const float*)wm, (const float*)g1, (const float*)b1,
       (const float*)w1, (const float*)w2, (const float*)g2, (const float*)b2, (float*)out, L,
@@ -296,35 +302,39 @@ int launch_apply(const void* x, const void* mask, const void* wq, const void* kv
 
 extern "C" {
 
-// x (B, S, d) fp32, mask (B, S) fp32, Wk, Wv (d, d) fp32, d in {128, 256}
-// -> KV (B, 8, d/8, d/8) and K_sum (B, d) fp32; ws a workspace of
-// B ceil(S/64) (8 (d/8)^2 + d) floats.
+// x (B, S, d) fp32, mask (B, S) fp32, Wk, Wv (d, d) fp32, (d, heads) a cell
+// of ATTN_F32_CELLS -> KV (B, H, hd, hd) and K_sum (B, d) fp32; ws a
+// workspace of B ceil(S/64) (H hd^2 + d) floats.
 int scream_attn_stats_f32(const void* x, const void* mask, const void* wk, const void* wv,
-                          void* ws, void* kv, void* ksum, int B, int S, int d, void* stream) {
+                          void* ws, void* kv, void* ksum, int B, int S, int d, int heads,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || S < 0) return (int)cudaErrorInvalidValue;
-  if (d == 128) return launch_stats<128>(x, mask, wk, wv, ws, kv, ksum, B, S, s);
-  if (d == 256) return launch_stats<256>(x, mask, wk, wv, ws, kv, ksum, B, S, s);
+#define ATTN_F32_STATS(D, H) \
+  if (d == D && heads == H) return launch_stats<D, H>(x, mask, wk, wv, ws, kv, ksum, B, S, s);
+  ATTN_F32_CELLS(ATTN_F32_STATS)
+#undef ATTN_F32_STATS
   return (int)cudaErrorInvalidValue;
 }
 
 // x (B, L, d) fp32 (query source and both residuals), mask (B, L) fp32, the
 // stats of scream_attn_stats_f32, weights (in, out) fp32, LayerNorm params
-// (d,) fp32 -> out (B, L, d) fp32. d in {128, 256}, hidden a multiple of 128;
-// norm_bf16 rounds the LayerNorm outputs through bf16 (norm dtype bf16).
+// (d,) fp32 -> out (B, L, d) fp32. (d, heads) a cell of ATTN_F32_CELLS,
+// hidden a multiple of 128; norm_bf16 rounds the LayerNorm outputs through
+// bf16 (norm dtype bf16).
 int scream_attn_apply_f32(const void* x, const void* mask, const void* wq, const void* kv,
                           const void* ksum, const void* wm, const void* g1, const void* b1,
                           const void* w1, const void* w2, const void* g2, const void* b2,
-                          void* out, int B, int L, int d, int hid, float attn_eps, float ln_eps,
-                          int norm_bf16, void* stream) {
+                          void* out, int B, int L, int d, int heads, int hid, float attn_eps,
+                          float ln_eps, int norm_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || L <= 0 || hid <= 0 || hid % 128) return (int)cudaErrorInvalidValue;
-  if (d == 128)
-    return launch_apply<128>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2, out, B, L, hid,
-                             attn_eps, ln_eps, norm_bf16, s);
-  if (d == 256)
-    return launch_apply<256>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2, out, B, L, hid,
-                             attn_eps, ln_eps, norm_bf16, s);
+#define ATTN_F32_APPLY(D, H)                                                                  \
+  if (d == D && heads == H)                                                                   \
+    return launch_apply<D, H>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2, out, B, L,  \
+                              hid, attn_eps, ln_eps, norm_bf16, s);
+  ATTN_F32_CELLS(ATTN_F32_APPLY)
+#undef ATTN_F32_APPLY
   return (int)cudaErrorInvalidValue;
 }
 

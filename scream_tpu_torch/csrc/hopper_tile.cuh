@@ -10,8 +10,8 @@
 //     order the stages are consumed in (tail.cu:pack_kernel); the consumer warpgroups
 //     wait on "full", run their products on the stage, and arrive on
 //     "empty" once their wgmma on it has completed;
-//   * wgmma.mma_async bf16 x bf16 -> fp32, m64nNk16 for N in {64, 128, 192,
-//     256}, A and B both from shared memory through matrix descriptors;
+//   * wgmma.mma_async bf16 x bf16 -> fp32, m64nNk16 for N in {64, 96, 128,
+//     192, 256}, A and B both from shared memory through matrix descriptors;
 //   * ring_mma: one warpgroup's acc (+)= A @ B over a run of ring stages,
 //     releasing each stage as soon as the wgmma that reads it completes.
 //
@@ -197,6 +197,27 @@ struct Wgmma<64> {
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  __device__ static __forceinline__ void mma(float (&d)[48], uint64_t a, uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(1));
   }
 };

@@ -162,14 +162,15 @@ int scream_block_tail(const void* x, const void* q, const void* wpack, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// The weights of the tail ([Wq] of the apply kernel, may be null; Wm, W1,
-// W2 as (in, out), all fp32 if fp32 else all bf16) -> the packed blob out,
-// (d + 2 hid) d elements, (2 d + 2 hid) d with Wq. The ring's geometry is
-// tail_tile.cuh:Cfg's: at d > 256 a hidden chunk is 128 columns, else 64.
+// The weights of the tail ([Wq] of the apply kernel, may be null, at d <=
+// 384; Wm, W1, W2 as (in, out), all fp32 if fp32 else all bf16) -> the
+// packed blob out, (d + 2 hid) d elements, (2 d + 2 hid) d with Wq. The
+// ring's geometry is tail_tile.cuh:Cfg's: at d > 256 a hidden chunk is 128
+// columns, else 64; Wq's stages are Wm's at every width.
 int scream_pack_weights(const void* wq, const void* wm, const void* w1, const void* w2,
                         int fp32, void* out, int d, int hid, void* stream) {
   if (!(d == 128 || d == 256 || d == 384 || d == 512) || hid <= 0 || hid % 128 ||
-      (wq && d > 256))
+      (wq && d > 384))
     return (int)cudaErrorInvalidValue;
   const unsigned cols = d > 256 ? 2 : 1, hc = 64 * cols, ks_h = d / (2 * cols);
   const unsigned n = (unsigned)((wq ? 2 : 1) * d + 2 * hid) * d;

@@ -111,11 +111,11 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
                                                                  dtype))):
         if on_cuda and not attn_cuda.kernels_take(d, hid, num_heads, dtype):
             raise NotImplementedError(
-                f"fused attention block at d_model {d}, {num_heads} heads, "
-                f"{dtype}: the CUDA kernels take bf16 or fp32 at d_model in "
-                f"{attn_cuda.KERNEL_WIDTHS} with {attn_cuda.KERNEL_HEADS} heads; "
-                "bf16 at d_model 384 and other head counts are queued in "
-                "ROADMAP.md (TPU kernels still to port); pass "
+                f"fused attention block at d_model {d}, {num_heads} heads (head "
+                f"dim {d // num_heads}), {dtype}: the CUDA kernels take d_model -> "
+                f"head dims {attn_cuda.KERNEL_CELLS.get(dtype, {})}; the other "
+                "cells the JAX rule admits (head dims below 16, above 64, or 24) "
+                "are queued in ROADMAP.md (TPU kernels still to port); pass "
                 "fused_attention=False for the plain attention")
         return "fused"
     tail = fused_tail if fused_tail is not None else (

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc``, load them with ``ctypes``,
 and the checks every kernel wrapper makes around a launch.
 
-All sources under ``scream_tpu_torch/csrc/*.cu`` compile in ONE ``nvcc`` call
-into one shared library with a plain C interface (no PyTorch headers), which
-takes seconds where PyTorch's extension builder takes minutes. The library
-lands under ``build/`` next to the package (git-ignored), named by a hash of
-the sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+Each source under ``scream_tpu_torch/csrc/*.cu`` compiles to an object in
+its own ``nvcc`` process, all started together, and one more ``nvcc`` links
+the objects into one shared library with a plain C interface (no PyTorch
+headers), which takes seconds a file where PyTorch's extension builder takes
+minutes. The library lands under ``build/`` next to the package
+(git-ignored), named by a hash of the sources and flags, so an edit rebuilds
+and an unchanged tree reuses it.
 
 The build happens at first use (:func:`kernels`), never at import: the CPU
 tests import every module on hosts without ``nvcc``.
@@ -27,12 +29,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "scream_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the last nvcc run in this process
+build_seconds = None  # wall time of the last build in this process
 build_log = ""  # nvcc's output for the loaded library (ptxas register/smem report)
 
 
@@ -70,9 +72,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libscream_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, timeout=900):
+    """Run the commands at once; (return code, output) of each, in order.
+    Every process still running when this returns or raises is killed."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        return [(p.returncode, o) for p, o in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> Path:
-    """Compile the sources if this exact tree has no library yet; nvcc's
-    report is kept beside the library and read back with it."""
+    """Compile the sources if this exact tree has no library yet: one nvcc
+    process a source, all at once, then the link. nvcc's reports, in source
+    order, are kept beside the library and read back with it."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
@@ -80,15 +100,25 @@ def build() -> Path:
         build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = find_nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    try:
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for o, src in zip(objs, _sources())]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        logs = []
+        for cmds in (compiles, [link]):
+            for cmd, (rc, log) in zip(cmds, _run_all(cmds)):
+                logs.append(log)
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{log}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+    build_log = "".join(logs)
     out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
@@ -97,9 +127,9 @@ def build() -> Path:
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        "scream_attn_stats": [P, P, P, P, P, P, I, I, I, P],
-        "scream_pack_stats": [P, P, P, I, P],
-        "scream_attn_apply": [P] * 10 + [I, I, I, I, F, F, P],
+        "scream_attn_stats": [P, P, P, P, P, P, I, I, I, I, P],
+        "scream_pack_stats": [P, P, P, I, I, P],
+        "scream_attn_apply": [P] * 10 + [I, I, I, I, I, F, F, P],
         "scream_nn_exact": [P, P, P, P, I, I, I, I, P],
         "scream_nn_tile_boxes": [P, P, I, I, P],
         "scream_nn_bounded": [P, P, P, P, F, P, P, I, I, I, I, P],
@@ -107,8 +137,8 @@ def _declare(lib) -> None:
         "scream_splat_expf_check": [P, P],
         "scream_block_tail": [P] * 8 + [I, I, I, F, P],
         "scream_pack_weights": [P, P, P, P, I, P, I, I, P],
-        "scream_attn_stats_f32": [P] * 7 + [I, I, I, P],
-        "scream_attn_apply_f32": [P] * 13 + [I, I, I, I, F, F, I, P],
+        "scream_attn_stats_f32": [P] * 7 + [I, I, I, I, P],
+        "scream_attn_apply_f32": [P] * 13 + [I, I, I, I, I, F, F, I, P],
         "scream_block_tail_f32": [P] * 10 + [I, I, I, F, I, P],
     }
     for name, args in signatures.items():

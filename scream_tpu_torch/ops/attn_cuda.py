@@ -19,9 +19,11 @@ hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py
   (``csrc/tail_tile.cuh``); its weights stream through a shared-memory ring,
   packed by ``ops/tail_cuda.py:pack_weights``.
 
-The kernels take d_model 128 and 256 with 8 heads (head dim 16 and 32,
-``KERNEL_WIDTHS``), in bf16 and in fp32. The fp32 configuration has its own
-pair, ``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
+The kernels take the cells of ``KERNEL_CELLS`` (:func:`kernels_take`): in
+bf16, d_model 128 and 256 with head dim 16, 32 or 64 and d_model 384 with
+head dim 16, 32, 48 or 64 (8 heads of 48 at ``--d-model 384``); in fp32,
+d_model 128 and 256 with head dim 16, 32 or 64. The fp32 configuration has
+its own pair, ``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
 ``attn_stats_f32_reduce_kernel``, and ``attn_apply_f32_kernel``): fp32 FMA
 throughout, the weights read as they are (no pack), the stats summed per
 64-row tile and then over the tiles in tile order. Each wrapper dispatches on
@@ -43,16 +45,18 @@ from scream_tpu_torch.ops import _build
 from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
 from scream_tpu_torch.ops.tail_cuda import pack_weights
 
-# What the CUDA kernels take: d_model 128 or 256 split into 8 heads (head
-# dim 16 or 32), a hidden width in 128-column chunks, bf16 or fp32 compute.
-KERNEL_WIDTHS = (128, 256)
-KERNEL_HEADS = 8
+# What the CUDA kernels take: per compute dtype, d_model -> the head dims
+# (d_model / heads) of its instantiations (csrc/attn.cu ATTN_CELLS,
+# csrc/attn_f32.cu ATTN_F32_CELLS), with a hidden width in 128-column
+# chunks. Every other cell the JAX rule admits is still to port (ROADMAP.md).
+KERNEL_CELLS = {
+    torch.bfloat16: {128: (16, 32, 64), 256: (16, 32, 64), 384: (16, 32, 48, 64)},
+    torch.float32: {128: (16, 32, 64), 256: (16, 32, 64)},
+}
 KERNEL_HID_CHUNK = 128
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
 # (batch, tile) items, and the workspace holds S rounded up to it.
 STATS_TILE = 128
-STATS_STAGE_COLS = 64  # packed [Wk|Wv] columns a ring stage
 # The fp32 stats kernel's row tile (csrc/attn_f32.cu TS): one workspace slot
 # of partial sums per (batch, tile), added in tile order.
 STATS_F32_TILE = 64
@@ -71,8 +75,16 @@ def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> b
 
 def kernels_take(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether the CUDA kernels are written for this shape."""
-    return (d in KERNEL_WIDTHS and num_heads == KERNEL_HEADS
-            and hid % KERNEL_HID_CHUNK == 0 and dtype in KERNEL_DTYPES)
+    return (num_heads > 0 and d % num_heads == 0
+            and d // num_heads in KERNEL_CELLS.get(dtype, {}).get(d, ())
+            and hid % KERNEL_HID_CHUNK == 0)
+
+
+def _require_cell(name, d, num_heads, dtype):
+    if not kernels_take(d, KERNEL_HID_CHUNK, num_heads, dtype):
+        raise ValueError(f"{name} kernel takes (d_model, head dim) in "
+                         f"{KERNEL_CELLS.get(dtype)} for {dtype}; got d={d}, "
+                         f"heads={num_heads}")
 
 
 def _elu1(x):
@@ -146,34 +158,47 @@ def stats_tiles(S: int) -> int:
     return -(-S // STATS_TILE)
 
 
-def pack_stats_weights(Wk, Wv) -> torch.Tensor:
+def stats_stage(d: int, num_heads: int) -> tuple:
+    """(columns, k-rows) of a stats ring stage (``csrc/attn.cu``
+    ``stats_cols``, ``stats_krows``): whole ``[k_h | v_h]`` groups, at least
+    64 columns; all ``d`` k-rows where the stage stays within 32 KB, else
+    128, a column group's product then chaining over ``d / 128`` stages."""
+    hd = d // num_heads
+    cols = max(64, 2 * hd)
+    return cols, (d if cols * d * 2 <= 32768 else 128)
+
+
+def pack_stats_weights(Wk, Wv, *, num_heads) -> torch.Tensor:
     """``Wk``, ``Wv`` ``(d, d)`` (``(in, out)``) as the stats kernel's ring
     blob, flat bf16 of ``2 d^2``: ``[Wk|Wv]`` with its columns regrouped per
-    head as ``[k_h | v_h]``, then cut into stages of 64 columns by all ``d``
-    k-rows in the wgmma operand layout of ``csrc/hopper_tile.cuh``. On the
+    head as ``[k_h | v_h]``, then cut into stages (:func:`stats_stage`):
+    column group ``g``'s k-row parts in order, stage ``g * (d / ks) + p``,
+    each in the wgmma operand layout of ``csrc/hopper_tile.cuh``. On the
     card one launch of ``stats_pack_kernel`` (bf16 weights); for CPU
     weights the permuted copy below, which defines the layout."""
     if Wk.dim() != 2 or tuple(Wk.shape) != tuple(Wv.shape) or Wk.shape[0] != Wk.shape[1]:
         raise ValueError(f"pack_stats_weights: Wk {tuple(Wk.shape)} and Wv "
                          f"{tuple(Wv.shape)} must be one square shape")
     d = Wk.shape[0]
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"pack_stats_weights: d in {KERNEL_WIDTHS}, got {d}")
+    _require_cell("pack_stats_weights: the stats", d, num_heads, torch.bfloat16)
     if _build.route(Wk):
         for name, w in (("Wk", Wk), ("Wv", Wv)):
             _check(w, name, torch.bfloat16, (d, d))
         blob = torch.empty(2 * d * d, dtype=torch.bfloat16, device=Wk.device)
         err = _build.kernels().scream_pack_stats(Wk.data_ptr(), Wv.data_ptr(),
-                                                 blob.data_ptr(), d, _build.stream_ptr(Wk))
+                                                 blob.data_ptr(), d, num_heads,
+                                                 _build.stream_ptr(Wk))
         _build.check(err, "pack_stats_weights")
         return blob
-    hd, ns = d // KERNEL_HEADS, 2 * d // STATS_STAGE_COLS
+    hd = d // num_heads
+    cols, ks = stats_stage(d, num_heads)
     with torch.no_grad():
-        W = torch.cat([Wk.reshape(d, KERNEL_HEADS, hd), Wv.reshape(d, KERNEL_HEADS, hd)],
+        W = torch.cat([Wk.reshape(d, num_heads, hd), Wv.reshape(d, num_heads, hd)],
                       -1).reshape(d, 2 * d).to(torch.bfloat16)
-        # (stage, k16 step, column group, k half, column in group, k in half)
-        W = W.reshape(d // 16, 2, 8, ns, 8, 8).permute(3, 0, 4, 1, 5, 2)
-        return W.contiguous().reshape(-1)
+        # (column group, k part, k16 step, column group of 8, k half, column
+        # in group, k in half)
+        W = W.reshape(d // ks, ks // 16, 2, 8, 2 * d // cols, cols // 8, 8)
+        return W.permute(4, 0, 1, 5, 2, 6, 3).contiguous().reshape(-1)
 
 
 def attn_stats(x, mask, Wk, Wv, *, num_heads):
@@ -181,9 +206,7 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     if not _build.route(x):
         return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)
     B, S, d = x.shape
-    if d not in KERNEL_WIDTHS or num_heads != KERNEL_HEADS:
-        raise ValueError(f"attn_stats kernel takes d in {KERNEL_WIDTHS} with "
-                         f"{KERNEL_HEADS} heads, got d={d}, heads={num_heads}")
+    _require_cell("attn_stats", d, num_heads, x.dtype)
     if x.dtype == torch.float32:
         return _attn_stats_f32(x, mask, Wk, Wv, num_heads=num_heads)
     _check(x, "x", torch.bfloat16, (B, S, d))
@@ -191,14 +214,14 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
     hd = d // num_heads
     nkv, per = num_heads * hd * hd, num_heads * hd * hd + d
     sp = stats_tiles(S) * STATS_TILE
-    wpack = pack_stats_weights(Wk, Wv)
+    wpack = pack_stats_weights(Wk, Wv, num_heads=num_heads)
     # One allocation: KV, K_sum, then the bf16 K'/V workspace (B, H, sp, 2 hd).
     buf = torch.empty(B * per + B * sp * d, device=x.device, dtype=torch.float32)
     KV = buf[:B * nkv].view(B, num_heads, hd, hd)
     ksum = buf[B * nkv:B * per].view(B, d)
     err = _build.kernels().scream_attn_stats(
         x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), buf[B * per:].data_ptr(),
-        KV.data_ptr(), ksum.data_ptr(), B, S, d, _build.stream_ptr(x))
+        KV.data_ptr(), ksum.data_ptr(), B, S, d, num_heads, _build.stream_ptr(x))
     _build.check(err, "attn_stats")
     attn_stats.launches += 1
     return KV, ksum
@@ -226,7 +249,7 @@ def _attn_stats_f32(x, mask, Wk, Wv, *, num_heads):
     ksum = buf[B * nkv:B * per].view(B, d)
     err = _build.kernels().scream_attn_stats_f32(
         x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
-        buf[B * per:].data_ptr(), KV.data_ptr(), ksum.data_ptr(), B, S, d,
+        buf[B * per:].data_ptr(), KV.data_ptr(), ksum.data_ptr(), B, S, d, num_heads,
         _build.stream_ptr(x))
     _build.check(err, "attn_stats")
     attn_stats.launches += 1
@@ -243,11 +266,10 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     B, L, d = x.shape
     hid = W1.shape[1]
     H = KV.shape[1]
-    if d not in KERNEL_WIDTHS or H != KERNEL_HEADS or hid % KERNEL_HID_CHUNK:
-        raise ValueError(f"attn_apply kernel takes d in {KERNEL_WIDTHS}, "
-                         f"{KERNEL_HEADS} heads, hidden a multiple of "
-                         f"{KERNEL_HID_CHUNK}; got d={d}, KV {tuple(KV.shape)}, "
-                         f"hidden {hid}")
+    _require_cell("attn_apply", d, H, x.dtype)
+    if hid % KERNEL_HID_CHUNK:
+        raise ValueError(f"attn_apply kernel takes a hidden multiple of "
+                         f"{KERNEL_HID_CHUNK}; got {hid}")
     if norm_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attn_apply kernel: norm dtype {norm_dtype} unsupported")
     if x.dtype == torch.float32:
@@ -274,7 +296,7 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     err = _build.kernels().scream_attn_apply(
         x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), KV.data_ptr(),
         ksum.data_ptr(), g1.data_ptr(), b1.data_ptr(), g2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), B, L, d, hid, float(attn_eps), float(ln_eps),
+        out.data_ptr(), B, L, d, H, hid, float(attn_eps), float(ln_eps),
         _build.stream_ptr(x))
     _build.check(err, "attn_apply")
     attn_apply.launches += 1
@@ -303,7 +325,7 @@ def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     err = _build.kernels().scream_attn_apply_f32(
         x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(), ksum.data_ptr(),
         Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(), W1.data_ptr(), W2.data_ptr(),
-        g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, hid, float(attn_eps),
+        g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, H, hid, float(attn_eps),
         float(ln_eps), int(norm_dtype == torch.bfloat16), _build.stream_ptr(x))
     _build.check(err, "attn_apply")
     attn_apply.launches += 1

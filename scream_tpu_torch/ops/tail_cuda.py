@@ -39,6 +39,7 @@ from scream_tpu_torch.ops.ffn import tail_plain
 KERNEL_WIDTHS = (128, 256, 384, 512)
 KERNEL_WIDTHS_F32 = (128, 256, 384)
 KERNEL_HID_CHUNK = 128
+APPLY_MAX_WIDTH = 384  # the widest d of the apply kernel, which packs Wq in front
 
 
 def kernel_takes(d: int, hid: int, dtype: torch.dtype) -> bool:
@@ -79,9 +80,9 @@ def pack_weights(Wm, W1, W2, Wq=None) -> torch.Tensor:
     # stage 32 k-rows of a (., d) weight.
     cols = 2 if d > 256 else 1
     hc, ks_h, nch = 64 * cols, d // (2 * cols), hid // (64 * cols)
-    if Wq is not None and (tuple(Wq.shape) != (d, d) or cols != 1):
-        raise ValueError(f"pack_weights: Wq must be ({d}, {d}) at d <= 256 (the "
-                         f"apply kernel's widths), got {tuple(Wq.shape)}")
+    if Wq is not None and (tuple(Wq.shape) != (d, d) or d > APPLY_MAX_WIDTH):
+        raise ValueError(f"pack_weights: Wq must be ({d}, {d}) at d <= {APPLY_MAX_WIDTH} "
+                         f"(the apply kernel's widths), got {tuple(Wq.shape)}")
     ws = ([Wq] if Wq is not None else []) + [Wm, W1, W2]
     if any(not w.is_floating_point() or w.device != W1.device for w in ws):
         raise ValueError("pack_weights: float weights on one device")

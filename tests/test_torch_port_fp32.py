@@ -299,9 +299,10 @@ def test_fp32_tensors_launch_the_fp32_attention_kernels(fake_cuda, d):
     names = [c[0] for c in fake_cuda.calls]
     assert names == ["scream_attn_stats_f32", "scream_attn_apply_f32"]
     stats_ints, apply_args = fake_cuda.calls[0][1], fake_cuda.calls[1][1]
-    # Pointers are ints too: the shapes come last but for the stream (0).
-    assert stats_ints[-4:] == [B, L, d, 0]
-    assert apply_args[-8:-2] == [B, L, d, hid, pytest.approx(1e-6), pytest.approx(1e-5)]
+    # Pointers are ints too: the shapes and the head count come last but
+    # for the stream (0).
+    assert stats_ints[-5:] == [B, L, d, H, 0]
+    assert apply_args[-9:-2] == [B, L, d, H, hid, pytest.approx(1e-6), pytest.approx(1e-5)]
     assert apply_args[-2] == 1  # bf16 norm dtype
     assert (attn_cuda.attn_stats.launches, attn_cuda.attn_apply.launches) == (n0[0] + 1,
                                                                               n0[1] + 1)

@@ -178,12 +178,16 @@ class TestAttentionBlock:
         assert fusable(128, 512, 8, torch.bfloat16)
         assert fusable(256, 1024, 8, torch.float32)
         assert fusable(128, 512, 8, torch.float32)
-        assert not fusable(256, 1024, 16, torch.bfloat16)
+        assert fusable(256, 1024, 16, torch.bfloat16)
+        assert fusable(384, 1536, 8, torch.bfloat16)
         assert not fusable(512, 2048, 16, torch.bfloat16)
-        # The JAX rule alone admits other head splits, and bf16 at d 384.
-        assert attn_cuda.jax_fusable_block(384, 1536, 8, torch.bfloat16)
-        assert not attn_cuda.kernels_take(384, 1536, 8, torch.bfloat16)
-        assert attn_cuda.jax_fusable_block(256, 1024, 16, torch.bfloat16)
+        # The JAX rule alone admits head dims the kernels lack (24 at d 384,
+        # 128 at d 256), and fp32 at d 384 is out of its budget.
+        assert attn_cuda.jax_fusable_block(384, 1536, 16, torch.bfloat16)
+        assert not attn_cuda.kernels_take(384, 1536, 16, torch.bfloat16)
+        assert attn_cuda.jax_fusable_block(256, 1024, 2, torch.bfloat16)
+        assert not attn_cuda.kernels_take(256, 1024, 2, torch.bfloat16)
+        assert not attn_cuda.jax_fusable_block(384, 1536, 8, torch.float32)
         assert not attn_cuda.jax_fusable_block(512, 2048, 16, torch.bfloat16)
 
     @pytest.mark.parametrize("L,S", [(128, 128), (100, 200)])
@@ -263,8 +267,8 @@ class TestCudaRouting:
         self._run(d, 8, dtype)
         assert cuda_like == [8]
 
-    @pytest.mark.parametrize("d,heads,dtype", [(256, 16, torch.bfloat16),
-                                               (384, 8, torch.bfloat16)])
+    @pytest.mark.parametrize("d,heads,dtype", [(256, 2, torch.bfloat16),
+                                               (384, 16, torch.bfloat16)])
     def test_admitted_shapes_the_kernels_do_not_take_raise(self, cuda_like, d, heads,
                                                            dtype):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -84,7 +84,7 @@ def weights(d, hid, seed, with_wq=False):
     return [torch.from_numpy(w) for w in ws], (torch.from_numpy(wq) if with_wq else None)
 
 
-CASES = [("tail", d) for d in tail_cuda.KERNEL_WIDTHS] + [("apply", d) for d in (128, 256)]
+CASES = [("tail", d) for d in tail_cuda.KERNEL_WIDTHS] + [("apply", d) for d in (128, 256, 384)]
 
 
 @pytest.mark.parametrize("kind,d", CASES)
@@ -144,7 +144,7 @@ def test_tail_from_the_walked_blob_is_the_jax_tail(d):
     (((128, 128), (128, 200), (200, 128)), None),      # hidden not in 128s
     (((256, 256), (256, 1024), (1024, 128)), None),    # W2 does not match
     (((128, 256), (128, 512), (512, 128)), None),      # Wm not square
-    (((512, 512), (512, 2048), (2048, 512)), (512, 512)),  # apply takes d <= 256
+    (((512, 512), (512, 2048), (2048, 512)), (512, 512)),  # apply takes d <= 384
     (((256, 256), (256, 1024), (1024, 256)), (256, 128)),  # Wq not square
 ])
 def test_packer_rejects_shapes_the_kernels_do_not_take(shapes, wq):

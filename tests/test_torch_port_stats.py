@@ -108,14 +108,15 @@ def walk_stats_blob(blob, d):
 def test_stats_blob_walks_back_to_wk_wv(d):
     rng = np.random.default_rng(d)
     Wk, Wv = (rng.standard_normal((d, d)).astype(np.float32) for _ in range(2))
-    blob = attn_cuda.pack_stats_weights(t(Wk), t(Wv))
+    blob = attn_cuda.pack_stats_weights(t(Wk), t(Wv), num_heads=H)
     assert blob.dtype == torch.bfloat16 and blob.shape == (2 * d * d,)
     got_k, got_v, counts = walk_stats_blob(blob, d)
     assert (counts == 1).all()  # a permutation of [Wk|Wv]
     np.testing.assert_array_equal(got_k, bf16(Wk))
     np.testing.assert_array_equal(got_v, bf16(Wv))
     # bf16 weights pack to the same blob.
-    same = attn_cuda.pack_stats_weights(t(Wk).to(torch.bfloat16), t(Wv).to(torch.bfloat16))
+    same = attn_cuda.pack_stats_weights(t(Wk).to(torch.bfloat16), t(Wv).to(torch.bfloat16),
+                                          num_heads=H)
     assert torch.equal(same, blob)
 
 
@@ -123,7 +124,8 @@ def test_stats_blob_walks_back_to_wk_wv(d):
                                     ((128, 256), (128, 256))])
 def test_stats_pack_rejects_shapes_the_kernel_does_not_take(shapes):
     with pytest.raises(ValueError):
-        attn_cuda.pack_stats_weights(torch.zeros(shapes[0]), torch.zeros(shapes[1]))
+        attn_cuda.pack_stats_weights(torch.zeros(shapes[0]), torch.zeros(shapes[1]),
+                                     num_heads=H)
 
 
 def emulate_stats(x, mask, Wk, Wv, grid):

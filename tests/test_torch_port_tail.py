@@ -119,7 +119,8 @@ class TestBlockTail:
 ROUTES = list(itertools.product((128, 256, 384, 512, 640), ("bfloat16", "float32"),
                                 (None, False, True), (None, False), (True, False)))
 # The shapes the port's CUDA kernels are written for (8 heads, hidden 4d).
-FUSED_KERNEL = {(d, dt) for d in (128, 256) for dt in ("bfloat16", "float32")}
+FUSED_KERNEL = {(d, dt) for d in (128, 256) for dt in ("bfloat16", "float32")} \
+    | {(384, "bfloat16")}
 TAIL_KERNEL = ({(d, "bfloat16") for d in (128, 256, 384, 512)}
                | {(d, "float32") for d in (128, 256, 384)})
 
