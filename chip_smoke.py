@@ -147,7 +147,31 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     and on the 3DMatch checkpoint train wrote ``evaluate 3dmatch
     --bucketed --d-model 384 --params`` and ``register --d-model 384
     --params`` (stats and apply launches > 0 in each);
-16. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+16. path 9, multiway registration, the robust GT-free measurement,
+    multi-scale training and the geometry library: (a) 16 seeded scans of
+    4,096 points of one ``make_scene`` scene (consecutive views <= 10 deg
+    and 0.1 apart) through ``register_multiway`` with the hint-free
+    checkpoint (window 2: 29 edges, one scan-to-map round; launches, wall,
+    pose errors), ``synchronize_poses`` twice on the card (bit for bit, its
+    host waits), ``refine_to_map`` of the synchronized poses perturbed by
+    0.03 rad / 0.03 (must lower the largest pose errors), the bounded NN at
+    the map's shape (4,096 x 65,536) against its plain version on 1,024 src
+    rows, and ``register --scans`` in a subprocess (poses within 1e-5 of
+    the in-process ones); (b) ``scripts/torch_port_measure_gt_free.py`` at
+    16 x 448 with ``--starts oct24 --max-angle-deg 90`` and ``--starts ico60
+    --max-angle-deg 180`` (finite rows), stats and apply (fp32) at the ico60
+    passes' 60 lanes x 512 against their plain versions; (c) the 3DMatch
+    preset's steps on the ``--multi-scale`` loader's 256- and 4,096-point
+    batches, stats and apply at the 8 x 256 bucket's first-block input, pairs/s
+    by bucket, ``train 3dmatch --multi-scale`` in a subprocess; (d) normals,
+    the voxel downsample (against the native library), so3 / se3 exp and
+    log on the card against the CPU path. The CPU path's sides (the first
+    dispatch of 8 edges, the first 4 ico60 pairs, the bucketed steps) run
+    in a child process at nice 19 from path 4 on; the card's results are
+    held to them at the end (path 2's transform bar on at most 1 of 8 edges
+    and 1 of 4 pairs, ``synchronize_poses`` 1e-4, the steps' point_loss 2e-2
+    and gradient norm 5e-2);
+17. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -162,7 +186,8 @@ the tail kernel at every width it takes (bf16 d 128-512 at ragged and the
 DEM path's row counts, fp32 d 128-384), ``--only apply`` stats and apply at
 path 1's shape (gates included) and at every (d, heads, dtype) cell;
 ``--only ingest`` runs phases 1-2 and path 6, ``--only fp32`` path 7,
-``--only d384`` path 8. None prints a result line.
+``--only d384`` path 8, ``--only multiway`` path 9 (its CPU references'
+child started with it). None prints a result line.
 """
 
 import faulthandler
@@ -289,9 +314,33 @@ NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
 # loses to them fails.
 SPLAT_GATE_MS, NN_EXACT_GATE_MS = 1.6378, 0.177
 TIME_ROUNDS = 3
+# Path 9, multiway registration, the robust GT-free measurement, multi-scale
+# training and the geometry library. Multiway: MW_SCANS views of one
+# make_scene scene, MW_POINTS points each (a 70 % subset), consecutive views
+# at most MW_STEP_DEG and MW_STEP_T apart, MW_WINDOW edges a scan (29 edges);
+# the scan-to-map polish of the synchronized poses perturbed by MW_PERTURB
+# rad and MW_PERTURB, MW_REFINE_ROUNDS rounds (tests/test_multiway.py's); the
+# bounded NN at the map's shape held to its plain version on MAP_CHECK_ROWS
+# src rows. The measurement script at MEASURE_PAIRS x MEASURE_POINTS for each
+# of MEASURE_RUNS. Multi-scale: the 3DMatch preset's steps on the loader's
+# MS_BUCKETS batches (the CPU path's step at 4,096 on MS_CPU_PAIRS pairs),
+# MS_ITERS timed steps a bucket, the CLI on MS_CLI_PAIRS synthetic pairs a
+# bucket and tier. The CPU path's sides of the comparisons (EDGE_CPU_DISPATCH
+# edges, ROBUST_CPU_PAIRS ico60 pairs, the two steps) run in a child process
+# at nice 19 from path 4 on (path9_cpu); the card waits at most
+# PATH9_CPU_WAIT_S for it after its own work.
+WORK9 = os.path.join("build", "chip_smoke_path9")
+MW_SCANS, MW_POINTS, MW_WINDOW, MW_STEP_DEG, MW_STEP_T, MW_SEED = 16, 4096, 2, 10.0, 0.1, 1500
+MW_PERTURB, MW_REFINE_ROUNDS, MAP_CHECK_ROWS, SYNC_TOL = 0.03, 2, 1024, 1e-4
+MEASURE_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                              "torch_port_measure_gt_free.py")
+MEASURE_PAIRS, MEASURE_POINTS = 16, 448
+MEASURE_RUNS = (("oct24", 90.0), ("ico60", 180.0))
+MS_BUCKETS, MS_CPU_PAIRS, MS_ITERS, MS_CLI_PAIRS = (256, 4096), 2, 5, 8
+EDGE_CPU_DISPATCH, ROBUST_CPU_PAIRS, PATH9_CPU_WAIT_S, VOXEL = 8, 4, 420, 0.05
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact", "tail", "apply")  # kernels --only can check alone
-ONLY_PATHS = ("ingest", "fp32", "d384")  # paths --only can run alone
+ONLY_PATHS = ("ingest", "fp32", "d384", "multiway")  # paths --only can run alone
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -2267,36 +2316,15 @@ def load_weights(path, device, cls=None, dtype=None):
 
 def log_syncs(model, batch):
     """The host waits inside one steady-state ``register_batch`` on a staged
-    batch (``torch.cuda.set_sync_debug_mode("warn")``), counted by the line
-    that asked for them."""
-    import collections
-    import linecache
-    import warnings
-
-    import torch
-
+    batch (:func:`log_sync_waits`)."""
     from scream_tpu_torch.data import prefetch_to_device
     from scream_tpu_torch.pipeline.register import register_batch
 
     staged = next(prefetch_to_device([batch], device=DEV))
-    register_batch(model, staged, icp_max_iter=ICP_ITERS, device=DEV)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            register_batch(model, staged, icp_max_iter=ICP_ITERS, device=DEV)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    # Waits asked for by the port's lines (not by the debug-mode switch itself).
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno} "
-        f"({linecache.getline(w.filename, w.lineno).strip()[:60]})" for w in caught
-        if "synchroniz" in str(w.message) and "scream_tpu_torch" in w.filename)
-    log(f"path 5 syncs in one steady-state register_batch ({B} x {CAP}, staged): "
-        f"{sum(where.values())} | {json.dumps(dict(where))}")
-    return sum(where.values())
+    run = lambda: register_batch(model, staged, icp_max_iter=ICP_ITERS, device=DEV)
+    run()
+    return log_sync_waits(run, f"path 5 syncs in one steady-state register_batch "
+                               f"({B} x {CAP}, staged)")[1]
 
 
 def phase_eval_3dmatch(model, model_cpu, root):
@@ -3427,6 +3455,652 @@ def phase_apply_cells():
     phase_attention_cells(attention_cells(new_only=False))
 
 
+def make_scans():
+    """MW_SCANS seeded views of one ``make_scene`` scene, each MW_POINTS
+    points (a 70 % subset of the scene), each in its own frame; consecutive
+    views at most MW_STEP_DEG and MW_STEP_T apart. Returns (scans, the
+    (N, 4, 4) true scan -> world poses)."""
+    import numpy as np
+
+    from scream_tpu_torch.data import make_scene
+    from scream_tpu_torch.data.transforms import rodrigues, uniform_2_sphere
+
+    rng = np.random.default_rng(MW_SEED)
+    n_scene = round(MW_POINTS / 0.7)
+    scene = make_scene(rng, n_scene)
+    T = [np.eye(4)]
+    for _ in range(MW_SCANS - 1):
+        D = np.eye(4)
+        D[:3, :3] = rodrigues(uniform_2_sphere(rng) * np.deg2rad(rng.uniform(0, MW_STEP_DEG)))
+        D[:3, 3] = uniform_2_sphere(rng) * rng.uniform(0, MW_STEP_T)
+        T.append(T[-1] @ D)
+    scans = []
+    for Tk in T:
+        inv = np.linalg.inv(Tk)
+        pts = scene[rng.choice(n_scene, MW_POINTS, replace=False)]
+        scans.append((pts @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32))
+    return scans, np.stack(T).astype(np.float32)
+
+
+def pose_errors(P, T):
+    """(max rotation error in degrees, max translation error) of the poses
+    ``P`` against ``T``."""
+    import numpy as np
+
+    tr = np.einsum("nij,nij->n", P[:, :3, :3], T[:, :3, :3])
+    rot = np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+    return float(rot.max()), float(np.linalg.norm(P[:, :3, 3] - T[:, :3, 3], axis=-1).max())
+
+
+def multiscale_batches():
+    """The first batch of each bucket (256 .. 4,096 points) of ``train
+    3dmatch --multi-scale``'s training loader (synthetic pairs, 8 a bucket
+    and overlap tier), as the CLI builds it."""
+    from scream_tpu_torch import cli
+
+    _, train_cfg, data_cfg, _ = cli.TASKS["3dmatch"]()
+    train, _ = cli._registration_loaders("3dmatch", data_cfg, train_cfg,
+                                         os.path.join(WORK9, "no-data"),
+                                         synthetic_len=train_cfg.batch_size, multi_scale=True)
+    found = {}
+    for batch in train:
+        found.setdefault(batch["src"].shape[1], batch)
+    check(sorted(found) == [256, 512, 1024, 2048, 4096], f"multi-scale buckets {sorted(found)}")
+    return found
+
+
+def ms_init_state():
+    """The 3DMatch preset's generator from a seeded init (on the CPU)."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+
+    model = PointTransformer(ModelConfig(), device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def ms_step(device, init_state, batch):
+    """One generator step (GAN off) of the 3DMatch preset from ``init_state``
+    on ``batch``: (point_loss, gradient norm)."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (generator_optimizer, init_train_state,
+                                        make_registration_train_step)
+
+    model = PointTransformer(ModelConfig(), device=device)
+    model.load_state_dict(init_state)
+    opt, sched = generator_optimizer(model.parameters(), TrainConfig(), steps_per_epoch=1000)
+    step = make_registration_train_step(model, use_gan=False, render_cfg=RenderConfig())
+    _, metrics, _ = step(init_train_state(opt, sched), to_device(batch, device))
+    gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters()))
+    return float(metrics["point_loss"]), float(gnorm)
+
+
+def ms_cpu_batch(batch, bucket):
+    """What the CPU path's step takes of a bucket's batch: all of it at 256
+    points, its first MS_CPU_PAIRS pairs at 4,096."""
+    if bucket == max(MS_BUCKETS):
+        return {k: v[:MS_CPU_PAIRS] for k, v in batch.items()}
+    return batch
+
+
+def measure_argv(starts, max_deg, pairs=None, device=None):
+    """The measurement script's arguments: the robust path (passes 0)."""
+    return ["--pairs", str(pairs or MEASURE_PAIRS), "--points", str(MEASURE_POINTS),
+            "--passes", "0", "--starts", starts, "--max-angle-deg", str(max_deg),
+            "--device", device or DEV]
+
+
+def load_measure_script():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_measure_gt_free",
+                                                  MEASURE_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def path9_cpu_refs():
+    """The CPU path's side of path 9's comparisons: the bucketed steps at 256
+    and 4,096 points, the first dispatch of EDGE_CPU_DISPATCH edges of the
+    multiway scans, and the robust ico60 path on the first ROBUST_CPU_PAIRS
+    measurement pairs. Returns (arrays, seconds by part)."""
+    import numpy as np
+
+    from scream_tpu_torch.pipeline import default_edges, register_pairs
+
+    res, secs = {}, {}
+    t0 = time.perf_counter()
+    batches, init = multiscale_batches(), ms_init_state()
+    for b in MS_BUCKETS:
+        res[f"ms_{b}"] = np.asarray(ms_step("cpu", init, ms_cpu_batch(batches[b], b)))
+    secs["multiscale"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    scans, _ = make_scans()
+    hf, normalize = load_hintfree("cpu")
+    edges = default_edges(MW_SCANS, MW_WINDOW)[:EDGE_CPU_DISPATCH]
+    got = register_pairs(hf, [(scans[i], scans[j]) for i, j in edges], normalize=normalize,
+                         batch_size=EDGE_CPU_DISPATCH, passes=1, device="cpu")
+    res["edges_T"] = np.stack([r.transform for r in got])
+    res["edges_fitness"] = np.asarray([r.fitness for r in got])
+    secs["edges"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, transforms = load_measure_script().run(measure_argv("ico60", 180.0, ROBUST_CPU_PAIRS,
+                                                           "cpu"))
+    res["robust_T"] = transforms[0]
+    secs["robust"] = time.perf_counter() - t0
+    return res, secs
+
+
+def path9_cpu(out):
+    """:func:`path9_cpu_refs` in the child process (``--path9-cpu OUT``), at
+    the lowest priority, dying with its parent; saves the results to
+    ``out``."""
+    import ctypes
+    import signal
+
+    import numpy as np
+
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG: die with the parent
+    os.nice(19)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    res, secs = path9_cpu_refs()
+    np.savez(out + ".tmp.npz", seconds=json.dumps(secs), **res)
+    os.replace(out + ".tmp.npz", out)
+    print(f"path 9 CPU references: {json.dumps(secs)}", flush=True)
+
+
+def start_path9_cpu():
+    """Start :func:`path9_cpu` in a child process; returns (process, output)."""
+    import shutil
+
+    shutil.rmtree(WORK9, ignore_errors=True)
+    os.makedirs(WORK9)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root, env = repo_env()
+    out = os.path.join(os.path.abspath(WORK9), "cpu_refs.npz")
+    with open(os.path.join(OUT_DIR, "chip_smoke_path9_cpu.log"), "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--path9-cpu", out],
+                                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
+    log(f"path 9: CPU references started in a child process (pid {proc.pid}, nice 19)")
+    return proc, out
+
+
+def stop_child(child):
+    """Kill the child process if it still runs (a failed path, a cut run)."""
+    proc, _ = child
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def wait_path9_cpu(child):
+    """The child's results, once it has finished (it must end within
+    PATH9_CPU_WAIT_S of this call)."""
+    import numpy as np
+
+    proc, out = child
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=PATH9_CPU_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"path 9 CPU references: not done {PATH9_CPU_WAIT_S} s after "
+                             "the card's work")
+    with open(os.path.join(OUT_DIR, "chip_smoke_path9_cpu.log")) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0 and os.path.exists(out), f"path 9 CPU references: exit {rc}:\n{tail}")
+    refs = dict(np.load(out))
+    log(f"path 9: waited {time.perf_counter() - t0:.1f} s for the CPU references "
+        f"({refs.pop('seconds')} s of work at nice 19)")
+    return refs
+
+
+def log_sync_waits(fn, label):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the host
+    waits it asks for, counted by the port's line that asked for them (not
+    the debug-mode switch itself). Returns (result, count)."""
+    import collections
+    import linecache
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno} "
+        f"({linecache.getline(w.filename, w.lineno).strip()[:60]})" for w in caught
+        if "synchroniz" in str(w.message) and "scream_tpu_torch" in w.filename)
+    log(f"{label}: {sum(where.values())} | {json.dumps(dict(where))}")
+    return result, sum(where.values())
+
+
+def phase_multiway(hf, normalize, scans, T_gt):
+    """Path 9 (a) on the card: ``register_multiway`` (window 2, one
+    scan-to-map round, the CLI's defaults) timed with its launches; the
+    edges' ``register_pairs`` (their transforms: the synchronization's
+    input); ``synchronize_poses`` twice on the card (bit for bit) with its
+    host waits; the scan-to-map polish of perturbed poses; the bounded NN at
+    the map's shape against its plain version; the CLI in a subprocess.
+    Returns (records, launches, results, what the CPU comparison needs)."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.data import pad_cloud
+    from scream_tpu_torch.data.transforms import rodrigues
+    from scream_tpu_torch.ops import launch_counts, nn_cuda, reset_launch_counts
+    from scream_tpu_torch.pipeline import (default_edges, refine_to_map, register_multiway,
+                                           register_pairs, synchronize_poses)
+    from scream_tpu_torch.pipeline.register import _default_capacity
+
+    edges = default_edges(MW_SCANS, MW_WINDOW)
+    kw = dict(normalize=normalize, batch_size=SERVE_BATCH, passes=2, device=DEV)
+    register_multiway(hf, scans[:3], edges=default_edges(3, MW_WINDOW), **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = register_multiway(hf, scans, edges=edges, refine_rounds=1, **kw)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(all(counts[k] > 0 for k in PATH2_KERNELS) and np.isfinite(res.poses).all()
+          and np.array_equal(res.poses[0], np.eye(4, dtype=np.float32))
+          and len(res.edges) == len(edges),
+          f"register_multiway: launches {counts}, finite {np.isfinite(res.poses).all()}, "
+          f"gauge {res.poses[0].tolist()}")
+    rot, tr = pose_errors(res.poses, T_gt)
+    log(f"path 9 register_multiway ({MW_SCANS} scans x {MW_POINTS}, window {MW_WINDOW}: "
+        f"{len(edges)} edges, passes 2, refine_rounds 1, hint-free d128, {hf.cfg.dtype}): "
+        f"{wall:.2f} s | poses against the truth: max {rot:.4f} deg, {tr:.5f} | edge fitness "
+        f"min {res.edge_fitness.min():.4f} median {float(np.median(res.edge_fitness)):.4f} | "
+        f"launches {json.dumps(counts)}")
+
+    pairs = [(scans[i], scans[j]) for i, j in edges]
+    rel = register_pairs(hf, pairs, normalize=normalize, batch_size=SERVE_BATCH, passes=2,
+                         device=DEV)
+    rel_T = np.stack([r.transform for r in rel])
+    w = np.asarray([r.fitness for r in rel], np.float32)
+    same_fit = bool(np.array_equal(w, res.edge_fitness))
+    first = register_pairs(hf, pairs[:EDGE_CPU_DISPATCH], normalize=normalize,
+                           batch_size=EDGE_CPU_DISPATCH, passes=1, device=DEV)
+    sync = lambda: synchronize_poses(MW_SCANS, edges, rel_T, weights=w, device=DEV)
+    P1, waits = log_sync_waits(sync, f"path 9 synchronize_poses on the card ({MW_SCANS} "
+                               f"scans, {len(edges)} edges, 100 sweeps)")
+    t0 = time.perf_counter()
+    P2 = sync()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(P1, P2), "synchronize_poses: two runs on the card differ")
+    rot_s, tr_s = pose_errors(P1, T_gt)
+    log(f"path 9 synchronize_poses: two card runs bit identical, {sync_ms:.1f} ms, "
+        f"{waits} host waits; poses against the truth max {rot_s:.4f} deg, {tr_s:.5f}; "
+        f"register_multiway's edge fitness equal to these edges' {same_fit}")
+
+    # The scan-to-map polish, fed the synchronized poses perturbed by
+    # MW_PERTURB rad and MW_PERTURB (tests/test_multiway.py's test of it).
+    rng = np.random.default_rng(MW_SEED + 1)
+    noisy = P1.copy()
+    for k in range(1, MW_SCANS):
+        noisy[k, :3, :3] = (rodrigues(rng.normal(size=3) * MW_PERTURB)
+                            @ noisy[k, :3, :3]).astype(np.float32)
+        noisy[k, :3, 3] += (rng.normal(size=3) * MW_PERTURB).astype(np.float32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    refined = refine_to_map(scans, noisy, 0.1, rounds=MW_REFINE_ROUNDS, device=DEV)
+    refine_s = time.perf_counter() - t0
+    refine_counts = launch_counts()
+    (b_rot, b_tr), (a_rot, a_tr) = pose_errors(noisy, T_gt), pose_errors(refined, T_gt)
+    check(a_rot < b_rot and a_tr < b_tr and np.array_equal(refined[0], noisy[0]),
+          f"refine_to_map: max errors {b_rot:.4f} deg / {b_tr:.5f} -> {a_rot:.4f} / {a_tr:.5f}")
+    log(f"path 9 refine_to_map ({MW_REFINE_ROUNDS} rounds) of the synchronized poses "
+        f"perturbed by {MW_PERTURB} rad / {MW_PERTURB}: max errors against the truth "
+        f"{b_rot:.4f} deg / {b_tr:.5f} -> {a_rot:.4f} deg / {a_tr:.5f} (ratios "
+        f"{a_rot / b_rot:.3f} / {a_tr / b_tr:.3f}); {refine_s:.2f} s; nn_bounded_single "
+        f"launches {refine_counts['nn_bounded_single']}")
+
+    # The bounded NN at the map's shape: scan 1 against the other scans in
+    # the world frame, as refine_to_map pads them (ICP's view at its pose).
+    world = [s @ P1[k, :3, :3].T + P1[k, :3, 3] for k, s in enumerate(scans)]
+    cap = _default_capacity(sum(len(s) for s in scans))
+    on = lambda a: torch.as_tensor(a, device=DEV)[None]
+    (sp, sm) = pad_cloud(world[1].astype(np.float32), _default_capacity(MW_POINTS))
+    (mp, mm) = pad_cloud(np.concatenate(world[:1] + world[2:]).astype(np.float32), cap)
+    s_t, dst = icp_view(on(sp), on(mp), on(sm), on(mm),
+                        torch.eye(4, device=DEV)[None])
+    thresh_sq = float(torch.tensor(0.1, dtype=torch.float32) ** 2)
+    no = torch.zeros(1, dtype=torch.bool, device=DEV)
+    boxes = nn_cuda.nn_tile_boxes(dst)
+    d2, xyz = nn_cuda.nn_bounded_single(s_t, dst, thresh_sq, boxes=boxes)
+    rows = slice(0, MAP_CHECK_ROWS)
+    d2p, xyzp = nn_cuda.nn_bounded_plain(s_t[:, rows].contiguous(), dst, thresh_sq, None)
+    torch.cuda.synchronize()
+    within = d2p < thresh_sq
+    abs_err = float((d2[:, rows] - d2p)[within].abs().max())
+    exact = bool(torch.equal(xyz[:, rows][within], xyzp[within]))
+    outside = bool((d2[:, rows][~within] >= thresh_sq).all())
+    check(abs_err <= 1e-6 and exact and outside and int(within.sum()) > 0,
+          f"nn_bounded_single at the map shape: distance error {abs_err:.3g}, winners equal "
+          f"{exact}, outside ok {outside}")
+    ms, ms_all = timed(lambda: nn_cuda.nn_bounded_single(s_t, dst, thresh_sq, boxes=boxes))
+    pms = cuda_ms(lambda: nn_cuda.nn_bounded_plain(s_t[:, rows].contiguous(), dst, thresh_sq,
+                                                   None), reps=3)
+    live, total = live_pairs(s_t, dst, thresh_sq)
+    n_src = s_t.shape[1]
+    b_ms, b_by = bound(n_src * 12 + cap * 12 + n_src * 16,
+                       [(NN_INSTR_PER_PAIR * live * 128 * 256 + NN_INSTR_PER_ROW * live * 256,
+                         INSTR_FP32)])
+    log(f"kernel nn_bounded_single {n_src} x {cap} (the map of {MW_SCANS - 1} scans, "
+        f"{nn_cuda.bounded_splits(1, n_src, cap)} splits): exact within the threshold on "
+        f"{MAP_CHECK_ROWS} src rows ({int(within.sum())} inliers), timing rounds "
+        f"{', '.join(f'{t:.4f}' for t in ms_all)} ms, plain on {MAP_CHECK_ROWS} rows "
+        f"{pms:.4f} ms, live tile pairs {live} of {total}")
+    record = dict(name="nn_bounded_single_map", err=0.0, max_abs_err=abs_err, ms=ms,
+                  plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                  bar="exact within threshold", route="cuda",
+                  source="scream_tpu_torch/csrc/nn.cu",
+                  replaces="scream_tpu/ops/nn_pallas.py:162", live_share=live / total)
+
+    # The CLI in a subprocess, on the same scans: its poses against the
+    # in-process register_multiway's.
+    root, env = repo_env()
+    paths = []
+    for k, s in enumerate(scans):
+        paths.append(os.path.join(os.path.abspath(WORK9), f"scan{k}.npy"))
+        np.save(paths[-1], s)
+    out = os.path.join(os.path.abspath(WORK9), "poses.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scream_tpu_torch", "register", "--scans",
+                           *paths, "--params", HINTFREE, "--refine-rounds", "1", "--out", out,
+                           "--device", DEV], capture_output=True, text=True, timeout=300,
+                          cwd=root, env=env)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"register --scans: exit {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+    P = np.load(out)
+    err = float(np.abs(P - res.poses).max())
+    check([ln["scan"] for ln in lines] == list(range(MW_SCANS)) and err <= 1e-5
+          and np.array_equal(P[0], np.eye(4, dtype=np.float32))
+          and np.array_equal(np.stack([ln["pose"] for ln in lines]).astype(np.float32), P),
+          f"register --scans: {len(lines)} lines, poses vs in-process {err:.3g}")
+    log(f"path 9 cli: python -m scream_tpu_torch register --scans ({MW_SCANS} files) --params "
+        f"{HINTFREE} --refine-rounds 1 --out ({cli_s:.1f} s wall, subprocess): {len(lines)} "
+        f"pose lines, P[0] the identity, poses vs in-process max err {err:.2e} (bar 1e-5) | "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+    results = {"multiway_s": wall, "multiway_max_err_deg_t": [rot, tr],
+               "synchronize_ms": sync_ms, "synchronize_host_waits": waits,
+               "refine_max_err_before_after": [b_rot, b_tr, a_rot, a_tr],
+               "refine_s": refine_s}
+    compare = dict(first=np.stack([r.transform for r in first]), rel_T=rel_T, w=w,
+                   P_card=P1)
+    return [record], {"nn_bounded_single_map": counts["nn_bounded_single"]}, results, compare
+
+
+def compare_multiway(cmp, refs):
+    """Path 9 (a) against the CPU path: the first dispatch's edge
+    transforms, and ``synchronize_poses`` fed the card's edges on the CPU."""
+    import numpy as np
+
+    from scream_tpu_torch.pipeline import default_edges, synchronize_poses
+
+    diff = np.abs(cmp["first"] - refs["edges_T"]).reshape(EDGE_CPU_DISPATCH, -1).max(-1)
+    n_far = int((diff > TRANSFORM_TOL).sum())
+    check(n_far <= 1, f"multiway edges card vs CPU path: {n_far} of {EDGE_CPU_DISPATCH} beyond "
+          f"{TRANSFORM_TOL} ({diff.tolist()})")
+    P_cpu = synchronize_poses(MW_SCANS, default_edges(MW_SCANS, MW_WINDOW), cmp["rel_T"],
+                              weights=cmp["w"], device="cpu")
+    sync_err = float(np.abs(P_cpu - cmp["P_card"]).max())
+    check(sync_err <= SYNC_TOL, f"synchronize_poses card vs CPU: {sync_err:.3g} > {SYNC_TOL}")
+    log(f"path 9 multiway card vs CPU path: first dispatch of {EDGE_CPU_DISPATCH} edges "
+        f"(passes 1), {n_far} beyond {TRANSFORM_TOL} (bar <= 1), max {diff.max():.3e}, median "
+        f"{float(np.median(diff)):.3e}; synchronize_poses on the card's edges max "
+        f"{sync_err:.2e} (bar {SYNC_TOL})")
+
+
+def phase_measure(hf32):
+    """Path 9 (b): ``scripts/torch_port_measure_gt_free.py`` in-process on the
+    card (oct24 over +-90 deg, ico60 over all of SO(3)); every value finite;
+    stats and apply at the ico60 robust passes' first-block input (60 lanes x
+    512) against their plain versions. Returns (records, launches, rows,
+    the ico60 transforms)."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline import register as reg
+
+    script = load_measure_script()
+    rows, launches, ico = {}, {}, None
+    for starts, deg in MEASURE_RUNS:
+        reset_launch_counts()
+        got, transforms = script.run(measure_argv(starts, deg))
+        counts = launch_counts()
+        row = got[0]
+        flat = [v for v in row.values() if isinstance(v, (int, float))] + \
+            [v for v in (row["margin_succ_q"] or []) + row["margins_failed"]]
+        check(all(math.isfinite(v) for v in flat) and np.isfinite(transforms[0]).all()
+              and all(counts[k] > 0 for k in PATH2_KERNELS[:-1]),
+              f"measure_gt_free --starts {starts}: row {row}, launches {counts}")
+        log(f"path 9 measure_gt_free --starts {starts} --max-angle-deg {deg:g} "
+            f"({MEASURE_PAIRS} x {MEASURE_POINTS}, fp32, robust): {json.dumps(row)} | "
+            f"launches {json.dumps(counts)}")
+        rows[starts] = row
+        launches[starts] = counts
+        if starts == "ico60":
+            ico = transforms[0]
+
+    # Stats and apply at the ico60 robust pass's shape: the first pair's 60
+    # seed lanes through the model, as register_pairs batches them.
+    pair = make_gt_free_pairs(1, MEASURE_POINTS, GT_FREE_SEED, max_angle_deg=180.0)[0]
+    c0 = pair["src"].mean(axis=0)
+    items = [((pair["src"] @ R0.T + (c0 - R0 @ c0)).astype(np.float32), pair["tgt"])
+             for R0 in reg._rotation_starts("ico60")]
+    b = reg._normalized_batch(items, "unit_sphere", 512, DEV)
+    x, m_bool = block_input(hf32, hf32.trunk.stem_0,
+                            (b["src"], b["tgt"], b["src_mask"], b["tgt_mask"], None))
+    records = check_attention(hf32.trunk.stem_0, m_bool, suffix="_f32_robust60", x=x,
+                              dtype=torch.float32)
+    log_records(records)
+    return records, {"attn_stats_f32_robust60": launches["ico60"]["attn_stats"],
+                     "attn_apply_f32_robust60": launches["ico60"]["attn_apply"]}, rows, ico
+
+
+def phase_multiscale(smi):
+    """Path 9 (c): the multi-scale loader's batches on the card: stats and
+    apply at the 8 x 256 bucket's first-block input against their plain
+    versions, the bucketed steps' outputs for the CPU comparison, timed
+    steps per bucket (pairs/s), and ``train 3dmatch --multi-scale`` in a
+    subprocess. Returns (records, launches, results, the card's steps)."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+    from scream_tpu_torch.train import (generator_optimizer, init_train_state,
+                                        make_registration_train_step)
+
+    batches, init = multiscale_batches(), ms_init_state()
+    steps = {b: ms_step(DEV, init, ms_cpu_batch(batches[b], b)) for b in MS_BUCKETS}
+    model = PointTransformer(ModelConfig(), device=DEV)
+    model.load_state_dict(init)
+    tb = to_device(batches[min(MS_BUCKETS)], DEV)
+    x, m_bool = block_input(model, model.trunk.stem_0,
+                            (tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                             gt_center_hint(tb["rot"], tb["trans"])))
+    records = check_attention(model.trunk.stem_0, m_bool, suffix="_ms256", x=x)
+    log_records(records)
+
+    # Training rate per bucket: MS_ITERS timed steps after one warm-up.
+    opt, sched = generator_optimizer(model.parameters(), TrainConfig(), steps_per_epoch=1000)
+    step = make_registration_train_step(model, use_gan=False, render_cfg=RenderConfig())
+    state = init_train_state(opt, sched)
+    rates = {}
+    reset_launch_counts()
+    for b in sorted(batches):
+        tb = to_device(batches[b], DEV)
+        state, metrics, _ = step(state, tb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MS_ITERS):
+            state, metrics, _ = step(state, tb)
+        float(metrics["point_loss"])
+        rates[b] = MS_ITERS * tb["src"].shape[0] / (time.perf_counter() - t0)
+    counts = launch_counts()
+    check(counts["attn_stats"] > 0 and counts["attn_apply"] > 0,
+          f"bucketed training: launches {counts}")
+    log(f"path 9 multi-scale training (3DMatch preset, d 256, 6 + 6, bf16, GAN off) on {smi}: "
+        f"pairs/s by bucket {json.dumps({b: round(r, 2) for b, r in rates.items()})} | "
+        f"launches {json.dumps(counts)}")
+
+    ck = os.path.join(os.path.abspath(WORK9), "cli_multiscale")
+    final, (out, cli_counts), wall = run_cli(
+        ["train", "3dmatch", "--multi-scale", "--epochs", "2", "--synthetic-pairs",
+         str(MS_CLI_PAIRS), "--checkpoint-dir", ck, "--device", DEV],
+        "train 3dmatch --multi-scale", counted=True)
+    check(cli_counts["attn_stats"] > 0 and cli_counts["attn_apply"] > 0,
+          f"train --multi-scale: launches {cli_counts}")
+    log(f"path 9 cli: train 3dmatch --multi-scale --epochs 2 --synthetic-pairs {MS_CLI_PAIRS} "
+        f"({wall:.1f} s, subprocess): final_val {json.dumps(final)} | launches "
+        f"{json.dumps(cli_counts)}")
+    return records, {"attn_stats_ms256": counts["attn_stats"],
+                     "attn_apply_ms256": counts["attn_apply"]}, \
+        {"multiscale_pairs_per_s_by_bucket": rates, "multiscale_cli_s": wall}, steps
+
+
+def compare_multiscale(steps, refs):
+    """Path 9 (c) against the CPU path: point_loss 2e-2 and the gradient
+    norm 5e-2 relative, at each bucket (ROADMAP's training bars)."""
+    parts = []
+    for b in MS_BUCKETS:
+        (pl, gn), (pl_c, gn_c) = steps[b], refs[f"ms_{b}"].tolist()
+        e_pl, e_gn = abs(pl - pl_c) / abs(pl_c), abs(gn - gn_c) / abs(gn_c)
+        check(all(math.isfinite(v) for v in (pl, gn, pl_c, gn_c)) and e_pl <= 2e-2
+              and e_gn <= 5e-2, f"bucketed step at {b}: point_loss {pl} / {pl_c}, grad norm "
+              f"{gn} / {gn_c}")
+        parts.append(f"{b} points ({8 if b != max(MS_BUCKETS) else MS_CPU_PAIRS} pairs): "
+                     f"point_loss {pl:.6f} / {pl_c:.6f} (rel {e_pl:.2e}, bar 2e-2), grad norm "
+                     f"{gn:.6f} / {gn_c:.6f} (rel {e_gn:.2e}, bar 5e-2)")
+    log("path 9 bucketed step card vs CPU path: " + "; ".join(parts))
+
+
+def phase_geometry(scan):
+    """Path 9 (d): the geometry library on the card against the CPU path:
+    normals of a 4,096-point terrain scan (|dot| >= 1 - 1e-4), the voxel
+    downsample of a multiway scan against the native host version (the same
+    voxels in key order, centroids within 1e-5), so3 / se3 exp, log and
+    their round trips (1e-5), on rotations up to 3 rad."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.data import make_dem_patch
+    from scream_tpu_torch.geometry import estimate_normals, se3, so3
+    from scream_tpu_torch.native import voxel_downsample as native_voxel
+    from scream_tpu_torch.ops.voxel import voxel_downsample
+
+    ground = make_dem_patch(np.random.default_rng(MW_SEED), n_dsm=MW_POINTS,
+                            n_dem=MW_POINTS)["dem"]
+    t0 = time.perf_counter()
+    n_card = estimate_normals(torch.as_tensor(ground, device=DEV)).cpu()
+    normals_ms = (time.perf_counter() - t0) * 1e3
+    n_cpu = estimate_normals(torch.as_tensor(ground))
+    dot = float((n_card * n_cpu).sum(-1).abs().min())
+    check(dot >= 1 - 1e-4, f"estimate_normals card vs CPU: min |dot| {dot}")
+
+    cent, valid = voxel_downsample(torch.as_tensor(scan, device=DEV), VOXEL, MW_POINTS)
+    cent, valid = cent.cpu().numpy(), valid.cpu().numpy()
+    host = native_voxel(scan, VOXEL)
+    n_vox = int(valid.sum())
+    vox_err = float(np.abs(cent[:n_vox] - host).max()) if n_vox == len(host) else math.inf
+    check(n_vox == len(host) and valid[:n_vox].all() and vox_err <= 1e-5,
+          f"voxel_downsample card vs native: {n_vox} / {len(host)} voxels, err {vox_err}")
+
+    g = torch.Generator().manual_seed(MW_SEED)
+    w = (so3.uniform_2_sphere(g, (512,), device="cpu")
+         * torch.rand((512, 1), generator=g) * 3.0)
+    v = torch.cat([torch.randn((512, 3), generator=g), w], -1)
+    errs, trips = {}, {}
+    for name, fn in (("so3.exp", lambda d: so3.exp(w.to(d))),
+                     ("so3.log", lambda d: so3.log(so3.exp(w.to(d)))),
+                     ("so3 round trip", lambda d: so3.exp(so3.log(so3.exp(w.to(d))))),
+                     ("se3.exp", lambda d: se3.exp(v.to(d))),
+                     ("se3.log", lambda d: se3.log(se3.exp(v.to(d)))),
+                     ("se3 round trip", lambda d: se3.exp(se3.log(se3.exp(v.to(d)))))):
+        card, cpu = fn(DEV).cpu(), fn("cpu")
+        errs[name] = float((card - cpu).abs().max())
+    # The round trips' own error, the same on both devices: fp32 exp / log
+    # with the JAX package's formulas (logged, not gated: between the Taylor
+    # branch's theta 1e-6 and ~1e-2, (1 - cos t) / t^2 cancels in fp32).
+    for name, fwd, inv, x in (("so3", so3.exp, so3.log, w), ("se3", se3.exp, se3.log, v)):
+        X = fwd(x.to(DEV))
+        trips[name] = float((fwd(inv(X)) - X).abs().max())
+    check(all(e <= 1e-5 for e in errs.values()), f"so3 / se3 card vs CPU: {errs}")
+    log(f"path 9 geometry on the card vs the CPU path: estimate_normals ({MW_POINTS}-point "
+        f"terrain scan, k 30, {normals_ms:.1f} ms) min |dot| {dot:.7f} (bar 1 - 1e-4); "
+        f"voxel_downsample (voxel {VOXEL}) {n_vox} voxels as the native library, centroids "
+        f"max err {vox_err:.2e} (bar 1e-5); " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                                          errs.items()) + " (bar 1e-5) | "
+        "round trips' own error on the card: " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                                         trips.items()))
+
+
+def path9(smi, child):
+    """Path 9: multiway registration, the robust GT-free measurement,
+    multi-scale training and the geometry library on the card; then the
+    CPU path's references from ``child`` (:func:`start_path9_cpu`). Returns
+    (records, launches by record name, results)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"path 9 (multiway, robust measurement, multi-scale training, geometry) on {smi}")
+    hf, normalize = load_hintfree(DEV)
+    scans, T_gt = make_scans()
+    records, launches, results, cmp = phase_multiway(hf, normalize, scans, T_gt)
+    hf32, _ = load_hintfree(DEV, dtype="float32")
+    rec, lau, rows, ico = phase_measure(hf32)
+    records += rec
+    launches.update(lau)
+    del hf, hf32
+    torch.cuda.empty_cache()
+    rec, lau, ms_results, steps = phase_multiscale(smi)
+    records += rec
+    launches.update(lau)
+    phase_geometry(scans[0])
+    card_s = time.perf_counter() - t0
+
+    refs = wait_path9_cpu(child)
+    compare_multiway(cmp, refs)
+    diff = np.abs(ico[:ROBUST_CPU_PAIRS] - refs["robust_T"]).reshape(ROBUST_CPU_PAIRS, -1).max(-1)
+    n_far = int((diff > TRANSFORM_TOL).sum())
+    check(n_far <= 1, f"robust ico60 card vs CPU path: {n_far} of {ROBUST_CPU_PAIRS} beyond "
+          f"{TRANSFORM_TOL} ({diff.tolist()})")
+    log(f"path 9 robust ico60 card vs CPU path (first {ROBUST_CPU_PAIRS} pairs, fp32): {n_far} "
+        f"beyond {TRANSFORM_TOL} (bar <= 1), per-pair max {', '.join(f'{d:.2e}' for d in diff)}")
+    compare_multiscale(steps, refs)
+    shutil.rmtree(WORK9, ignore_errors=True)
+    log(f"path 9 took {time.perf_counter() - t0:.1f} s ({card_s:.1f} s of card work)")
+    return records, launches, {**results, **ms_results, "measure_gt_free_rows": rows,
+                               "path9_s": time.perf_counter() - t0}
+
+
 def run_only(names, smi):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
@@ -3434,7 +4108,8 @@ def run_only(names, smi):
     at path 3's and the KITTI shape and on the adversarial scenes; the tail
     at every width (``tail``); stats and apply at path 1's shape, gates
     included, and at every (d, heads, dtype) cell (``apply``); or path 6
-    (``ingest``), path 7 (``fp32``) or path 8 (``d384``) whole. No result
+    (``ingest``), path 7 (``fp32``), path 8 (``d384``) or path 9
+    (``multiway``, with its CPU references' child process) whole. No result
     line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
@@ -3451,6 +4126,12 @@ def run_only(names, smi):
         phase_apply_cells()
     if "d384" in names:
         path8(smi)
+    if "multiway" in names:
+        child = start_path9_cpu()
+        try:
+            path9(smi, child)
+        finally:
+            stop_child(child)
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -3469,7 +4150,13 @@ def main():
                     help=f"check only these kernels ({', '.join(ONLY_KERNELS)}): a short "
                     "build-and-compare after a kernel change; or run only these paths "
                     f"({', '.join(ONLY_PATHS)})")
-    only = [k for k in ap.parse_args().only.split(",") if k]
+    ap.add_argument("--path9-cpu", default=None, metavar="OUT", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.path9_cpu:  # the child process of path 9's CPU references
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        path9_cpu(args.path9_cpu)
+        return
+    only = [k for k in args.only.split(",") if k]
     if any(k not in ONLY_KERNELS + ONLY_PATHS for k in only):
         ap.error(f"--only takes {', '.join(ONLY_KERNELS + ONLY_PATHS)}, not {only}")
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -3530,30 +4217,42 @@ def main():
     del gen
     torch.cuda.empty_cache()
 
-    # Path 4: OpenGF training at d_model 512, every block on the tail kernel;
-    # its d 256 tail check on path 1's batch keeps the seeded random init.
-    del model
-    init_model = PointTransformer(ModelConfig(), device="cuda",
-                                  generator=torch.Generator().manual_seed(0))
-    dem_records, dem_counts, dem_training = path4(init_model, batches[-1])
-    records += dem_records
-    del init_model
-    torch.cuda.empty_cache()
+    # Path 9's CPU references start here, after the last time-gated path, in
+    # a child process at the lowest priority, so that they overlap paths 4-9.
+    child = start_path9_cpu()
+    try:
+        # Path 4: OpenGF training at d_model 512, every block on the tail
+        # kernel; its d 256 tail check on path 1's batch keeps the seeded
+        # random init.
+        del model
+        init_model = PointTransformer(ModelConfig(), device="cuda",
+                                      generator=torch.Generator().manual_seed(0))
+        dem_records, dem_counts, dem_training = path4(init_model, batches[-1])
+        records += dem_records
+        del init_model
+        torch.cuda.empty_cache()
 
-    # Path 5: the evaluate protocols and the bench with the shipped weights.
-    eval_counts, evaluation = path5()
+        # Path 5: the evaluate protocols and the bench with the shipped weights.
+        eval_counts, evaluation = path5()
 
-    # Path 6: ingestion on the card (preprocess, the raw-frame KITTI GT).
-    raw_counts, ingest_eval_counts, raw_rec, ingestion = path6()
-    records.append(raw_rec)
+        # Path 6: ingestion on the card (preprocess, the raw-frame KITTI GT).
+        raw_counts, ingest_eval_counts, raw_rec, ingestion = path6()
+        records.append(raw_rec)
 
-    # Path 7: the float32 configuration.
-    f32_records, f32_counts, f32_results = path7(smi, path1_re)
-    records += f32_records
+        # Path 7: the float32 configuration.
+        f32_records, f32_counts, f32_results = path7(smi, path1_re)
+        records += f32_records
 
-    # Path 8: bf16 at d 384 and the other head counts.
-    d384_records, d384_launches, d384_results = path8(smi)
-    records += d384_records
+        # Path 8: bf16 at d 384 and the other head counts.
+        d384_records, d384_launches, d384_results = path8(smi)
+        records += d384_records
+
+        # Path 9: multiway, the robust measurement, multi-scale training,
+        # the geometry library; then the comparisons with the CPU references.
+        mw_records, mw_launches, mw_results = path9(smi, child)
+        records += mw_records
+    finally:
+        stop_child(child)
 
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
@@ -3571,7 +4270,8 @@ def main():
         "attn_apply_f32": f32_counts["main"]["attn_apply"],
         "attn_stats_f32_d128": f32_counts["serving"]["attn_stats"],
         "attn_apply_f32_d128": f32_counts["serving"]["attn_apply"],
-        "block_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches}
+        "block_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches,
+        **mw_launches}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
@@ -3593,7 +4293,7 @@ def main():
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
                     "launches_raw_kitti_refinement": raw_counts, **ingestion,
-                    **f32_results, **d384_results}))
+                    **f32_results, **d384_results, **mw_results}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

@@ -11,8 +11,9 @@ directory is absent, as the JAX command does, saves the best weights under
 ``<checkpoint-dir>/best`` and the full train state under
 ``<checkpoint-dir>/state`` after every epoch (``--resume`` continues from
 it), and prints ``{"final_val": ...}`` last. ``--init-params`` reads a
-weights directory of the port. ``--mesh``, ``--multi-scale`` and
-``--sample-img-dir`` are not ported.
+weights directory of the port. ``--multi-scale`` trains on the size-bucketed
+loader (per-bucket synthetic pairs where the split is absent). ``--mesh``
+and ``--sample-img-dir`` are not ported.
 
     python -m scream_tpu_torch evaluate 3dmatch --root data \
         --params scream_tpu_torch/weights/point-generator --bucketed
@@ -41,7 +42,17 @@ multi-start search and adds ``runner_up_fitness``, ``score_margin`` and
 runs on ``--device`` (default ``cuda``); ``--params`` names a torch
 checkpoint of the port (``utils/checkpoint.py``), whose
 ``model_config.json`` sets the architecture and normalization unless a flag
-says otherwise. ``--scans`` (multiway) and ``--mesh`` are not ported yet.
+says otherwise.
+
+    python -m scream_tpu_torch register --scans s0.npy s1.npy s2.npy \
+        --params scream_tpu_torch/weights/point-generator-hintfree \
+        --refine-rounds 1 --out poses.npy
+
+registers N scans into scan 0's frame (``pipeline/multiway.py``): pairwise
+serving over each scan and the next ``--window`` scans, pose-graph
+synchronization, and ``--refine-rounds`` rounds of scan-to-map ICP; one JSON
+line per scan with its 4x4 pose, the edges' fitness on stderr, ``--out`` the
+(N, 4, 4) stack. ``--mesh`` is not ported.
 
     python -m scream_tpu_torch preprocess 3dmatch --root raw/3dmatch --out data
     python -m scream_tpu_torch preprocess kitti --root raw/kitti --out data
@@ -88,14 +99,30 @@ def _buckets_for(cap: int, smallest: int = 256):
     return buckets
 
 
-def _registration_loaders(task, data_cfg, train_cfg, root, synthetic_len=64):
+def _registration_loaders(task, data_cfg, train_cfg, root, synthetic_len=64,
+                          multi_scale=False):
     """Train and validation pair loaders: the preprocessed split under
-    ``root`` where it exists, else synthetic pairs at half the capacity."""
-    from scream_tpu_torch.data import PairDataset, PairLoader, SyntheticPairDataset
+    ``root`` where it exists, else synthetic pairs at half the capacity.
+    ``multi_scale``: the size-bucketed loader over :func:`_buckets_for`,
+    and where the split is absent per-bucket synthetic pairs sized just
+    under each bucket, two overlap tiers for training (the JAX command's
+    recipe of the multi-scale checkpoints)."""
+    from scream_tpu_torch.data import (BucketedPairLoader, ConcatDataset, PairDataset,
+                                       PairLoader, SyntheticPairDataset)
 
     split_train = "3DMatch_train" if task == "3dmatch" else "KITTI_train"
     split_val = "3DMatch_val" if task == "3dmatch" else "KITTI_val"
     cap = data_cfg.max_points
+    buckets = _buckets_for(cap)
+
+    def synth_multi(augment, seed0):
+        overlaps = (0.7, 0.85) if augment else (0.7,)
+        length = synthetic_len if augment else max(synthetic_len // 4, 8)
+        return ConcatDataset([
+            SyntheticPairDataset(length=length, n_src=b * 7 // 8, n_tgt=b * 15 // 16,
+                                 overlap=ov, normalize=data_cfg.normalize,
+                                 augment=augment, seed=seed0 + 10 * k + j)
+            for k, b in enumerate(buckets) for j, ov in enumerate(overlaps)])
 
     def make(split, augment):
         path = os.path.join(root, split)
@@ -105,11 +132,17 @@ def _registration_loaders(task, data_cfg, train_cfg, root, synthetic_len=64):
                 perturb_both_sides=data_cfg.perturb_both_sides,
                 perturb_std=data_cfg.augment_perturb_std,
                 jitter_std=data_cfg.augment_jitter_std, max_points=cap)
+        elif multi_scale:
+            print(f"[cli] {path} not found; multi-scale synthetic pairs", file=sys.stderr)
+            ds = synth_multi(augment, seed0=10 if augment else 900)
         else:
             print(f"[cli] {path} not found; using synthetic pairs", file=sys.stderr)
             ds = SyntheticPairDataset(length=synthetic_len, n_src=cap // 2,
                                       n_tgt=cap // 2, normalize=data_cfg.normalize,
                                       augment=augment)
+        if multi_scale:
+            return BucketedPairLoader(ds, batch_size=train_cfg.batch_size, buckets=buckets,
+                                      shuffle=augment, drop_last=augment)
         return PairLoader(ds, batch_size=train_cfg.batch_size, src_capacity=cap,
                           shuffle=augment, drop_last=augment)
 
@@ -145,9 +178,9 @@ def _apply_model_overrides(model_cfg, args):
 
 def cmd_train(args):
     """Train a model (JAX command: ``scream_tpu/cli.py:cmd_train``)."""
-    if args.mesh or args.multi_scale or args.sample_img_dir:
-        raise SystemExit("--mesh, --multi-scale and --sample-img-dir are not "
-                         "ported (ROADMAP.md); use the JAX package's command")
+    if args.mesh or args.sample_img_dir:
+        raise SystemExit("--mesh and --sample-img-dir are not ported (ROADMAP.md); "
+                         "use the JAX package's command")
     from scream_tpu_torch.config import RenderConfig, kitti_gan_render_config
 
     model_cfg, train_cfg, data_cfg, eval_cfg = TASKS[args.task]()
@@ -188,7 +221,7 @@ def cmd_train(args):
 
         train_loader, val_loader = _registration_loaders(
             args.task, data_cfg, train_cfg, args.root,
-            synthetic_len=args.synthetic_pairs or 64)
+            synthetic_len=args.synthetic_pairs or 64, multi_scale=args.multi_scale)
         # The reference switches the renderer for KITTI GAN training: rho 48,
         # a single Ry(pi) back view (train_kitti.py:45-48).
         render_cfg = (kitti_gan_render_config() if args.task == "kitti"
@@ -507,23 +540,38 @@ def _build_model(args):
 
 
 def cmd_register(args):
-    """GT-free registration of two raw clouds or a manifest of pairs."""
+    """GT-free registration of two raw clouds, a manifest of pairs, or N
+    scans into one frame (``--scans``)."""
     import numpy as np
 
-    from scream_tpu_torch.pipeline import (register_pair, register_pair_robust,
+    from scream_tpu_torch.pipeline import (default_edges, register_multiway,
+                                           register_pair, register_pair_robust,
                                            register_pairs, register_pairs_robust)
 
-    if args.scans or args.mesh:
-        raise SystemExit("--scans (multiway) and --mesh are not ported yet "
-                         "(ROADMAP.md); use the JAX package's command")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
+    scans = None
+    if args.scans:
+        if args.src or args.tgt or args.manifest:
+            raise SystemExit("--scans is exclusive with --src/--tgt/--manifest")
+        if args.robust:
+            raise SystemExit(
+                "--scans uses the batched serving path; --robust is a "
+                "single-pair search (see pipeline.register_multiway)")
+        if len(args.scans) < 2:
+            raise SystemExit("--scans needs at least two clouds")
+        if args.window < 1:
+            raise SystemExit(f"--window must be >= 1, got {args.window}")
+        scans = [_load_cloud(p, f"scan {k}") for k, p in enumerate(args.scans)]
+
     manifest = None
     if args.manifest:
         if args.src or args.tgt:
             raise SystemExit("--manifest and --src/--tgt are exclusive")
         manifest = _read_manifest(args.manifest)
-    elif not (args.src and args.tgt):
-        raise SystemExit("need --src and --tgt (or --manifest)")
-    else:
+    elif scans is None and not (args.src and args.tgt):
+        raise SystemExit("need --src and --tgt (or --manifest / --scans)")
+    elif scans is None:
         src = _load_cloud(args.src, "src")
         tgt = _load_cloud(args.tgt, "tgt")
 
@@ -539,6 +587,22 @@ def cmd_register(args):
         if args.robust:
             out.update({k: getattr(res, k) for k in robust_keys})
         return out
+
+    if scans is not None:
+        # Pairwise serving over chain + skip edges, pose-graph
+        # synchronization, then the scan-to-map polish: one line a scan.
+        res = register_multiway(
+            model, scans, edges=default_edges(len(scans), window=args.window),
+            refine_rounds=args.refine_rounds, batch_size=args.batch_size,
+            passes=args.passes, **kw)
+        for k, pose in enumerate(res.poses):
+            print(json.dumps({"scan": k, "pose": pose.tolist()}))
+        print(f"[cli] {len(res.edges)} pairwise edges, fitness "
+              f"min/median {float(np.min(res.edge_fitness)):.3f}/"
+              f"{float(np.median(res.edge_fitness)):.3f}", file=sys.stderr)
+        if args.out:
+            np.save(args.out, res.poses)
+        return
 
     if manifest is not None:
         if args.robust:
@@ -601,7 +665,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--synthetic-pairs", type=int, default=None,
                    help="pair count for the synthetic fallback")
     t.add_argument("--multi-scale", action="store_true",
-                   help="size-bucketed loader: not ported yet")
+                   help="size-bucketed loader (256 .. max-points buckets) and, "
+                        "without data, per-bucket synthetic pairs in two overlap "
+                        "tiers: the recipe of the multi-scale checkpoints")
     t.add_argument("--max-points", type=int, default=None,
                    help="padding bucket; oversize clouds are subsampled")
     t.add_argument("--d-model", type=int, default=None)
@@ -686,7 +752,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="file of 'src tgt' cloud-path lines: register the "
                         "whole stream batched, one JSON line per pair")
     r.add_argument("--batch-size", type=int, default=8,
-                   help="pairs per forward in --manifest mode")
+                   help="pairs per forward in --manifest and --scans modes")
     r.add_argument("--params", default=None,
                    help="torch checkpoint directory of the port (model.pt + "
                         "model_config.json)")
@@ -707,9 +773,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default="axis7", help="rotation-seed set for --robust")
     r.add_argument("--out", default=None,
                    help="save the 4x4 transform here (stacked (P, 4, 4) in "
-                        "manifest mode)")
+                        "manifest mode, the (N, 4, 4) poses with --scans)")
     r.add_argument("--scans", nargs="+", default=None,
-                   help="multiway registration: not ported yet")
+                   help="multiway: N scan paths -> absolute poses in scan 0's "
+                        "frame (pairwise serving + pose-graph synchronization, "
+                        "pipeline.register_multiway)")
+    r.add_argument("--window", type=int, default=2,
+                   help="multiway edge window: pair each scan with the next W "
+                        "scans (chain + skip loop closures)")
+    r.add_argument("--refine-rounds", type=int, default=0,
+                   help="multiway: scan-to-map ICP polish rounds after the "
+                        "pose-graph synchronization")
     r.add_argument("--mesh", default=None, help="sharded serving: not ported yet")
     r.add_argument("--d-model", type=int, default=None)
     r.add_argument("--self-layers", type=int, default=None)

@@ -67,3 +67,12 @@ def kabsch(
 
     t = centroid_B.transpose(-1, -2) - R @ centroid_A.transpose(-1, -2)
     return integrate_trans(R, t)
+
+
+def kabsch_from_correspondence(src: torch.Tensor, dst_gathered: torch.Tensor,
+                               valid: torch.Tensor) -> torch.Tensor:
+    """Kabsch over gathered correspondences with a validity mask: the padded
+    form of the reference's ``rigid_transform_3d(src[:, valid_ind],
+    tgt[:, tgt_ind])`` (``models/pointnet.py:67-74``), invalid rows at
+    weight 0 instead of compacted away."""
+    return kabsch(src, dst_gathered, weights=valid.float())

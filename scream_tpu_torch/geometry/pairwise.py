@@ -52,3 +52,26 @@ def nearest_neighbor(
         dists.append(m)
         idxs.append(i)
     return torch.cat(dists, -1), torch.cat(idxs, -1)
+
+
+def radius_count(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    radius: float,
+    src_mask: Optional[torch.Tensor] = None,
+    dst_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Number of dst points within ``radius`` of each src point, ``(..., N)``
+    (the KD-tree radius search of reference ``utils.py:94-108``)."""
+    return radius_correspondence_mask(src, dst, radius, src_mask, dst_mask).sum(-1)
+
+
+def radius_correspondence_mask(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    radius: float,
+    src_mask: Optional[torch.Tensor] = None,
+    dst_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Boolean ``(..., N, M)`` correspondences ``dist(i, j) < radius``."""
+    return masked_square_distance(src, dst, src_mask, dst_mask) < radius * radius

@@ -579,7 +579,8 @@ def register_pairs_robust(
     batch_size: Optional[int] = None,
     ambiguity_band: float = 0.05,
     device="cuda",
-) -> list:
+    return_lanes: bool = False,
+):
     """Multi-start robust search over MANY pairs (``register --robust``).
 
     1. Lanes ``pairs x seeds``, each seed rotation taken about its pair's
@@ -596,7 +597,11 @@ def register_pairs_robust(
        ``ambiguity_band``.
 
     ``batch_size`` defaults to whole seed groups, capped near 120 lanes.
-    Returns :class:`PairRegistration` s in input order.
+    Returns :class:`PairRegistration` s in input order; with
+    ``return_lanes=True``, ``(results, lanes)``, where ``lanes[p]`` lists the
+    (post-polish fitness, polished transform) of every candidate lane of
+    pair p (a diagnostic: no lane in the basin, or the ranking chose a
+    wrong one).
     """
     dev = resolve_device(device)
     pairs = [(np.asarray(s, np.float32), np.asarray(t, np.float32)) for s, t in pairs]
@@ -633,7 +638,7 @@ def register_pairs_robust(
     lanes = [(T2, r2.n_corr) if _better(r2, r1) else (T1, r1.n_corr)
              for T1, r1, T2, r2 in zip(Ts, res1, Ts2, res2)]
 
-    out = []
+    out, lane_diag = [], []
     for p, (src, tgt) in enumerate(pairs):
         pls = lanes[p * S:(p + 1) * S]
         cap = capacity or _default_capacity(max(len(src), len(tgt)))
@@ -680,4 +685,5 @@ def register_pairs_robust(
             transform=Tfin[k_best], fitness=f_best, inlier_rmse=float(rmse[k_best]),
             n_corr=int(pls[min(k_best, S - 1)][1]), runner_up_fitness=runner,
             score_margin=margin, ambiguous=bool(margin < ambiguity_band)))
-    return out
+        lane_diag.append([(float(fit[k]), Tfin[k]) for k in range(C)])
+    return (out, lane_diag) if return_lanes else out

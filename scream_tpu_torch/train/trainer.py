@@ -11,9 +11,11 @@ that ``fit`` resumes from.
 The trainers build their models in :meth:`init`, from
 ``torch.Generator().manual_seed(seed)`` (the JAX package initializes from
 ``PRNGKey(seed)``; the two draw different numbers, so a comparison loads one
-init into both). Multi-chip meshes (``--mesh``, including the pipeline
-trainer) and the GAN sample-image dump (``--sample-img-dir``) are not ported
-(ROADMAP.md): asking for them raises.
+init into both). ``RegistrationTrainer`` takes any pair loader, the
+size-bucketed one of ``train --multi-scale`` too (one batch shape a bucket).
+Multi-chip meshes (``--mesh``, including the pipeline trainer) and the GAN
+sample-image dump (``--sample-img-dir``) are not ported (ROADMAP.md):
+asking for them raises.
 """
 
 from __future__ import annotations

@@ -23,13 +23,13 @@ from scream_tpu.geometry import metrics as jmetrics
 from scream_tpu.geometry import so3 as jso3
 from scream_tpu_torch.data.transforms import rodrigues
 from scream_tpu_torch.geometry import icp as ticp
-from scream_tpu_torch.geometry import kabsch as tkabsch
 from scream_tpu_torch.geometry import metrics as tmetrics
 from scream_tpu_torch.geometry import so3 as tso3
 from scream_tpu_torch.ops import nn_cuda
 
-# scream_tpu.geometry re-exports the function ``kabsch`` under the module's name.
+# Both geometry packages re-export the function ``kabsch`` under the module's name.
 jkabsch = importlib.import_module("scream_tpu.geometry.kabsch")
+tkabsch = importlib.import_module("scream_tpu_torch.geometry.kabsch")
 
 
 def t(x):

@@ -312,7 +312,7 @@ class TestCLI:
 
         s = str(tmp_path / "s.npy")
         np.save(s, np.zeros((5, 3), np.float32))
-        for argv, msg in ((["--scans", s, s], "not ported"),
+        for argv, msg in ((["--scans", s, s, "--mesh", "data=2"], "not ported"),
                           (["--src", s], "need --src and --tgt"),
                           (["--manifest", s, "--src", s], "exclusive")):
             with pytest.raises(SystemExit, match=msg):

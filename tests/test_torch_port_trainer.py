@@ -285,7 +285,7 @@ def test_train_cli_3dmatch_in_process(tmp_path, capsys):
     assert "initialized generator params" in out.err and "epoch 1" in out.out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--multi-scale"],
+@pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--multi-scale", "--mesh", "data=2"],
                                   ["--sample-img-dir", "imgs"]])
 def test_train_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported"):
