@@ -171,7 +171,25 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     held to them at the end (path 2's transform bar on at most 1 of 8 edges
     and 1 of 4 pairs, ``synchronize_poses`` 1e-4, the steps' point_loss 2e-2
     and gradient norm 5e-2);
-17. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+17. path 10, the tools: ``python -m scream_tpu_torch selftest`` in a
+    subprocess (ok, no check past its bar); the shipped point-generator,
+    DEM generator and discriminator written back into the reference's
+    state_dict layout (``reference_state_dict``), ``torch.save``'d and
+    converted by ``python -m scream_tpu_torch convert`` in subprocesses,
+    each converted checkpoint's forward bit for bit the shipped one's (a
+    path-1 batch, a path-4 batch, path 3's real renders); ``visualize
+    --html --params`` on an item of path 5's tree in a subprocess (RE / TE
+    within 5e-2 of ``register_batch`` in-process, the HTML's clouds the
+    item's points, each PNG written or marked skipped without
+    matplotlib); the 3DMatch preset's GAN training for 2 steps with
+    ``sample_img_dir`` and ``save_img_iter`` 1 (each PNG decodes to its
+    step's fake render); ``scripts/torch_port_run_scale.py`` on path 5's
+    tree (3DLoMatch and 3DZeroMatch linked to its 3DMatch) at batch 8 and
+    8,192 points (every protocol at rc 0, the 3DMatch family and OpenGF
+    equal to the in-process evaluations, KITTI on ``weights/kitti-generator``);
+    and stats, apply, the fused block and the tail at hidden widths 1-3 x d
+    (d 128-384, both dtypes) against their plain versions;
+18. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -184,10 +202,11 @@ phase 3 and its ties), on the same inputs, gates included: the short
 build-and-compare after a change to either kernel. ``--only tail`` checks
 the tail kernel at every width it takes (bf16 d 128-512 at ragged and the
 DEM path's row counts, fp32 d 128-384), ``--only apply`` stats and apply at
-path 1's shape (gates included) and at every (d, heads, dtype) cell;
-``--only ingest`` runs phases 1-2 and path 6, ``--only fp32`` path 7,
-``--only d384`` path 8, ``--only multiway`` path 9 (its CPU references'
-child started with it). None prints a result line.
+path 1's shape (gates included) and at every (d, heads, dtype) cell; both
+also at hidden widths 1-3 x d; ``--only ingest`` runs phases 1-2 and path
+6, ``--only fp32`` path 7, ``--only d384`` path 8, ``--only multiway`` path
+9 (its CPU references' child started with it), ``--only tools`` path 10.
+None prints a result line.
 """
 
 import faulthandler
@@ -276,6 +295,9 @@ CELL_FORWARD_B, CELL_FORWARD_N = 2, 1024
 # DEM path's 65,536 and 8,192 with one-off counts).
 TAIL_ROWS = {128: (300,), 256: (1000, 65536), 384: (777, 8192), 512: (33, 8192, 8192 + 5,
                                                                       65536, 65536 - 37)}
+# Hidden widths other than 4 x d inside the kernels' cells (--only apply,
+# --only tail, path 10): d_model and ffn_mult, the tail's row count.
+FFN_WIDTHS, FFN_MULTS, FFN_TAIL_ROWS = (128, 256, 384), (1, 2, 3), 4096
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
 # FMA counted as two operations), HBM3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -340,7 +362,7 @@ MS_BUCKETS, MS_CPU_PAIRS, MS_ITERS, MS_CLI_PAIRS = (256, 4096), 2, 5, 8
 EDGE_CPU_DISPATCH, ROBUST_CPU_PAIRS, PATH9_CPU_WAIT_S, VOXEL = 8, 4, 420, 0.05
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact", "tail", "apply")  # kernels --only can check alone
-ONLY_PATHS = ("ingest", "fp32", "d384", "multiway")  # paths --only can run alone
+ONLY_PATHS = ("ingest", "fp32", "d384", "multiway", "tools")  # paths --only can run alone
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -2244,6 +2266,58 @@ def path4(path1_model, path1_batch):
     return records, counts, results
 
 
+# The reference's module names for the port's (utils/torch_convert.py's map,
+# inverted): attention blocks, the coordinate head, FFN leaves.
+REF_BLOCKS = (("stem_src_", "stem_dsm."), ("stem_tgt_", "stem_dem."), ("stem_", "stem."))
+REF_HEADS = {"head_0": "coor_mlp.0", "head_1": "coor_mlp.2", "head_out": "coor_mlp.4"}
+REF_LEAVES = {"ffn_in": "mlp.0", "ffn_out": "mlp.2"}
+
+
+def reference_state_dict(state, kind):
+    """A port ``state_dict`` in the reference's layout, the inverse of
+    ``utils/torch_convert.py``: ``kind`` "point" / "dem" (``nn.Linear``
+    weights ``(out, in)``, the embedding and the coordinate head as
+    kernel-size-1 ``Conv1d`` ``(out, in, 1)``, LayerNorm ``weight``; the
+    reference's module names) or "disc" (the flat ``main`` Sequential, each
+    BatchNorm with its ``num_batches_tracked``)."""
+    import torch
+
+    out = {}
+    if kind == "disc":
+        L = max(int(k.split(".")[0][3:]) for k in state if k.startswith("bn_"))
+        for k, v in state.items():
+            mod, leaf = k.split(".")
+            if mod == "conv_out":
+                idx = 3 * L + 2
+            elif mod.startswith("conv_"):
+                idx = max(3 * int(mod[5:]) - 1, 0)
+            else:
+                idx = 3 * int(mod[3:])
+                if leaf == "running_var":
+                    out[f"main.{idx}.num_batches_tracked"] = torch.tensor(7)
+            out[f"main.{idx}.{leaf}"] = v.detach().clone()
+        return out
+    for k, v in state.items():
+        parts = k.split(".")[1:]  # below "trunk"
+        mod, leaf = parts[0], parts[-1]
+        inner = [REF_LEAVES.get(p, p) for p in parts[1:-1]]
+        if mod.startswith("cross_self_"):
+            mod = f"cross.{2 * int(mod[11:])}"
+        elif mod.startswith("cross_attn_"):
+            mod = f"cross.{2 * int(mod[11:]) + 1}.layer"
+        else:
+            mod = REF_HEADS.get(mod, mod)
+            mod = next((b + mod[len(a):] for a, b in REF_BLOCKS if mod.startswith(a)), mod)
+        v = v.detach()
+        if leaf == "kernel":
+            v = v.t()
+            if mod == "embedding" or mod.startswith("coor_mlp"):
+                v = v[..., None]
+        name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        out[".".join([mod, *inner, name])] = v.contiguous().clone()
+    return out
+
+
 def write_split_tree(root):
     """The split tree of path 5 under ``root``, in the readers' layout
     (``src%d/tgt%d/T%d.npy``, ``info/`` for 3DMatch; ``[dsm | dem]`` blocks
@@ -3441,6 +3515,59 @@ def phase_tail_widths():
     log_records(records)
 
 
+def ffn_mult_cells(kind):
+    """The (d, ffn_mult, dtype) cells at hidden widths other than 4 d that
+    the kernels take: d 128, 256 and 384 at ffn_mult 1-3, both dtypes, where
+    ``attn_cuda.kernels_take`` (``kind`` "apply", 8 heads) or
+    ``tail_cuda.kernel_takes`` (``kind`` "tail") admits the cell."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda, tail_cuda
+
+    takes = (lambda d, hid, cd: attn_cuda.kernels_take(d, hid, 8, cd)) if kind == "apply" \
+        else tail_cuda.kernel_takes
+    return [(d, m, cd) for cd in (torch.bfloat16, torch.float32) for d in FFN_WIDTHS
+            for m in FFN_MULTS if takes(d, m * d, cd)]
+
+
+def phase_ffn_mult_cells(kinds=("apply", "tail")):
+    """Stats, apply and the fused block (``kind`` "apply", at the cell's
+    path shape of ``CELL_SHAPES``, the first batch's last 37 rows masked),
+    and the tail forward and gradients (``kind`` "tail", on FFN_TAIL_ROWS
+    rows, one in ten masked), at hidden = ffn_mult x d for every cell of
+    :func:`ffn_mult_cells`, on seeded random-init 8-head blocks, against
+    their plain versions under the existing bars (bf16 1e-2, fp32 2e-5).
+    At d 384, ffn_mult 1 and 3, the two-warpgroup tail walks an odd count of
+    128-column hidden chunks (3 and 9). Returns records."""
+    import torch
+
+    from scream_tpu_torch.models import AttentionBlock
+
+    g = torch.Generator(device=DEV).manual_seed(41)
+    records = []
+    for kind in kinds:
+        for d, mult, cd in ffn_mult_cells(kind):
+            blk = AttentionBlock(d, 8, mult, dtype=cd,
+                                 generator=torch.Generator().manual_seed(d + mult)).to(DEV)
+            suffix = f"_d{d}_ffn{mult}" + ("_f32" if cd == torch.float32 else "")
+            if kind == "apply":
+                Bc, L = CELL_SHAPES[d]
+                m = torch.ones((Bc, L), dtype=torch.bool, device=DEV)
+                m[0, L - 37:] = False
+                x = torch.randn((Bc, L, d), generator=g, device=DEV)
+                records += check_attention(blk, m, suffix=suffix, x=x, dtype=cd)
+            else:
+                x, q = (torch.randn((FFN_TAIL_ROWS, d), generator=g, device=DEV)
+                        for _ in range(2))
+                m = torch.rand((FFN_TAIL_ROWS,), generator=g, device=DEV) > 0.1
+                records.append(check_tail(blk, x, q, m, suffix=suffix, dtype=cd))
+            del blk
+    log_records(records)
+    log(f"hidden != 4 d: {len(records)} kernel records within their bars "
+        f"({', '.join(kinds)}; d {FFN_WIDTHS}, ffn_mult {FFN_MULTS})")
+    return records
+
+
 def phase_apply_cells():
     """``--only apply``: stats and apply at path 1's shape on the trained
     point-generator's first block (apply gated at 0.50 ms, stats at 0.25),
@@ -4101,6 +4228,291 @@ def path9(smi, child):
                                "path9_s": time.perf_counter() - t0}
 
 
+def read_png_rgb(path):
+    """An 8-bit RGB PNG (one or more IDAT chunks, every row of filter type
+    0, as ``utils/viz.py:write_png_rgb`` writes it) as an (H, W, 3) uint8
+    array, each chunk's CRC checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    check(depth == 8 and ctype == 2, f"{path}: not 8-bit RGB: {hdr}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_selftest():
+    """``python -m scream_tpu_torch selftest`` in a subprocess: its last line
+    ``"ok": true``, every field within its bar (no misses)."""
+    out, err, wall = run_parallel({"selftest": ["-m", "scream_tpu_torch", "selftest"]},
+                                  timeout=300)["selftest"]
+    res = json.loads(out.strip().splitlines()[-1])
+    check(res.get("ok") is True and res.get("misses") == [], f"selftest: {res}")
+    log(f"path 10 selftest ({wall:.1f} s wall, subprocess): ok, no misses | {json.dumps(res)}")
+    return res
+
+
+def phase_convert_round_trip(work):
+    """The shipped point-generator, DEM generator and discriminator written
+    back into the reference's state_dict layout (:func:`reference_state_dict`),
+    ``torch.save``'d, converted by ``python -m scream_tpu_torch convert``
+    (three subprocesses at once), and each converted checkpoint's forward on
+    the card bit for bit the shipped one's: a path-1 batch (16 x 4,096), a
+    path-4 batch (8 x 8,192) and path 3's real renders (8 x 4,096)."""
+    import torch
+
+    from scream_tpu_torch.config import RenderConfig
+    from scream_tpu_torch.models import DEMTransformer, images_to_nhwc
+    from scream_tpu_torch.ops.render import render_from_config
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+    from scream_tpu_torch.utils.checkpoint import load_discriminator, load_params
+
+    shipped = {"point": POINT_GEN, "dem": DEM_GEN, "disc": DISC}
+    cmds = {}
+    for kind, path in shipped.items():
+        state = (torch.load(os.path.join(path, "model.pt"), map_location="cpu",
+                            weights_only=True) if kind == "disc" else load_params(path)[2])
+        pth = os.path.join(work, f"{kind}.pth")
+        torch.save(reference_state_dict(state, kind), pth)
+        cmds[kind] = ["-m", "scream_tpu_torch", "convert", "--pth", pth, "--out",
+                      os.path.join(work, f"converted-{kind}"), "--model", kind]
+    outs = run_parallel(cmds, timeout=300)
+    tb = to_device(make_batches(1, seed=0)[0], DEV)
+    db = to_device(dem_batch(make_dem_items(1, seed=900)[0]), DEV)
+    rb = to_device(make_batches(1, seed=500, batch=TRAIN_B, cap=TRAIN_CAP)[0], DEV)
+    with torch.no_grad():
+        real = images_to_nhwc(render_from_config(gt_aligned(rb), rb["tgt"], RenderConfig(),
+                                                 rb["src_mask"], rb["tgt_mask"]))
+    forward = {
+        "point": lambda m: m(tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                             gt_center_hint(tb["rot"], tb["trans"])),
+        "dem": lambda m: m(db["dsm"], db["dem_coarse"], db["dsm_mask"], db["dem_coarse_mask"]),
+        "disc": lambda m: m(real, train=False)}
+    load = {"point": lambda p: load_weights(p, DEV)[0],
+            "dem": lambda p: load_weights(p, DEV, DEMTransformer)[0],
+            "disc": lambda p: load_discriminator(p, DEV).eval()}
+    lines = []
+    for kind, path in shipped.items():
+        line = json.loads(outs[kind][0].strip().splitlines()[-1])
+        with torch.no_grad():
+            want = forward[kind](load[kind](path))
+            got = forward[kind](load[kind](os.path.join(work, f"converted-{kind}")))
+        same = bool(torch.equal(got, want))
+        check(same, f"convert {kind}: the converted checkpoint's forward differs from "
+              f"{path}'s by {float((got.float() - want.float()).abs().max()):.3g}")
+        lines.append(f"{kind} ({line['n_params']:,} parameters, {outs[kind][2]:.1f} s): "
+                     f"forward {tuple(got.shape)} bit for bit")
+    log("path 10 convert round trip (reference layout -> torch.save -> python -m "
+        "scream_tpu_torch convert, subprocesses): " + "; ".join(lines))
+
+
+def phase_visualize(root, work):
+    """``visualize --html --params POINT_GEN`` on item 0 of the split tree's
+    3DMatch_test in a subprocess (the model views on the card): RE / TE
+    within TRANSFORM_TOL of ``register_batch`` in-process on the same item;
+    the HTML's embedded target and raw source decode to the item's points;
+    each PNG written or, without matplotlib, marked skipped."""
+    import base64
+    import importlib.util
+    import re
+
+    import numpy as np
+
+    from scream_tpu_torch.data import PairDataset, PairLoader
+    from scream_tpu_torch.pipeline.register import register_batch, to_device
+
+    out_dir = os.path.join(work, "viz")
+    out, _, wall = run_parallel({"visualize": [
+        "-m", "scream_tpu_torch", "visualize", "--root", root, "--split", "3DMatch_test",
+        "--item", "0", "--out", out_dir, "--params", POINT_GEN, "--html"]},
+        timeout=300)["visualize"]
+    res = json.loads(out.strip().splitlines()[-1])
+    item = PairDataset(root, "3DMatch_test", with_info=False, normalize="unit_sphere")[0]
+    cap = max(len(item["src"]), len(item["tgt"])) + 64
+    b = to_device(next(iter(PairLoader([item], batch_size=1, src_capacity=cap,
+                                       tgt_capacity=cap))), DEV)
+    m = register_batch(load_weights(POINT_GEN, DEV)[0], b, device=DEV)
+    d_re, d_te = abs(res["re_deg"] - float(m.re_deg[0])), abs(res["te"] - float(m.te[0]))
+    check(d_re <= TRANSFORM_TOL and d_te <= TRANSFORM_TOL,
+          f"visualize RE/TE {res['re_deg']}, {res['te']} against register_batch "
+          f"{float(m.re_deg[0])}, {float(m.te[0])}")
+    with open(res["html"]) as f:
+        data = json.loads(re.search(r"const DATA = (\{.*?\});\n", f.read()).group(1))
+    clouds = [np.frombuffer(base64.b64decode(layer["b64"]), np.float32).reshape(-1, 3)
+              for layer in data["layers"]]
+    check(np.array_equal(clouds[0], item["tgt"].astype(np.float32))
+          and np.array_equal(clouds[1], item["src"].astype(np.float32)),
+          "visualize --html: the embedded clouds are not the item's points")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    pngs = {k: v for k, v in res.items()
+            if k in ("before", "gt", "predicted", "estimated", "pred_error")}
+    check(len(pngs) == 5 and all(
+        os.path.exists(v) if have_mpl else v == {"png_skipped": "matplotlib not installed"}
+        for v in pngs.values()), f"visualize PNG keys: {pngs}")
+    log(f"path 10 visualize --html ({wall:.1f} s wall, subprocess): RE {res['re_deg']:.4f} "
+        f"deg, TE {res['te']:.5f} (register_batch in-process: {float(m.re_deg[0]):.4f}, "
+        f"{float(m.te[0]):.5f}; bar {TRANSFORM_TOL}); {len(clouds)} HTML layers, target and "
+        f"source equal to the item's points; PNGs "
+        f"{'written' if have_mpl else 'skipped (matplotlib not installed)'}")
+
+
+def phase_gan_sample_dump(work):
+    """The 3DMatch preset's GAN training (full-width generator from a
+    seeded init) for 2 steps of 2 pairs x 1,024 points with
+    ``save_img_iter`` 1 and ``sample_img_dir`` set: one PNG a step, each
+    decoding (zlib) to ``depth_images_to_rgb`` of that step's first fake
+    render; the splat launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from scream_tpu_torch.config import threedmatch_presets
+    from scream_tpu_torch.data import PairLoader, SyntheticPairDataset
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.train import RegistrationTrainer
+    from scream_tpu_torch.utils.viz import depth_images_to_rgb
+
+    model_cfg, train_cfg, _, eval_cfg = threedmatch_presets()
+    train_cfg = dataclasses.replace(train_cfg, use_gan=True, save_img_iter=1, batch_size=2)
+    ds = SyntheticPairDataset(length=4, n_src=960, n_tgt=1000, seed=1600)
+    loader = PairLoader(ds, batch_size=2, src_capacity=1024, drop_last=True)
+    img_dir = os.path.join(work, "gan_samples")
+    trainer = RegistrationTrainer(loader, loader, model_cfg=model_cfg, train_cfg=train_cfg,
+                                  eval_cfg=eval_cfg, sample_img_dir=img_dir, device=DEV)
+    trainer.init()
+    fakes, step = {}, trainer.train_step
+
+    def recording(state, tb, disc):
+        state, metrics, fake = step(state, tb, disc)
+        fakes[int(state.step)] = fake[0].detach().float().cpu().numpy()
+        return state, metrics, fake
+
+    trainer.train_step = recording
+    reset_launch_counts()
+    trainer.train_epoch(1)
+    counts = launch_counts()
+    names = sorted(os.listdir(img_dir))
+    check(names == [f"epoch1_step{k}.png" for k in sorted(fakes)] and len(fakes) == 2,
+          f"GAN sample dump: files {names}, steps {sorted(fakes)}")
+    for k, fake in fakes.items():
+        want = np.concatenate(list(depth_images_to_rgb(fake)), axis=1)
+        got = read_png_rgb(os.path.join(img_dir, f"epoch1_step{k}.png"))
+        check(np.array_equal(got, want), f"GAN sample dump step {k}: pixels differ")
+    check(counts["max_splat"] > 0, f"GAN sample dump: launches {counts}")
+    log(f"path 10 GAN sample dump (2 steps, 2 x 1,024, save_img_iter 1): {names}, each "
+        f"decoding to depth_images_to_rgb of its step's fake render {want.shape}; launches "
+        f"{json.dumps(counts)}")
+
+
+def phase_scale_runner(root, refs):
+    """``scripts/torch_port_run_scale.py`` on the split tree (3DLoMatch_test
+    and 3DZeroMatch_test linked to its 3DMatch_test) at batch 8 and
+    --max-points 8,192 in a subprocess: every protocol at rc 0; the 3DMatch
+    family and OpenGF equal (1e-12 relative) to the in-process evaluations
+    ``refs``; KITTI runs the shipped ``weights/kitti-generator``."""
+    for name in ("3DLoMatch_test", "3DZeroMatch_test"):
+        if not os.path.exists(os.path.join(root, name)):
+            os.symlink("3DMatch_test", os.path.join(root, name))
+    script = os.path.join("scripts", "torch_port_run_scale.py")
+    out, _, wall = run_parallel({"scale": [script, "--root", root, "--batch-size",
+                                           str(EVAL_BATCH), "--max-points", str(KITTI_CAP)]},
+                                timeout=600)["scale"]
+    rows = {r["protocol"]: r for r in (json.loads(ln) for ln in out.strip().splitlines()
+                                       if ln.startswith("{")) if "protocol" in r}
+    check(sorted(rows) == sorted(("3dmatch", "3dlomatch", "3dzeromatch", "kitti", "opengf"))
+          and all(r["rc"] == 0 for r in rows.values()), f"scale runner rows: {rows}")
+    for proto, want in refs.items():
+        got = rows[proto]["result"]
+        check(got.keys() == want.keys() and all(
+            math.isclose(got[k], want[k], rel_tol=1e-12, abs_tol=1e-12) for k in want),
+            f"scale runner {proto} vs in-process:\n{got}\n{want}")
+    k = rows["kitti"]["result"]
+    log(f"path 10 scale runner ({wall:.1f} s wall, subprocess, batch {EVAL_BATCH}, "
+        f"max-points {KITTI_CAP}): " + "; ".join(
+            f"{p} {r['items']} items {r['wall_s']:.2f} s {r['items_per_sec']:.2f}/s peak "
+            f"{r['peak_device_mem_gib']:.2f} GiB" for p, r in rows.items())
+        + f" | {', '.join(sorted(refs))} equal to the in-process evaluations | kitti "
+        f"(weights/kitti-generator): {round(k['success_rate'] * k['n_pairs'])} of "
+        f"{k['n_pairs']} successes | {json.dumps(k)}")
+    return rows
+
+
+def path10_refs(root, evaluation):
+    """The in-process evaluations the scale runner is held to: path 5's
+    3DMatch, 3DZeroMatch and OpenGF dicts where it ran (same tree, same
+    seeds), else computed here; 3DLoMatch here."""
+    from scream_tpu_torch.cli import _buckets_for
+    from scream_tpu_torch.config import eval_preset
+    from scream_tpu_torch.data import BucketedPairLoader, PairDataset
+
+    refs = {p: evaluation[f"eval_{p}"] for p in ("3dmatch", "3dzeromatch", "opengf")
+            if evaluation and f"eval_{p}" in evaluation}
+    model = None
+    for proto in ("3dmatch", "3dlomatch", "3dzeromatch"):
+        if proto not in refs:
+            from scream_tpu_torch.eval import evaluate_registration
+
+            model = model or load_weights(POINT_GEN, DEV)[0]
+            ds = PairDataset(root, "3DMatch_test", normalize="unit_sphere", with_info=True,
+                             max_points=CAP)
+            refs[proto] = evaluate_registration(
+                model, BucketedPairLoader(ds, EVAL_BATCH, _buckets_for(CAP, smallest=1024)),
+                eval_preset(proto), device=DEV)
+    if "opengf" not in refs:
+        refs["opengf"] = phase_eval_opengf(root)["eval_opengf"]
+    return refs
+
+
+def path10(evaluation=None):
+    """Path 10: the tools. ``selftest``, the ``convert`` round trip of the
+    shipped checkpoints, ``visualize --html`` and the GAN sample dump on the
+    card, the scale runner on path 5's split tree (``evaluation``: path 5's
+    results, or None to compute the references here), and the kernels at
+    hidden widths other than 4 d."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_path10_", dir="build")
+    try:
+        root = os.path.join(work, "splits")
+        write_split_tree(root)
+        phase_selftest()
+        phase_convert_round_trip(work)
+        torch.cuda.empty_cache()
+        phase_visualize(root, work)
+        phase_gan_sample_dump(work)
+        torch.cuda.empty_cache()
+        rows = phase_scale_runner(root, path10_refs(root, evaluation))
+        torch.cuda.empty_cache()
+        phase_ffn_mult_cells()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"path 10 took {secs:.1f} s")
+    return {"path10_s": secs, "scale_runner": rows}
+
+
 def run_only(names, smi):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
@@ -4122,8 +4534,10 @@ def run_only(names, smi):
         path7(smi)
     if "tail" in names:
         phase_tail_widths()
+        phase_ffn_mult_cells(("tail",))
     if "apply" in names:
         phase_apply_cells()
+        phase_ffn_mult_cells(("apply",))
     if "d384" in names:
         path8(smi)
     if "multiway" in names:
@@ -4132,6 +4546,8 @@ def run_only(names, smi):
             path9(smi, child)
         finally:
             stop_child(child)
+    if "tools" in names:
+        path10()
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -4254,6 +4670,10 @@ def main():
     finally:
         stop_child(child)
 
+    # Path 10: selftest, convert, visualize, the GAN sample dump, the scale
+    # runner, the kernels at hidden widths other than 4 d.
+    tools = path10(evaluation)
+
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
         "attn_stats": counts["attn_stats"], "attn_apply": counts["attn_apply"],
@@ -4293,7 +4713,7 @@ def main():
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
                     "launches_raw_kitti_refinement": raw_counts, **ingestion,
-                    **f32_results, **d384_results, **mw_results}, default=float))
+                    **f32_results, **d384_results, **mw_results, **tools}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

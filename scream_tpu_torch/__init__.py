@@ -9,7 +9,8 @@ scream_tpu_torch bench``) with the shipped full-width checkpoints, GT-free servi
 ``register_pairs``, the robust search, ``python -m scream_tpu_torch
 register``) with the shipped hint-free checkpoint under ``weights/``, and
 training (the GAN steps, ``train.RegistrationTrainer``,
-``train.DEMTrainer`` and ``python -m scream_tpu_torch train``). It
+``train.DEMTrainer`` and ``python -m scream_tpu_torch train``), and the
+tools (``selftest``, ``convert``, ``visualize``). It
 mirrors the JAX package's layout and names (``scream_tpu_torch/geometry/icp.py``
 is the port of ``scream_tpu/geometry/icp.py``), imports ``torch`` and never
 ``jax``, and keeps its own copies of what it needs from the JAX package.

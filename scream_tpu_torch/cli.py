@@ -1,6 +1,6 @@
 """Command line of the port (port of ``scream_tpu/cli.py``): ``train``,
-``evaluate``, ``bench``, ``preprocess`` and the GT-free ``register``
-command, "align these two scans".
+``evaluate``, ``bench``, ``preprocess``, the GT-free ``register`` command
+("align these two scans"), ``selftest``, ``convert`` and ``visualize``.
 
     python -m scream_tpu_torch train opengf --d-model 512 --epochs 2
     python -m scream_tpu_torch train 3dmatch --root data --epochs 45
@@ -12,8 +12,9 @@ directory is absent, as the JAX command does, saves the best weights under
 ``<checkpoint-dir>/state`` after every epoch (``--resume`` continues from
 it), and prints ``{"final_val": ...}`` last. ``--init-params`` reads a
 weights directory of the port. ``--multi-scale`` trains on the size-bucketed
-loader (per-bucket synthetic pairs where the split is absent). ``--mesh``
-and ``--sample-img-dir`` are not ported.
+loader (per-bucket synthetic pairs where the split is absent).
+``--sample-img-dir`` dumps GAN sample renders as PNGs. ``--mesh`` is not
+ported.
 
     python -m scream_tpu_torch evaluate 3dmatch --root data \
         --params scream_tpu_torch/weights/point-generator --bucketed
@@ -66,6 +67,20 @@ or pre-builds an evaluation split's collated cache, with the JAX command's
 tasks, flags, stdout lines and errors. KITTI's ICP-refined GT runs on
 ``--device`` (default ``cuda``). The host point ops build with ``g++`` at
 first use (``scream_tpu_torch/native``).
+
+    python -m scream_tpu_torch selftest
+    python -m scream_tpu_torch convert --pth point-generator.pth \
+        --out weights/point-generator --model point
+    python -m scream_tpu_torch visualize --root data --split 3DMatch_test \
+        --item 0 --params scream_tpu_torch/weights/point-generator --html
+
+``selftest`` holds every Hopper kernel to its plain version on the card
+(one JSON line, nonzero exit on a miss or without a GPU). ``convert`` maps
+a reference ``.pth`` state_dict to a weights directory of the port
+(``point``, ``dem`` or ``disc``). ``visualize`` writes a pair's before / GT
+PNGs (matplotlib; where it is missing each PNG key says so) and with
+``--params`` the model views, RE/TE and the display gate, computed on
+``--device``; ``--html`` an interactive scene (numpy only).
 """
 
 from __future__ import annotations
@@ -178,9 +193,8 @@ def _apply_model_overrides(model_cfg, args):
 
 def cmd_train(args):
     """Train a model (JAX command: ``scream_tpu/cli.py:cmd_train``)."""
-    if args.mesh or args.sample_img_dir:
-        raise SystemExit("--mesh and --sample-img-dir are not ported (ROADMAP.md); "
-                         "use the JAX package's command")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
     from scream_tpu_torch.config import RenderConfig, kitti_gan_render_config
 
     model_cfg, train_cfg, data_cfg, eval_cfg = TASKS[args.task]()
@@ -215,7 +229,7 @@ def cmd_train(args):
                                       shuffle=sh, drop_last=sh)
         trainer = DEMTrainer(mk(tr_ds, True), mk(va_ds, False), model_cfg=model_cfg,
                              train_cfg=train_cfg, checkpoint_dir=args.checkpoint_dir,
-                             device=args.device)
+                             sample_img_dir=args.sample_img_dir, device=args.device)
     else:
         from scream_tpu_torch.train import RegistrationTrainer
 
@@ -229,7 +243,8 @@ def cmd_train(args):
         trainer = RegistrationTrainer(
             train_loader, val_loader, model_cfg=model_cfg, train_cfg=train_cfg,
             eval_cfg=eval_cfg, render_cfg=render_cfg,
-            checkpoint_dir=args.checkpoint_dir, device=args.device)
+            checkpoint_dir=args.checkpoint_dir, sample_img_dir=args.sample_img_dir,
+            device=args.device)
     trainer.init()
     state_dir = os.path.join(args.checkpoint_dir, "state")
     if args.resume:
@@ -638,6 +653,143 @@ def cmd_register(args):
     print(json.dumps(out))
 
 
+def cmd_convert(args):
+    """Reference ``.pth`` -> a weights directory of the port (JAX command:
+    ``scream_tpu/cli.py:cmd_convert``)."""
+    from scream_tpu_torch.utils.torch_convert import convert_torch_checkpoint, tree_size
+
+    tree = convert_torch_checkpoint(args.pth, args.out, model=args.model)
+    print(json.dumps({"out": args.out, "model": args.model, "n_params": tree_size(tree)}))
+
+
+def cmd_selftest(args):
+    """Every Hopper kernel against its plain version on the card
+    (``scream_tpu_torch/selftest.py``)."""
+    from scream_tpu_torch.selftest import main as selftest_main
+
+    raise SystemExit(selftest_main())
+
+
+def _have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _png(path, draw, *a, **kw):
+    """``path`` after ``draw(..., path=path)``, or where matplotlib is not
+    installed the note that the PNG was skipped."""
+    if not _have_matplotlib():
+        return {"png_skipped": "matplotlib not installed"}
+    draw(*a, path=path, **kw)
+    return path
+
+
+def cmd_visualize(args):
+    """Render a pair to PNGs and an interactive HTML (JAX command:
+    ``scream_tpu/cli.py:cmd_visualize``); the model views, RE/TE and the
+    display gate are computed on ``--device``."""
+    import numpy as np
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.data import PairDataset, PairLoader
+    from scream_tpu_torch.utils import viz
+
+    # KITTI splits carry their own protocol: unit-cube normalization
+    # (reference datasets/kitti.py:268-273), the -R^T t center hint
+    # (train_kitti.py:156), NN 1.5 / ICP 1.0 at max_iteration 1000
+    # (evaluate_kitti.py:106-110).
+    is_kitti = args.split.upper().startswith("KITTI")
+    ds = PairDataset(args.root, args.split, with_info=False,
+                     normalize="unit_cube" if is_kitti else "unit_sphere",
+                     max_points=args.max_points)
+    item = ds[args.item]
+    T_gt = np.eye(4)
+    T_gt[:3, :3] = item["rot"]
+    T_gt[:3, 3] = item["trans"].reshape(3)
+    os.makedirs(args.out, exist_ok=True)
+    stem = os.path.join(args.out, f"{args.split}_{args.item}")
+    out = {"before": _png(stem + "_before.png", viz.plot_registration, item["src"],
+                          item["tgt"], None),
+           "gt": _png(stem + "_gt.png", viz.plot_registration, item["src"], item["tgt"],
+                      T_gt)}
+
+    if args.params:
+        # Model views: predicted source, estimated registration, prediction
+        # error (the reference's look() / visualize_3d_match flows).
+        from scream_tpu_torch.geometry.pairwise import square_distance
+        from scream_tpu_torch.pipeline.register import (gt_center_hint, register_batch,
+                                                        to_device)
+
+        model, _ = _load_model("3dmatch", ModelConfig(), args.params, args, args.device)
+        # Capacity must cover both clouds: src/tgt sizes are independent.
+        cap = args.max_points or (max(len(item["src"]), len(item["tgt"])) + 64)
+        b = next(iter(PairLoader([item], batch_size=1, src_capacity=cap, tgt_capacity=cap)))
+        dev = to_device(b, args.device)
+        center_mode = "neg_rt" if is_kitti else "trans"
+        zero = args.mode == "zero"
+        with torch.no_grad():
+            src_pred = model(dev["src"], dev["tgt"], dev["src_mask"], dev["tgt_mask"],
+                             gt_center_hint(dev["rot"], dev["trans"], center_mode))
+            # Zero-overlap protocol: corr = src_pred itself, thresh 0.2
+            # (reference evaluate_3d_match.py:193-195); the match flow: NN
+            # 0.1 and ICP 0.1 at Open3D's default 30 iterations
+            # (visualize_3d_match.py:73-76,139-151); KITTI its own.
+            m = register_batch(model, dev,
+                               dis_thresh=1.5 if is_kitti else (0.2 if zero else 0.1),
+                               corr="src_pred" if zero else "tgt",
+                               icp_thresh=1.0 if is_kitti else 0.1,
+                               icp_max_iter=1000 if is_kitti else 30,
+                               center_mode=center_mode, device=args.device)
+        n = int(b["src_mask"][0].sum())
+        n_tgt = int(b["tgt_mask"][0].sum())
+        pred = src_pred[0, :n].float().cpu().numpy()
+        src_np = b["src"][0, :n]
+        gt_pos = src_np @ item["rot"].T + item["trans"].reshape(3)
+        out["re_deg"] = float(m.re_deg[0])
+        out["te"] = float(m.te[0])
+        # The zero-match flow shows only pairs with RE < --re-gate
+        # (visualize_3d_match.py:117); the match flow shows every pair.
+        gated = zero and out["re_deg"] >= args.re_gate
+        out["display_gated"] = gated
+        if not gated:
+            T_est = m.transform[0].cpu().numpy()
+            out["predicted"] = _png(stem + "_predicted.png", viz.plot_registration,
+                                    item["src"], item["tgt"], None, src_pred=pred)
+            out["estimated"] = _png(stem + "_estimated.png", viz.plot_registration,
+                                    src_np, b["tgt"][0, :n_tgt], T_est)
+            out["pred_error"] = _png(stem + "_pred_error.png", viz.plot_prediction_error,
+                                     pred, gt_pos, tgt=item["tgt"])
+            if zero:
+                # Flow lines and the selected correspondences: squared
+                # distances in the de-scaled frame below 0.2
+                # (visualize_3d_match.py:62-64,98-116).
+                inv_s = 1.0 / dev["scale"][0]
+                with torch.no_grad():
+                    d2 = square_distance(src_pred[:, :n].float() * inv_s,
+                                         dev["tgt"][:, :n_tgt] * inv_s)[0].min(-1).values
+                selected = (d2 < 0.2).cpu().numpy()
+                out["flow"] = _png(stem + "_flow.png", viz.plot_prediction_flow, src_np,
+                                   pred, selected=selected)
+    if args.html:
+        # The interactive counterpart of the reference's draw_geometries
+        # windows (visualize_3d_match.py:118-124,184-188).
+        from scream_tpu_torch.utils.viz_html import export_registration_html
+
+        kw = {}
+        if args.params and not out.get("display_gated"):
+            kw["T_est"] = T_est
+            kw["src_pred"] = pred
+            if zero:
+                sel = np.flatnonzero(selected)[:400]
+                kw["corr"] = (src_np[sel], pred[sel])
+        out["html"] = export_registration_html(
+            stem + "_interactive.html", item["src"], item["tgt"], T_gt=T_gt,
+            title=f"{args.split} item {args.item}", **kw)
+    print(json.dumps(out))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="scream_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -679,7 +831,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the first epoch here")
     t.add_argument("--sample-img-dir", default=None,
-                   help="GAN sample-image dump: not ported yet")
+                   help="dump GAN sample images here every save_img_iter steps")
     t.add_argument("--center-mode", choices=["trans", "neg_rt", "none"], default=None,
                    help="src_center hint fed to the model (preset default; "
                         "'none' trains hint-free for GT-free register)")
@@ -806,6 +958,48 @@ def build_parser() -> argparse.ArgumentParser:
                     help="(kitti) torch device of the GT-refining ICP and its "
                          "bounded NN kernel (cpu runs the plain PyTorch version)")
     pr.set_defaults(fn=cmd_preprocess)
+
+    st = sub.add_parser(
+        "selftest",
+        help="every Hopper kernel against its plain version on the card "
+             "(one JSON line; nonzero exit on a miss or without a GPU)")
+    st.set_defaults(fn=cmd_selftest)
+
+    c = sub.add_parser("convert",
+                       help="reference .pth checkpoint -> weights directory of the port")
+    c.add_argument("--pth", required=True,
+                   help="e.g. point-generator.pth from the reference")
+    c.add_argument("--out", required=True,
+                   help="output directory (model.pt + model_config.json)")
+    c.add_argument("--model", choices=["point", "dem", "disc"], default="point",
+                   help="point (point/kitti-generator), dem (dem-generator), "
+                        "disc (discriminator)")
+    c.set_defaults(fn=cmd_convert)
+
+    v = sub.add_parser("visualize", help="render a pair to PNGs")
+    v.add_argument("--root", default="data")
+    v.add_argument("--split", default="3DMatch_test")
+    v.add_argument("--item", type=int, default=0)
+    v.add_argument("--out", default="viz_out")
+    v.add_argument("--params", default=None,
+                   help="weights directory of the port for the model views")
+    v.add_argument("--mode", choices=["match", "zero"], default="match",
+                   help="zero = zero-overlap flow (corr=src_pred, flow lines)")
+    v.add_argument("--re-gate", type=float, default=3.0,
+                   help="emit model-view PNGs only when RE < this (deg), the "
+                        "reference's display gate (visualize_3d_match.py:117); "
+                        "set large to always emit")
+    v.add_argument("--html", action="store_true",
+                   help="also write an interactive self-contained HTML scene "
+                        "(utils/viz_html.py)")
+    v.add_argument("--max-points", type=int, default=None)
+    v.add_argument("--d-model", type=int, default=None)
+    v.add_argument("--self-layers", type=int, default=None)
+    v.add_argument("--cross-layers", type=int, default=None)
+    v.add_argument("--device", default="cuda",
+                   help="torch device of the model, the registration and the kernels "
+                        "(cpu runs the plain PyTorch versions)")
+    v.set_defaults(fn=cmd_visualize, dtype=None)
     return p
 
 

@@ -153,8 +153,7 @@ class TrainConfig:
     adam_b1_d: float = 0.5  # discriminator betas (train_3d_match.py:41)
     seed: int = 0
     checkpoint_metric: str = "point_loss"  # or "success_rate", "chamfer"
-    # Sample-image dump interval of the JAX trainer (--sample-img-dir); the
-    # dump is not ported (ROADMAP.md), so the port's trainers never read it.
+    # Steps between GAN sample-image dumps (--sample-img-dir).
     save_img_iter: int = 1000
     log_every: int = 50  # trainer batch-counter interval for metric snapshots
 

@@ -18,8 +18,9 @@ Split rules (all from the reference):
   * voxel sizes: 3DMatch 0.0625, KITTI 0.7 (``process_3d_match.py:30``,
     ``process_kitti.py:55``).
 
-The QA helpers of the JAX module (``check_saved_pairs``,
-``check_opengf_test``) draw with matplotlib and are not ported.
+The QA helpers (``check_saved_pairs``, ``check_opengf_test``) return the
+JAX module's stats and draw their PNGs with matplotlib, imported only when
+a PNG is asked for.
 """
 
 from __future__ import annotations
@@ -358,3 +359,113 @@ def save_opengf_split(patches: Iterable[Dict[str, np.ndarray]], out_dir: str,
         if save_centers:
             np.save(os.path.join(out_dir, "centers", f"{n}.npy"), patch["center"])
     return n
+
+
+def check_saved_pairs(
+    artifact_dir: str,
+    out_dir: Optional[str] = None,
+    items: Optional[Iterable[int]] = None,
+    max_images: int = 4,
+    verbose: bool = True,
+):
+    """Headless QA sweep over saved pair artifacts.
+
+    The reference's ``check_saved_pairs`` (reference ``process_kitti.py:80-96``)
+    walks the saved triples, prints the bbox extents of the GT-registered
+    union and opens before/after Open3D windows. Here: same per-item extent
+    report (returned as dicts, printed when ``verbose``), with the windows
+    replaced by overlay PNGs for the first ``max_images`` items when
+    ``out_dir`` is given.
+    """
+    from scream_tpu_torch.utils.viz import plot_registration
+
+    if items is None:
+        n = 0
+        while os.path.exists(os.path.join(artifact_dir, f"src{n}.npy")):
+            n += 1
+        items = range(n)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    stats = []
+    for j, i in enumerate(items):
+        src = np.load(os.path.join(artifact_dir, f"src{i}.npy"))
+        tgt = np.load(os.path.join(artifact_dir, f"tgt{i}.npy"))
+        T = np.load(os.path.join(artifact_dir, f"T{i}.npy"))
+        src_reg = src @ T[:3, :3].T + T[:3, 3]
+        all_pts = np.concatenate([src_reg, tgt], axis=0)
+        lo, hi = all_pts.min(axis=0), all_pts.max(axis=0)
+        rec = {"item": int(i), "min": lo, "max": hi, "extent": hi - lo,
+               "n_src": len(src), "n_tgt": len(tgt)}
+        stats.append(rec)
+        if verbose:
+            print(
+                "x: %.3f - %.3f, %.3f   y: %.3f - %.3f, %.3f  "
+                "z: %.3f - %.3f, %.3f  %d"
+                % (lo[0], hi[0], hi[0] - lo[0], lo[1], hi[1], hi[1] - lo[1],
+                   lo[2], hi[2], hi[2] - lo[2], i)
+            )
+        if out_dir and j < max_images:
+            plot_registration(
+                src, tgt, path=os.path.join(out_dir, f"pair{i}_raw.png"))
+            plot_registration(
+                src, tgt, transform=T,
+                path=os.path.join(out_dir, f"pair{i}_registered.png"))
+    return stats
+
+
+def check_opengf_test(
+    artifact_dir: str,
+    out_path: Optional[str] = None,
+    n_items: Optional[int] = None,
+    verbose: bool = True,
+) -> Dict[str, float]:
+    """Headless QA of OpenGF test artifacts.
+
+    The reference's ``check_test`` (reference ``process_open_gf.py:266-296``)
+    re-assembles all test tiles via their saved centers, JET-colormaps each
+    DEM point by its (globally max-normalized) DSM-above-DEM height and shows
+    the scene in Open3D. Here: same accumulation and normalization, rendered
+    to a top-down PNG when ``out_path`` is given; returns summary stats.
+    """
+    if n_items is None:
+        n_items = 0
+        while os.path.exists(os.path.join(artifact_dir, f"{n_items + 1}.npy")):
+            n_items += 1
+    if n_items == 0:
+        return {"n_patches": 0.0, "n_points": 0.0, "max_height": 0.0}
+    dsm_all, dem_all, high_all = [], [], []
+    for i in range(1, n_items + 1):
+        block = np.load(os.path.join(artifact_dir, f"{i}.npy"))
+        center = np.load(os.path.join(artifact_dir, "centers", f"{i}.npy")).ravel()
+        if center.size == 2:  # (x, y) tile centers: z was never shifted
+            center = np.concatenate([center, [0.0]])
+        dsm, dem = block[:, :3], block[:, 3:]
+        dsm_all.append(dsm + center)
+        dem_all.append(dem + center)
+        high_all.append(dsm[:, 2] - dem[:, 2])
+        if verbose:
+            print("\r%d / %d" % (i, n_items), end="")
+    if verbose:
+        print()
+    dsm_all = np.concatenate(dsm_all, axis=0)
+    dem_all = np.concatenate(dem_all, axis=0)
+    high = np.concatenate(high_all, axis=0)
+    max_high = float(high.max()) if len(high) else 0.0
+    if out_path:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=(10, 10))
+        sc = ax.scatter(dem_all[:, 0], dem_all[:, 1],
+                        c=high / max(max_high, 1e-9), cmap="jet", s=1.0)
+        fig.colorbar(sc, ax=ax, label="normalized DSM-above-DEM height")
+        ax.set_aspect("equal")
+        fig.savefig(out_path, dpi=120)
+        plt.close(fig)
+    return {
+        "n_patches": float(n_items),
+        "n_points": float(len(dem_all)),
+        "max_height": max_high,
+    }

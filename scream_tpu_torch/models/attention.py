@@ -111,12 +111,14 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
                                                                  dtype))):
         if on_cuda and not attn_cuda.kernels_take(d, hid, num_heads, dtype):
             raise NotImplementedError(
-                f"fused attention block at d_model {d}, {num_heads} heads (head "
-                f"dim {d // num_heads}), {dtype}: the CUDA kernels take d_model -> "
-                f"head dims {attn_cuda.KERNEL_CELLS.get(dtype, {})}; the other "
-                "cells the JAX rule admits (head dims below 16, above 64, or 24) "
-                "are queued in ROADMAP.md (TPU kernels still to port); pass "
-                "fused_attention=False for the plain attention")
+                f"fused attention block at d_model {d}, hidden {hid}, {num_heads} heads "
+                f"(head dim {d // num_heads}), {dtype}: the CUDA kernels take d_model -> "
+                f"head dims {attn_cuda.KERNEL_CELLS.get(dtype, {})} at a hidden width "
+                "a multiple of 128; the cells the JAX rule admits beyond them (bf16 "
+                "d_model 512 at ffn_mult 1-2, fp32 d_model 384 at ffn_mult 1-3, and "
+                "head dims below 16, above 64, or 24) are queued in ROADMAP.md (TPU "
+                "kernels still to port); pass fused_attention=False for the plain "
+                "attention")
         return "fused"
     tail = fused_tail if fused_tail is not None else (
         on_cuda and jax_fusable_tail(d, hid, dtype))
@@ -125,10 +127,11 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
             raise NotImplementedError(
                 f"block tail at d_model {d}, hidden {hid}, {dtype}: the CUDA "
                 f"kernels take bf16 at d_model in {tail_cuda.KERNEL_WIDTHS} and "
-                f"fp32 at {tail_cuda.KERNEL_WIDTHS_F32} (every width where the "
-                "JAX rule admits the kernel; see ROADMAP.md), with a hidden "
-                "width a multiple of 128; pass fused_block_tail=False for the "
-                "plain tail")
+                f"fp32 at {tail_cuda.KERNEL_WIDTHS_F32}, with a hidden width a "
+                "multiple of 128; the widths the JAX rule admits beyond them (bf16 "
+                "d_model 640 at ffn_mult 1-3, 768 at 1-2, 896 at 1; fp32 d_model 512 "
+                "at ffn_mult 1-2, 640 at 1) are queued in ROADMAP.md (TPU kernels "
+                "still to port); pass fused_block_tail=False for the plain tail")
         return "tail"
     return "plain"
 

@@ -13,9 +13,10 @@ The trainers build their models in :meth:`init`, from
 ``PRNGKey(seed)``; the two draw different numbers, so a comparison loads one
 init into both). ``RegistrationTrainer`` takes any pair loader, the
 size-bucketed one of ``train --multi-scale`` too (one batch shape a bucket).
-Multi-chip meshes (``--mesh``, including the pipeline trainer) and the GAN
-sample-image dump (``--sample-img-dir``) are not ported (ROADMAP.md):
-asking for them raises.
+With the GAN, ``sample_img_dir`` dumps the first fake render every
+``train_cfg.save_img_iter`` steps as a PNG (``utils/viz.py``, no matplotlib
+needed). Multi-chip meshes (``--mesh``, including the pipeline trainer) are
+not ported (ROADMAP.md): asking for one raises.
 """
 
 from __future__ import annotations
@@ -42,14 +43,29 @@ from scream_tpu_torch.utils.logging import MetricsLogger
 from scream_tpu_torch.utils.profiling import ThroughputMeter, trace
 
 
-def _refuse_unported(mesh, sample_img_dir) -> None:
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "training on a mesh (--mesh) is not ported (ROADMAP.md, multi-GPU)")
-    if sample_img_dir:
-        raise NotImplementedError(
-            "the GAN sample-image dump (--sample-img-dir) is not ported "
-            "(ROADMAP.md, user surface)")
+
+
+def _maybe_dump_gan_sample(trainer, fake, epoch: int) -> None:
+    """Periodic GAN sample-image dump, the reference's QA artifact
+    (reference ``train_3d_match.py:211-214``, ``train_open_gf.py:124-128``):
+    the first pair's fake render as ``epoch{E}_step{S}.png`` every
+    ``save_img_iter`` steps. The directory gate runs before the step is
+    read, as in the JAX trainer, so a run without dumps does no work here."""
+    if not trainer.sample_img_dir:
+        return
+    step_no = int(trainer.state.step)
+    if step_no % trainer.train_cfg.save_img_iter != 0:
+        return
+    from scream_tpu_torch.utils.viz import save_depth_image_grid
+
+    os.makedirs(trainer.sample_img_dir, exist_ok=True)
+    save_depth_image_grid(
+        fake[0].detach().float().cpu().numpy(),
+        os.path.join(trainer.sample_img_dir, f"epoch{epoch}_step{step_no}.png"))
 
 
 class _Trainer:
@@ -76,11 +92,12 @@ class _Trainer:
             render_cfg=self.render_cfg, gan_weight=self.train_cfg.gan_weight)
         return self.state
 
-    def _train_loop(self, real_keys, count_items: bool) -> Dict[str, float]:
+    def _train_loop(self, real_keys, count_items: bool, epoch: int) -> Dict[str, float]:
         """One pass over the train loader: a generator step per batch and,
         with the GAN, a discriminator step on its render against the render
-        of ``real_keys``' clouds. Sums stay on the device; the host reads
-        them every ``log_every`` batches and at the end."""
+        of ``real_keys``' clouds (and the sample dump). Sums stay on the
+        device; the host reads them every ``log_every`` batches and at the
+        end."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         for batch in self.train_loader:
@@ -91,6 +108,7 @@ class _Trainer:
                 self.disc_state, d_loss = self.disc_step(
                     self.disc_state, fake, *(tb[k] for k in real_keys))
                 metrics["d_loss"] = d_loss
+                _maybe_dump_gan_sample(self, fake, epoch)
             count += 1
             if count_items:
                 self.throughput.step(next(iter(tb.values())).shape[0])
@@ -184,7 +202,8 @@ class RegistrationTrainer(_Trainer):
         mesh=None,
         device="cuda",
     ):
-        _refuse_unported(mesh, sample_img_dir)
+        _refuse_unported(mesh)
+        self.sample_img_dir = sample_img_dir
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.model_cfg = model_cfg
@@ -221,7 +240,7 @@ class RegistrationTrainer(_Trainer):
         # The discriminator's real render: the GT-aligned source beside the
         # target (train_3d_match.py:195-199).
         return self._train_loop(("src", "tgt", "src_mask", "tgt_mask", "rot", "trans"),
-                                count_items=True)
+                                count_items=True, epoch=epoch)
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
@@ -279,7 +298,8 @@ class DEMTrainer(_Trainer):
         sample_img_dir: Optional[str] = None,
         device="cuda",
     ):
-        _refuse_unported(mesh, sample_img_dir)
+        _refuse_unported(mesh)
+        self.sample_img_dir = sample_img_dir
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.model_cfg = model_cfg
@@ -311,7 +331,7 @@ class DEMTrainer(_Trainer):
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         # The discriminator's real render: the GT DEM beside the coarse DEM.
         return self._train_loop(("dem", "dem_coarse", "dem_mask", "dem_coarse_mask"),
-                                count_items=False)
+                                count_items=False, epoch=epoch)
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:

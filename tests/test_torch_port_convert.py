@@ -30,6 +30,14 @@ from scream_tpu_torch.utils.convert import params_from_jax
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_rel(got, want, tol=1e-4):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape

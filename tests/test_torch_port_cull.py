@@ -55,6 +55,14 @@ BEST_NORMAL, V_MAX, V_LOG, LNV_MIN, L_ZERO = 2.0 ** -100, 2.0 ** 20, 2.0 ** -24,
 LOG_ERR = 2.0 ** -20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.asarray(x).copy())
 

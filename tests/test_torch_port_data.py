@@ -139,8 +139,12 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|scream_tpu)\
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_port_make_raw.py")]
+    # The card-side scripts; the host-side ones (torch_port_convert_params,
+    # torch_port_disc_separation, torch_port_make_fp32_reference,
+    # torch_port_open_items) import the JAX package on purpose.
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", f"torch_port_{n}.py")
+        for n in ("make_raw", "make_splits", "run_scale", "measure_gt_free")]
     for root, _, names in os.walk(os.path.join(REPO, "scream_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

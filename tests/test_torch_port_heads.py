@@ -494,3 +494,35 @@ def test_wrappers_refuse_cells_without_a_kernel(fake_cuda, d, heads, dtype):
         with pytest.raises(ValueError, match="head dim"):
             attn_cuda.pack_stats_weights(W, W, num_heads=heads)
     assert not fake_cuda.calls
+
+
+@pytest.mark.parametrize("ffn_mult", [1, 2, 3, 5, 6, 7, 8])
+def test_cuda_route_follows_the_jax_rules_at_other_ffn_widths(ffn_mult):
+    """``route_block`` for every (d, heads, dtype) cell of ``ROUTES`` at hidden
+    = ffn_mult x d on CUDA: the fused kernels where the JAX rule admits its
+    kernels and the port has them (the head dims and widths of
+    ``KERNEL_CELLS``), a refusal naming the head dim where it has not, else the
+    JAX route (the tail kernel where that rule holds and a kernel takes the
+    width, a refusal where none does, else plain)."""
+    from scream_tpu_torch.models.attention import route_block
+
+    cells = {"bfloat16": {128: (16, 32, 64), 256: (16, 32, 64), 384: (16, 32, 48, 64)},
+             "float32": {128: (16, 32, 64), 256: (16, 32, 64)}}
+    tails = {"bfloat16": (128, 256, 384, 512), "float32": (128, 256, 384)}
+    for d, heads, dtype in ROUTES:
+        hid, jdt, tdt = ffn_mult * d, jnp.dtype(dtype), getattr(torch, dtype)
+        if jattn.fusable_block(d, hid, heads, jdt):
+            want = "fused" if d // heads in cells[dtype].get(d, ()) else "raise"
+        elif ffn_pallas.fusable(d, hid, jdt):
+            want = "tail" if d in tails[dtype] else "raise"
+        else:
+            want = "plain"
+        assert attn_cuda.kernels_take(d, hid, heads, tdt) == (d // heads in cells[dtype].get(d, ()))
+        try:
+            got = route_block(d, hid, heads, tdt, None, None, True, True)
+        except NotImplementedError as e:
+            assert "ROADMAP" in str(e) and f"hidden {hid}" in str(e), (d, heads, dtype)
+            if jattn.fusable_block(d, hid, heads, jdt):
+                assert f"head dim {d // heads}" in str(e)
+            got = "raise"
+        assert got == want, (d, heads, dtype, got, want)

@@ -7,7 +7,8 @@ fp32, with the buckets 256 and 512 (``--max-points 512``).
 Bars: every batch of both loaders bit for bit, in the same order; the
 epoch's train losses within 1e-4 relative (``test_torch_port_trainer.py``'s
 bar; validation is that file's); the ``train`` CLI's flag reaches the
-bucketed loader, and ``--mesh`` / ``--sample-img-dir`` stay refused with it.
+bucketed loader, and ``--mesh`` stays refused with it (beside
+``--sample-img-dir`` too).
 """
 
 import dataclasses
@@ -112,6 +113,6 @@ def test_train_cli_multi_scale(tmp_path, capsys):
     final = json.loads(out.out.strip().splitlines()[-1])["final_val"]
     assert set(final) == {"point_loss", "rre", "rte", "success_rate", "success_rre",
                           "success_rte"}
-    for flag in (["--mesh", "data=2"], ["--sample-img-dir", "imgs"]):
+    for flag in (["--mesh", "data=2"], ["--sample-img-dir", "imgs", "--mesh", "data=2"]):
         with pytest.raises(SystemExit, match="not ported"):
             tcli.main(["train", "3dmatch", "--multi-scale", "--device", "cpu", *flag])

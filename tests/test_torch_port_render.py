@@ -39,6 +39,14 @@ from scream_tpu_torch.utils import device as device_util
 RHO, W = 24.0, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.asarray(x).copy())
 

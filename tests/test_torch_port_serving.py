@@ -52,6 +52,14 @@ HINTFREE_TORCH = os.path.join(REPO, "scream_tpu_torch", "weights",
 TOL = 2e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _models(kind):
     """(jax apply_fn, jax params, port model), same fp32 weights."""
     if kind == "random":
@@ -263,6 +271,7 @@ class TestCLI:
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
+        env["OMP_NUM_THREADS"] = "1"  # as one_torch_thread
         return subprocess.run([sys.executable, "-m", "scream_tpu_torch", "register",
                                *args], capture_output=True, text=True, timeout=300,
                               cwd=REPO, env=env)

@@ -162,3 +162,68 @@ def test_cuda_route_follows_the_jax_rules(monkeypatch, d, dtype, fused_attn, fus
         assert "ROADMAP" in str(e)
         got = "raise"
     assert got == want
+
+
+# The cells the JAX rules admit at 8 heads and no CUDA kernel takes, at
+# FFN widths other than 4 x d_model: (dtype, d_model) -> the ffn_mult range
+# as the refusal message names it.
+MISSING = {"fused": {("bfloat16", 512): "1-2", ("float32", 384): "1-3"},
+           "tail": {("bfloat16", 640): "1-3", ("bfloat16", 768): "1-2", ("bfloat16", 896): "1",
+                    ("float32", 512): "1-2", ("float32", 640): "1"}}
+
+
+def _mults(rng):
+    lo, _, hi = rng.partition("-")
+    return range(int(lo), int(hi or lo) + 1)
+
+
+@pytest.mark.parametrize("ffn_mult", [1, 2, 3, 5, 6, 7, 8])
+def test_cuda_route_follows_the_jax_rules_at_other_ffn_widths(ffn_mult):
+    """``route_block`` at hidden = ffn_mult x d on CUDA, every width 128-1,024,
+    both dtypes, every flag, against the route the JAX rules give; "raise"
+    exactly where the JAX auto rules admit a kernel the port has not written,
+    and the refusal names that cell."""
+    from scream_tpu_torch.models.attention import route_block
+
+    for d, dtype, fused_attn, fused_tail, shared_kv in itertools.product(
+            range(128, 1152, 128), ("bfloat16", "float32"), (None, False, True),
+            (None, False, True), (True, False)):
+        hid, jdt, tdt = ffn_mult * d, jnp.dtype(dtype), getattr(torch, dtype)
+        use_fa = fused_attn if fused_attn is not None else attn_pallas.fusable_block(
+            d, hid, 8, jdt)
+        if use_fa and shared_kv:
+            want, kernel = "fused", (d, dtype) in FUSED_KERNEL
+        else:
+            use_tail = fused_tail if fused_tail is not None else ffn_pallas.fusable(
+                d, hid, jdt)
+            want, kernel = ("tail", (d, dtype) in TAIL_KERNEL) if use_tail else ("plain", True)
+        cell = (d, dtype, fused_attn, fused_tail, shared_kv)
+        try:
+            got = route_block(d, hid, 8, tdt, fused_attn, fused_tail, True, shared_kv)
+        except NotImplementedError as e:
+            assert not kernel and "ROADMAP" in str(e), cell
+            auto = fused_attn is None if want == "fused" else fused_tail is None
+            if auto:
+                rng = MISSING[want].get((dtype, d))
+                assert rng is not None and ffn_mult in _mults(rng), cell
+                assert f"{d} at {'ffn_mult ' if want == 'fused' else ''}" in str(e) \
+                    and rng in str(e), (cell, str(e))
+            continue
+        assert kernel and got == want, (cell, got, want)
+
+
+def test_refusal_messages_name_exactly_the_missing_cells():
+    """Every cell of ``MISSING`` is admitted by the JAX auto rules at 8 heads
+    and taken by no CUDA kernel, and no other cell at ffn_mult 1-8 is."""
+    found = {"fused": set(), "tail": set()}
+    for d, dtype, m in itertools.product(range(128, 1152, 128), ("bfloat16", "float32"),
+                                         range(1, 9)):
+        jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+        if attn_pallas.fusable_block(d, m * d, 8, jdt):
+            if not attn_cuda.kernels_take(d, m * d, 8, tdt):
+                found["fused"].add((dtype, d, m))
+        if ffn_pallas.fusable(d, m * d, jdt) and not tail_cuda.kernel_takes(d, m * d, tdt):
+            found["tail"].add((dtype, d, m))
+    for kind, cells in MISSING.items():
+        assert found[kind] == {(dt, d, m) for (dt, d), rng in cells.items()
+                               for m in _mults(rng)}, kind

@@ -62,6 +62,14 @@ SPE = 10  # steps per epoch of the LR schedule
 KW = dict(d_model=64, num_heads=4, self_layers=1, cross_layers=1, dtype="float32")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.array(x, copy=True))
 

@@ -235,8 +235,9 @@ def test_dem_trainer_checkpoint_metric(tmp_path):
                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DEMTrainer(*loaders, device="cpu", mesh="data=2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RegistrationTrainer(*loaders, device="cpu", sample_img_dir=str(tmp_path))
+    # The GAN sample dump is ported: the directory is taken, not refused.
+    assert RegistrationTrainer(*loaders, device="cpu",
+                               sample_img_dir=str(tmp_path)).sample_img_dir == str(tmp_path)
 
 
 TINY = ["--device", "cpu", "--max-points", "256", "--d-model", "128", "--self-layers", "1",
@@ -286,7 +287,7 @@ def test_train_cli_3dmatch_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--multi-scale", "--mesh", "data=2"],
-                                  ["--sample-img-dir", "imgs"]])
+                                  ["--sample-img-dir", "imgs", "--mesh", "data=2"]])
 def test_train_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported"):
         cli_main(["train", "kitti", *TINY, *flag])
