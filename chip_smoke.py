@@ -20,7 +20,9 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
    exact ties (16 lanes, one dead for the bounded NN: the lowest index
    wins, bit for bit); the stats projection alone as one ``torch.matmul``
    (a reference line); ptxas's lines, with no spill allowed in the splat,
-   exact-NN and fp32 kernels; apply gated at 0.50 ms at path 1's shape;
+   exact-NN and fp32 kernels and no C7515 (wgmma serialized) line in the
+   fp32 stats, apply and pack kernels; apply gated at 0.50 ms at path 1's
+   shape;
 4. path 1, ``register_batch`` at 16 pairs x 4,096 points, the shipped
    full-width point-generator (``scream_tpu_torch/weights/point-generator``:
    d 256, 6 + 6 layers), 30 ICP iterations, distinct
@@ -116,10 +118,15 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     launches, ICP's pose within 0.01 deg and 1 mm of its truth;
 14. path 7, the float32 configuration (the shipped weights loaded with
     ``dtype="float32"``; ``csrc/attn_f32.cu`` and ``csrc/tail_f32.cu``):
-    fp32 stats and apply against their plain versions at path 1's 16 x
-    4,096 (stats bit identical across launches, a zero-mask batch exactly
-    0), at 8 x 4,000 and at the serving shape 8 x 512 (d 128), the fused
-    block against the literal plain block; the fp32 tail at d 384 on a
+    fp32 stats and apply (split-TF32 wgmma) against their plain versions at
+    path 1's 16 x 4,096 (gated at their first versions' 0.7397 and 2.4090
+    ms, best of 3), at 8 x 4,000 and at the serving shape 8 x 512 (d 128;
+    gated at the first versions' 0.0561 and 0.0950 ms, best of 3), stats
+    and apply each bit identical across launches, a zero-mask batch
+    exactly 0 in the stats, both weight packs bit for bit with their plain
+    versions, the fused block against the literal plain block; at 16 x
+    4,096 stats' and apply's products as fp32 ``torch.matmul`` with TF32
+    off (a reference line); the fp32 tail at d 384 on a
     seeded random-init DEMTransformer's first block (8 x 4,096, and 65,536
     - 37 rows) and at d 256 through ``fused_attention=False``; the tail's
     products as fp32 ``torch.matmul`` (a reference line); the card's fp32
@@ -160,7 +167,8 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     the in-process ones); (b) ``scripts/torch_port_measure_gt_free.py`` at
     16 x 448 with ``--starts oct24 --max-angle-deg 90`` and ``--starts ico60
     --max-angle-deg 180`` (finite rows), stats and apply (fp32) at the ico60
-    passes' 60 lanes x 512 against their plain versions; (c) the 3DMatch
+    passes' 60 lanes x 512 against their plain versions (gated at their
+    first versions' 0.1181 and 0.3640 ms, best of 3); (c) the 3DMatch
     preset's steps on the ``--multi-scale`` loader's 256- and 4,096-point
     batches, stats and apply at the 8 x 256 bucket's first-block input, pairs/s
     by bucket, ``train 3dmatch --multi-scale`` in a subprocess; (d) normals,
@@ -299,8 +307,10 @@ TAIL_ROWS = {128: (300,), 256: (1000, 65536), 384: (777, 8192), 512: (33, 8192, 
 # --only tail, path 10): d_model and ffn_mult, the tail's row count.
 FFN_WIDTHS, FFN_MULTS, FFN_TAIL_ROWS = (128, 256, 384), (1, 2, 3), 4096
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores (an
-# FMA counted as two operations), HBM3.
+# FMA counted as two operations), HBM3; TF32 tensor cores, of which the fp32
+# kernels' split products take three passes a product.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32, TF32_PASSES = 495e12, 3
 # Rates for work counted in issued instructions: an fp32 instruction that is
 # not an FMA takes a whole dispatch slot (132 SMs x 128 lanes x 1.98 GHz), and
 # the special-function units take 16 MUFU.EX2 a clock per SM.
@@ -326,10 +336,15 @@ SPLAT_NEED_BAND = 2.0 ** -12
 # TIME_ROUNDS timing rounds, so that one round slowed by the host's
 # neighbours does not decide it; every round is logged. Other rows time
 # one round on both sides.
-STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12}
+# The fp32 kernels (split-TF32 wgmma) at path 7's 16 x 4,096 and serving
+# shape 8 x 512 (d 128), and path 9's ico60 60 x 512: their first versions'
+# times (the FMA kernels, PERF.md), so that a redesign that loses to them
+# fails.
+STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12, "_f32": 0.7397,
+                 "_f32_d128": 0.0561, "_f32_robust60": 0.1181}
 # Apply at path 1's 16 x 4,096, d 256: above the runs of PRs 8-13
 # (0.3918-0.4418 ms), so that generalizing the kernel cannot slow it unseen.
-APPLY_GATE_MS = {"": 0.50}
+APPLY_GATE_MS = {"": 0.50, "_f32": 2.4090, "_f32_d128": 0.0950, "_f32_robust60": 0.3640}
 NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
 # The splat at 48 x 8,192 x 64^2, rho 24, and the exact NN at 16 x 4,096:
 # below the best of their first versions (PERF.md), so that a redesign that
@@ -464,12 +479,20 @@ def phase_build():
             if "spill" in ln and fn:
                 spills[fn] = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()][1:]
     # The kernels redesigned last, and the fp32 kernels, keep their
-    # registers: no spills.
-    for name in ("max_splat_kernel", "nn_exact_kernel", "attn_stats_f32_kernel",
-                 "attn_apply_f32_kernel", "tail_f32_kernel"):
+    # registers: no spills; and ptxas serializes no wgmma of the fp32 ones
+    # (C7515; its C7519 lines, a wgmma fence added around registers a wgmma
+    # reads, are counted).
+    f32_new = ("attn_stats_f32_kernel", "attn_apply_f32_kernel", "pack_stats_f32_kernel",
+               "pack_apply_f32_kernel")
+    for name in ("max_splat_kernel", "nn_exact_kernel", "tail_f32_kernel") + f32_new:
         hits = {f: v for f, v in spills.items() if name in f}
         check(hits and all(not any(v) for v in hits.values()),
               f"ptxas: {name} spills or is missing from the report: {hits}")
+    lines = _build.build_log.splitlines()
+    serial = [ln.strip() for ln in lines if "C7515" in ln and any(n in ln for n in f32_new)]
+    check(not serial, f"ptxas serializes wgmma in the fp32 kernels: {serial[:3]}")
+    log(f"ptxas: no C7515 in the fp32 kernels; {sum('C7519' in ln for ln in lines)} C7519 "
+        f"lines (a wgmma fence added) in all")
 
 
 def make_batches(n_batches, seed, batch=B, n_src=N_SRC, n_tgt=N_TGT, cap=CAP):
@@ -510,6 +533,50 @@ def check_pack(Wm, W1, W2, Wq=None, suffix=""):
     log(f"kernel pack_weights{suffix} ({W1.dtype}, d {W1.shape[0]}, hidden "
         f"{W1.shape[1]}{', with Wq' if Wq is not None else ''}): identical to the plain "
         f"pack {same} | {cuda_ms(lambda: pack(*ws)):.4f} ms")
+
+
+def check_pack_f32(Wk, Wv, Wq, Wm, W1, W2, heads, suffix):
+    """The fp32 kernels' weight packs on the card (``pack_stats_f32_kernel``,
+    ``pack_apply_f32_kernel``: transposed and split hi / lo) against their
+    plain versions on the CPU: bit-identical. Their time is part of the
+    stats' and apply's times."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    packs = (("stats", lambda *w: attn_cuda.pack_stats_weights_f32(*w, num_heads=heads),
+              (Wk, Wv)),
+             ("apply", attn_cuda.pack_apply_weights_f32, (Wq, Wm, W1, W2)))
+    for name, pack, ws in packs:
+        same = torch.equal(pack(*ws).cpu(), pack(*(w.cpu() for w in ws)))
+        check(same, f"pack_{name}_weights_f32{suffix}: the card's blob differs from the plain "
+              "pack")
+        log(f"kernel pack_{name}_weights_f32{suffix} (d {Wq.shape[0]}, hidden {W1.shape[1]}): "
+            f"identical to the plain pack {same} | {cuda_ms(lambda: pack(*ws)):.4f} ms")
+
+
+def f32_matmul_reference(blk, x):
+    """A reference line, not ``library_ms``: the fp32 stats' and apply's
+    products as fp32 ``torch.matmul`` with TF32 off (the projection x @
+    [Wk|Wv]; x @ Wq, x @ Wm, x @ W1, relu(.) @ W2), on ``blk``'s weights."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        w = lambda t: t.detach().float()
+        Wkv = torch.cat([w(blk.k_proj.kernel), w(blk.v_proj.kernel)], 1)
+        Wq, Wm, W1, W2 = (w(blk.q_proj.kernel), w(blk.merge.kernel), w(blk.ffn_in.kernel),
+                          w(blk.ffn_out.kernel))
+        h = torch.relu(x2 @ W1)
+        s_ms = cuda_ms(lambda: x2 @ Wkv)
+        a_ms = cuda_ms(lambda: (x2 @ Wq, x2 @ Wm, x2 @ W1, h @ W2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log(f"reference (not library_ms): fp32 torch.matmul, TF32 off, {x2.shape[0]} rows, d "
+        f"{x2.shape[1]}: the stats' projection {s_ms:.4f} ms, the apply's four products "
+        f"{a_ms:.4f} ms")
 
 
 def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
@@ -580,16 +647,25 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
         f"{', '.join(f'{t:.4f}' for t in pms_all)} ms"
         + (f" (gate {gate} ms on the best)" if gate is not None else ""))
     hd = d // H
-    b_ms, b_by = bound(Bx * L * d * isz + Bx * L * 4 + 2 * d * d * isz
-                       + Bx * (H * hd * hd + d) * 4,
-                       [(2 * Bx * L * d * 2 * d + 2 * Bx * L * H * hd * hd, peak)])
+    # fp32: the kernel's operations, the projection's three TF32 passes on
+    # the tensor cores and K'^T V on fp32 FMA (its bound); beside it, the
+    # bound of the same products on fp32 FMA alone (logged).
+    s_bytes = Bx * L * d * isz + Bx * L * 4 + 2 * d * d * isz + Bx * (H * hd * hd + d) * 4
+    s_proj, s_kv = 2 * Bx * L * d * 2 * d, 2 * Bx * L * H * hd * hd
+    b_ms, b_by = bound(s_bytes, [(TF32_PASSES * s_proj, PEAK_TF32), (s_kv, PEAK_FP32)]
+                       if fp32 else [(s_proj + s_kv, peak)])
+    if fp32:
+        log(f"kernel attn_stats{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
+            f"bound {bound(s_bytes, [(s_proj + s_kv, PEAK_FP32)])[0]:.4f} ms")
     records.append(dict(name="attn_stats" + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                         bar=f"{bars['stats']} rel", route="cuda", source=src,
                         replaces="scream_tpu/ops/attn_pallas.py:117"))
 
     # Kernel 2: attention apply + block tail (fed the plain stats).
-    if not fp32:  # the fp32 kernels read the weights as they are
+    if fp32:
+        check_pack_f32(Wk, Wv, Wq, Wm, W1, W2, H, suffix)
+    else:
         check_pack(Wm, W1, W2, Wq, suffix="_apply" + suffix)
     args = (x, m, KVp, ksp, Wq, Wm, g1, b1, W1, W2, g2, b2)
     kw = dict(attn_eps=1e-6, ln_eps=1e-5, norm_dtype=f32)
@@ -602,6 +678,10 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     # single final-rounding flip reaches 4e-3..8e-3.
     check(err <= bars["apply"], f"attn_apply{suffix}: relative error {err:.3g} > "
           f"{bars['apply']}")
+    if fp32:  # no float atomics: a second launch gives the same bits
+        same = bool(torch.equal(out, attn_cuda.attn_apply(*args, **kw)))
+        check(same, f"attn_apply{suffix}: two launches differ")
+        log(f"kernel attn_apply{suffix}: two launches bit identical {same}")
     gate = APPLY_GATE_MS.get(suffix)
     if gate is None:
         ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
@@ -614,10 +694,14 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
         log(f"kernel attn_apply{suffix} ({Bx} x {L}, d {d}): timing rounds "
             f"{', '.join(f'{t:.4f}' for t in ms_all)} ms (gate {gate} ms on the best), plain "
             f"{', '.join(f'{t:.4f}' for t in pms_all)} ms")
-    b_ms, b_by = bound(2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz
-                       + Bx * (H * hd * hd + d) * 4 + 4 * d * 4,
-                       [(2 * Bx * L * d * (2 * d + 2 * hid), peak),
-                        (2 * Bx * L * H * hd * hd, PEAK_FP32)])
+    a_bytes = 2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz \
+        + Bx * (H * hd * hd + d) * 4 + 4 * d * 4
+    a_prod, a_att = 2 * Bx * L * d * (2 * d + 2 * hid), 2 * Bx * L * H * hd * hd
+    b_ms, b_by = bound(a_bytes, [(TF32_PASSES * a_prod, PEAK_TF32) if fp32 else (a_prod, peak),
+                                 (a_att, PEAK_FP32)])
+    if fp32:
+        log(f"kernel attn_apply{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
+            f"bound {bound(a_bytes, [(a_prod + a_att, PEAK_FP32)])[0]:.4f} ms")
     records.append(dict(name="attn_apply" + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                         bar=f"{bars['apply']} rel", route="cuda", source=src,
@@ -3062,6 +3146,10 @@ def phase_kernels_f32(model, batch, hf):
     m_bool = tb["tgt_mask"]
     blk = model.trunk.stem_0
     records = check_attention(blk, m_bool, suffix="_f32", dtype=f32)
+    x_f32 = block_input(model, blk, (tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                                     gt_center_hint(tb["rot"], tb["trans"])))[0]
+    f32_matmul_reference(blk, x_f32)
+    del x_f32
     records += check_attention(blk, m_bool[:8, :RAGGED_L].contiguous(),
                                suffix="_f32_L4000", dtype=f32)
     m_serve = torch.zeros((SERVE_BATCH, 512), dtype=torch.bool, device=DEV)

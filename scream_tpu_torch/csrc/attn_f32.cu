@@ -1,5 +1,6 @@
-// Fused linear-attention block in float32 for Hopper (sm_90a): the
-// float32 instantiation of the two kernels of attn.cu.
+// Fused linear-attention block in float32 for Hopper (sm_90a): the stats
+// and apply kernels of the float32 configuration, their products on the
+// tensor cores as split-TF32 ("3xTF32") wgmma (tf32_tile.cuh).
 //
 // Replaces the TPU kernels scream_tpu/ops/attn_pallas.py:_stats_kernel and
 // scream_tpu/ops/attn_pallas.py:_apply_kernel as attention_block runs them
@@ -11,142 +12,241 @@
 //           per (batch, head): KV = K'^T V (hd x hd) and K_sum = sum_rows K'.
 //   apply:  q = x @ Wq, Q' = (elu(q)+1)*mask, att = Q' KV per head,
 //           z = Q'.K_sum per head, msg = att / (z + eps) (as att * (1/(z+eps))),
-//           then LN2(x + relu(LN1(msg @ Wm + x) @ W1) @ W2) (f32_tile.cuh).
+//           then LN2(x + relu(LN1(msg @ Wm + x) @ W1) @ W2).
 //
-// What bounds them on the H100: fp32 FMA on the CUDA cores (67 TFLOP/s;
-// see f32_tile.cuh for why no tensor-core route keeps the fp32 bars). At
-// the main path's shape (16 x 4096 rows, d 256, hidden 1024) apply does
-// ~94 GFLOP against ~134 MB of activations in and out (~700 FLOP a byte)
-// and stats ~18 GFLOP against 67 MB, both far above the card's fp32
-// ridge of 20 FLOP a byte: operations bound them. What the design does
-// about it: every product is register-tiled fp32 FMA (f32_tile.cuh:gemm,
-// 8 x 4 G outputs a thread, weights streamed through a two-chunk
-// cp.async ring), the activations stay in shared memory or registers
-// between the products, and the small per-head work (K'^T V, the
-// contraction with KV, the normalizer) runs from shared memory beside them.
+// What bounds them on the H100: operations. At the main path's shape (16 x
+// 4,096 rows, d 256, hidden 1,024) apply does ~86 GFLOP of products and
+// stats ~17 GFLOP (+ ~1 GFLOP of K'^T V), ~700 FLOP a byte of activations.
+// On the CUDA cores' fp32 FMA (67 TFLOP/s) that is 1.30 and 0.27 ms; one
+// pass of TF32 on the tensor cores (495 TFLOP/s) keeps ~11 bits of each
+// operand, short of the fp32 bars (1e-5 stats, 2e-5 apply). The split does:
+// each operand is hi + lo, two TF32 values (tf32_tile.cuh:split), and each
+// product is lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B) into one fp32
+// accumulator: ~22 bits of each operand (the dropped lo lo term is 2^-22 of
+// the product), three passes at 495 TFLOP/s, a bound of 0.53 ms (apply) and
+// 0.11 ms (stats) at that shape. Each promotion chunk of
+// tf32_tile.cuh:kPromoteK k values starts a fresh accumulator, added into a
+// master sum with fp32 FADD (tf32_tile.cuh:ring_mma3). On the card
+// (scripts/torch_port_f32_probe.py) the wgmma work costs about that bound,
+// and the rest does not overlap it: loading and splitting each stage's A
+// fragments, the ring's handshake, and per tile the attention, the
+// LayerNorms and the tile loads (apply without its wgmmas still takes more
+// than half its time). The L2 stream of the packed hi and lo weights (5.2
+// MB apply, 1 MB stats a 64-row tile at d 256) costs a few percent.
 //
-//   * stats, in two launches. attn_stats_f32_kernel: one block per (tile
-//     of 64 rows, batch); the tile of x is loaded once, then [Wk|Wv] is
-//     projected 128 columns at a time, a column group holding [k_h | v_h]
-//     of 128 / (2 hd) heads (1, 2 or 4), read straight from Wk and Wv (no
-//     pack). The group's K' and V go to a shared tile, and the tile's
-//     partial K'^T V and K_sum of those heads are summed over its 64 rows
-//     in row order and written to a workspace, one slot per (batch, tile).
-//     attn_stats_f32_reduce_kernel adds the slots of a batch in tile
+//   * Both kernels: one producer warpgroup (one thread issues 1-D bulk
+//     copies of 32 KB ring stages, hopper_tile.cuh's Ring) and two consumer
+//     warpgroups, a persistent grid over 64-row tiles. The two consumer
+//     warpgroups take the same 64 rows and split each product's output
+//     columns (N 64 or 128 each, so a warpgroup's master and chunk
+//     accumulators are at most 2 x 64 registers). The row tile (the A
+//     operand) stays fp32 in shared memory and is split in registers, one
+//     stage's fragments before its wgmma fence; the weights are transposed to
+//     N x K and pre-split into the ring's hi and lo halves once per call by
+//     pack_stats_f32_kernel / pack_apply_f32_kernel, launched by the same C
+//     entry point as the kernel (plain versions in ops/attn_cuda.py): at the
+//     serving shapes the host's time bounds a call, and a pack call of its
+//     own, as the bf16 wrappers make, would add about half again
+//     (scripts/torch_port_f32_probe.py). scream_pack_stats_f32 /
+//     scream_pack_apply_f32 launch the packs alone, for their check.
+//   * stats, in two launches. attn_stats_f32_kernel walks the (batch, tile)
+//     items; per 128-column group of the packed [k_h | v_h] columns (1, 2
+//     or 4 heads) it projects the tile on wgmma, applies elu1 and the mask,
+//     and writes the group's K' | V to a shared tile; the tile's partial
+//     K'^T V and K_sum of those heads are then summed over its 64 rows in
+//     row order on fp32 FMA from shared memory (6-12 % of the operations:
+//     as a wgmma it would take M = head dim rows, less than the 64 it
+//     needs at head dim 16 and 32, and its operands K-major, a transposed
+//     copy of K' and V) and written to a workspace, one slot per (batch,
+//     tile). attn_stats_f32_reduce_kernel adds the slots of a batch in tile
 //     order. No float atomics: two launches on one input agree bit for
 //     bit, and a batch whose mask is all zero gives exact zeros.
-//   * apply: one block per (tile of 64 query rows, batch): q = x @ Wq into
-//     registers, Q' into the weight buffer (idle between products), then
-//     per row and head the contraction with the batch's KV and K_sum (both
-//     staged in shared memory), the head's hd products added in a fixed
-//     order, and the message into the row tile for the tail body. No
-//     register tile is live across that loop (one was, and spilled).
+//   * apply: per tile, q = x @ Wq on wgmma, then per head of the
+//     warpgroup's columns the contraction with the batch's KV and K_sum on
+//     fp32 FMA from shared memory (a row's head dims lie in a quad of
+//     lanes, whose Q' values it gathers by shuffles; the KV is staged in
+//     the hidden buffers, idle until the FFN), the message into the row
+//     tile, then the merge, LN1, the FFN in 128-column hidden chunks
+//     (double-buffered in shared memory) and LN2, every product on wgmma.
+//     LayerNorm statistics cross the two warpgroups through shared memory.
 //
 // Widths: d_model 128 and 256 with head dim 16, 32 or 64 (ATTN_F32_CELLS;
-// 8 heads at both widths is the shipped models' split); a template on
-// (D, H), the C entry points dispatch on (d, heads). Rows past the
-// sequence's end are zero in the tiles and never stored.
+// 8 heads at both widths is the shipped models' split); hidden any multiple
+// of 128. Templates on (D, HD); the C entry points dispatch on (d, heads).
+// Rows past the sequence's end are zero in the tiles and never stored.
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py): all
-// tensors fp32, contiguous, 16-byte aligned; weights (in, out) row-major;
-// masks (B, S) / (B, L) fp32; KV (B, H, hd, hd), K_sum (B, d).
+// tensors fp32, contiguous, 16-byte aligned; weights (in, out) row-major,
+// packed by the pack kernels below; masks (B, S) / (B, L) fp32; KV (B, H,
+// hd, hd), K_sum (B, d).
 
-#include "f32_tile.cuh"
+#include <atomic>
+
+#include "tail_tile.cuh"  // the block geometry: tail::kThreads, num_sms, ...
+#include "tf32_tile.cuh"
 
 namespace {
 
-using namespace scream::f32;
+using namespace scream;
+using tf32::kStage;
 
 // The (d, heads) cells the kernels are instantiated for: head dim 16, 32, 64.
 #define ATTN_F32_CELLS(X) X(128, 8) X(128, 4) X(128, 2) X(256, 16) X(256, 8) X(256, 4)
 
-constexpr int TS = 64;  // rows of a stats tile (and of an apply tile)
-constexpr int RM = 8;   // rows a warp
+constexpr int TM = 64;       // rows of a tile
+constexpr int GC = 128;      // columns of a stats column group, and of an FFN hidden chunk
+constexpr int KS_G = 32;     // k-rows of a stats stage, and of a W1 chunk stage
+constexpr int LDP = GC + 8;  // stats: row stride of the K' | V tile (bank-shifted)
 
-// Shared memory of a stats block: the x tile (TS x D), the group's K'|V
-// tile (TS x 128), two weight chunks (KC x 128) and the tile's mask.
-template <int D>
-constexpr int stats_smem() {
-  return (TS * D + TS * 128 + 2 * KC * 128 + TS) * 4;
-}
+// Shared memory of a block: NST ring stages first, then the kernel's own
+// REST bytes, then the barriers; as many stages as fit, at most 8.
+template <int REST>
+struct Smem {
+  static constexpr int FIT = (tail::kSmemMax - REST - 16 * 8) / kStage;
+  static constexpr int NST = FIT < 8 ? FIT : 8;
+  static constexpr int BARS = NST * kStage + REST;
+  static constexpr int BYTES = BARS + 16 * NST;
+  static_assert(NST >= 2 && BYTES <= tail::kSmemMax, "shared memory");
+  using Ring = hopper::Ring<NST, kStage, BARS>;
+};
 
-template <int D, int H>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                      const float* __restrict__ wk, const float* __restrict__ wv,
-                      float* __restrict__ ws, int S) {
-  constexpr int HD = D / H, HPG = 128 / (2 * HD), PER = H * HD * HD + D;
-  constexpr int JT = HPG * HD * HD / kThreads;  // KV outputs a thread, per group: 4, 8, 16
-  static_assert(HPG * 2 * HD == 128 && JT % 4 == 0 && HD % JT == 0,
+// Stats at width D, head dim HD: per item the x tile, then G column groups
+// of SP stages (KS_G k-rows x 128 columns) each.
+template <int D, int HD>
+struct Stats {
+  static constexpr int H = D / HD, HPG = GC / (2 * HD), G = 2 * D / GC, SP = D / KS_G;
+  static constexpr int NS = G * SP;                   // stages an item
+  static constexpr int PER = H * HD * HD + D;         // floats of a workspace slot
+  static constexpr int X = 0, P = X + TM * D * 4, MS = P + TM * LDP * 4;
+  using S = Smem<MS + TM * 4>;
+  static constexpr int JT = HPG * HD * HD / 256;      // KV outputs a thread, per group
+  static_assert(HPG * 2 * HD == GC && JT % 4 == 0 && HD % JT == 0 && KS_G * GC == 4096,
                 "stats: whole heads a group, a thread's KV outputs in one row");
-  extern __shared__ __align__(16) float smem[];
-  float* X = smem;
-  float* P = X + TS * D;
-  float* wbuf = P + TS * 128;
-  float* ms = wbuf + 2 * KC * 128;
-  const int b = blockIdx.y, tile = blockIdx.x, row0 = tile * TS;
-  const int nvalid = min(TS, S - row0);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  load_rows<RM, D / 128, D>(x + ((size_t)b * S + row0) * D, X, nvalid);
-  if (threadIdx.x < TS)
-    ms[threadIdx.x] = (int)threadIdx.x < nvalid ? mask[(size_t)b * S + row0 + threadIdx.x] : 0.f;
-  float* slot = ws + ((size_t)b * gridDim.x + tile) * PER;
-  // This thread's K'^T V outputs of a group: head hl, row i, columns j0 .. j0+JT-1.
-  const int o = threadIdx.x * JT;
-  const int hl = o / (HD * HD), ki = (o / HD) % HD, j0 = o % HD;
-  // Its columns of the projection: the k half of a head or the v half.
-  const bool is_k = (4 * lane) % (2 * HD) < HD;
-#pragma unroll 1
-  for (int grp = 0; grp < 2 * D / 128; ++grp) {
-    float acc[RM][4];
-    zero(acc);
-    // Column c of the group: head grp HPG + c / (2 HD); its k column, then its v column.
-    gemm<RM, 1, D, D>(acc, X, wbuf, [=](int k, int c) {
-      const int head = grp * HPG + c / (2 * HD), e = c % (2 * HD);
-      return (e < HD ? wk + (size_t)k * D + head * HD + e
-                     : wv + (size_t)k * D + head * HD + e - HD);
-    });
-    // gemm's closing barrier follows every thread's reads of P for the
-    // last group, so P may be rewritten.
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float m = ms[w * RM + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = (is_k ? elu1(acc[i][j]) : acc[i][j]) * m;
-    }
-    store_rows<RM, 1, 128>(acc, P);
-    __syncthreads();
-    // The tile's partial sums over its rows, in row order.
-    {
-      float kv[JT];
-#pragma unroll
-      for (int j = 0; j < JT; ++j) kv[j] = 0.f;
-      const float* kcol = P + hl * 2 * HD + ki;
-      const float* vcol = P + hl * 2 * HD + HD + j0;
-#pragma unroll 4
-      for (int r = 0; r < TS; ++r) {
-        const float kr = kcol[r * 128];
-#pragma unroll
-        for (int j = 0; j < JT; j += 4) {
-          const float4 vr = *reinterpret_cast<const float4*>(vcol + r * 128 + j);
-          kv[j + 0] = fmaf(kr, vr.x, kv[j + 0]);
-          kv[j + 1] = fmaf(kr, vr.y, kv[j + 1]);
-          kv[j + 2] = fmaf(kr, vr.z, kv[j + 2]);
-          kv[j + 3] = fmaf(kr, vr.w, kv[j + 3]);
+};
+
+// Apply at width D, head dim HD: the warpgroups' NW columns each; ring
+// stages of KS_D k-rows of a D-wide weight (Wq, Wm, a W2 chunk's rows) or
+// KS_G k-rows of a W1 chunk's 128 columns.
+template <int D, int HD>
+struct Apply {
+  static constexpr int H = D / HD, NW = D / 2;
+  static constexpr int KS_D = 4096 / D;
+  static constexpr int S_D = D / KS_D, S_W1 = D / KS_G, S_W2 = GC / KS_D;
+  static constexpr int A = 0, HID = A + TM * D * 4, KSUM = HID + 2 * TM * GC * 4,
+                       ST = KSUM + D * 4, MS = ST + 2 * TM * 8;
+  using S = Smem<MS + TM * 4>;
+  static_assert(NW % HD == 0 && HD % 8 == 0 && H * HD * HD * 4 <= 2 * TM * GC * 4 &&
+                    KS_D % 8 == 0,
+                "apply: whole heads a warpgroup, the KV fits the hidden buffers");
+  // Ring stages of one tile: Wq, Wm, then per hidden chunk its W1 and W2 stages.
+  static __host__ __device__ constexpr int stages(int hid) {
+    return 2 * S_D + hid / GC * (S_W1 + S_W2);
+  }
+};
+
+// Stats, pass 1: per (batch, 64-row tile) item the partial K'^T V and K_sum
+// over the tile's rows into its workspace slot.
+template <int D, int HD>
+__global__ void __launch_bounds__(tail::kThreads, 1)
+attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                      const float* __restrict__ wpack, float* __restrict__ ws, int S,
+                      int nitems) {
+  using C = Stats<D, HD>;
+  constexpr int H = C::H, HPG = C::HPG, JT = C::JT, PER = C::PER;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const typename C::S::Ring ring0(hopper::smem_u32(smem));
+  const int nt = (S + TM - 1) / TM;
+  if (threadIdx.x == 0) ring0.init(tail::kConsumers);
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * tail::kConsumers) {
+    hopper::setmaxnreg_dec<tail::kProducerRegs>();
+    if (threadIdx.x == 128 * tail::kConsumers) {
+      typename C::S::Ring ring = ring0;
+      for (int it = blockIdx.x; it < nitems; it += gridDim.x)
+        for (int st = 0; st < C::NS; ++st) {
+          ring.fill(wpack + (size_t)st * (kStage / 4));
+          ring.advance();
         }
-      }
-      float* dst = slot + (grp * HPG + hl) * HD * HD + ki * HD + j0;
-#pragma unroll
-      for (int j = 0; j < JT; j += 4)
-        *reinterpret_cast<float4*>(dst + j) = make_float4(kv[j], kv[j + 1], kv[j + 2], kv[j + 3]);
     }
-    if (threadIdx.x < HPG * HD) {
-      const int sh = threadIdx.x / HD, si = threadIdx.x % HD;
-      const float* kcol = P + sh * 2 * HD + si;
-      float s = 0.f;
+    return;
+  }
+  hopper::setmaxnreg_inc<tail::kConsumerRegs>();
+  typename C::S::Ring ring = ring0;
+  const int tid = threadIdx.x, cp = tid >> 7, wt = tid & 127, lane = tid & 31;
+  const int r0 = 16 * (wt >> 5) + (lane >> 2), t = lane & 3;
+  unsigned char* base = smem + C::S::NST * kStage;
+  float* X = reinterpret_cast<float*>(base + C::X);
+  float* P = reinterpret_cast<float*>(base + C::P);
+  float* ms = reinterpret_cast<float*>(base + C::MS);
+  // This thread's K'^T V outputs of a group: head hl, row ki, columns j0 .. j0+JT-1.
+  const int o = tid * JT;
+  const int hl = o / (HD * HD), ki = (o / HD) % HD, j0 = o % HD;
+  float acc[32], c[32];  // a group's [k|v] (master) and the wgmma chunk
+
+  for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
+    const int b = it / nt, tile = it % nt, row0 = tile * TM;
+    const int nvalid = S - row0 < TM ? S - row0 : TM;
+    hopper::named_sync(1, 256);  // the last item's reads of X, P and ms are done
+    tf32::load_tile<D>(X, x + ((size_t)b * S + row0) * D, nvalid, tid, 256);
+    if (tid < TM) ms[tid] = tid < nvalid ? mask[(size_t)b * S + row0 + tid] : 0.f;
+    hopper::named_sync(1, 256);
+    const float m[2] = {ms[r0], ms[r0 + 8]};
+    float* slot = ws + ((size_t)b * nt + tile) * PER;
+#pragma unroll 1
+    for (int grp = 0; grp < C::G; ++grp) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      tf32::ring_mma3<64, KS_G, D, GC>(acc, c, ring, C::SP, X, 32 * 64 * cp, wt);
+      // acc[4 j + 2 hh + e]: row r0 + 8 hh, group column 64 cp + 8 j + 2 t + e.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool is_k = (64 * cp + 8 * j) % (2 * HD) < HD;
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i)
+          acc[i] = (is_k ? tf32::elu1(acc[i]) : acc[i]) * m[(i >> 1) & 1];
+      }
+      hopper::named_sync(1, 256);  // every read of P for the last group is done
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(P + (r0 + 8 * hh) * LDP + 64 * cp + 8 * j + 2 * t) =
+              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      hopper::named_sync(1, 256);
+      // The tile's partial sums over its rows, in row order.
+      {
+        float kv[JT];
+#pragma unroll
+        for (int j = 0; j < JT; ++j) kv[j] = 0.f;
+        const float* kcol = P + hl * 2 * HD + ki;
+        const float* vcol = P + hl * 2 * HD + HD + j0;
 #pragma unroll 4
-      for (int r = 0; r < TS; ++r) s += kcol[r * 128];
-      slot[H * HD * HD + (grp * HPG + sh) * HD + si] = s;
+        for (int r = 0; r < TM; ++r) {
+          const float kr = kcol[r * LDP];
+#pragma unroll
+          for (int j = 0; j < JT; j += 4) {
+            const float4 vr = *reinterpret_cast<const float4*>(vcol + r * LDP + j);
+            kv[j + 0] = fmaf(kr, vr.x, kv[j + 0]);
+            kv[j + 1] = fmaf(kr, vr.y, kv[j + 1]);
+            kv[j + 2] = fmaf(kr, vr.z, kv[j + 2]);
+            kv[j + 3] = fmaf(kr, vr.w, kv[j + 3]);
+          }
+        }
+        float* dst = slot + (grp * HPG + hl) * HD * HD + ki * HD + j0;
+#pragma unroll
+        for (int j = 0; j < JT; j += 4)
+          *reinterpret_cast<float4*>(dst + j) =
+              make_float4(kv[j], kv[j + 1], kv[j + 2], kv[j + 3]);
+      }
+      if (tid < HPG * HD) {
+        const int sh = tid / HD, si = tid % HD;
+        const float* kcol = P + sh * 2 * HD + si;
+        float s = 0.f;
+#pragma unroll 4
+        for (int r = 0; r < TM; ++r) s += kcol[r * LDP];
+        slot[H * HD * HD + (grp * HPG + sh) * HD + si] = s;
+      }
     }
   }
 }
@@ -167,172 +267,468 @@ __global__ void attn_stats_f32_reduce_kernel(const float* __restrict__ ws, float
     ksum[(size_t)b * (per - nkv) + e - nkv] = s;
 }
 
-// Shared memory of an apply block: the row tile (TS x D), one hidden chunk
-// (TS x 128), the weight chunks (tail_wbuf: two of KC x D), the batch's KV
-// (H x hd x hd = D hd) and K_sum, the tile's mask. At d 256, head dim 64:
-// 229,456 bytes of the 232,448.
-template <int D, int H>
-__host__ __device__ constexpr int apply_smem() {
-  return (TS * D + TS * 128 + tail_wbuf<D>() + D * (D / H) + D + TS) * 4;
+// One consumer thread's rows (r0, r0 + 8 of the tile), quad lane t, column
+// half cp (its NW columns start at n0 = cp NW).
+struct Rows {
+  int r0, t, cp, lane;
+};
+
+// acc[AO .. AO + NW/2) (this warpgroup's NW columns, accumulator layout)
+// into the tile of K columns.
+template <int NW, int K, int AO = 0, int AN>
+__device__ __forceinline__ void store_tile(const float (&acc)[AN], float* tile, const Rows& w,
+                                           bool relu) {
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = acc[AO + 4 * j + 2 * hh + e];
+        tile[tf32::tile_idx(w.r0 + 8 * hh, w.cp * NW + 8 * j + 2 * w.t + e, K)] =
+            relu ? fmaxf(v, 0.f) : v;
+      }
 }
 
-template <int D, int H>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                      const float* __restrict__ wq, const float* __restrict__ kv,
-                      const float* __restrict__ ksum, const float* __restrict__ wm,
-                      const float* __restrict__ g1, const float* __restrict__ b1,
-                      const float* __restrict__ w1, const float* __restrict__ w2,
-                      const float* __restrict__ g2, const float* __restrict__ b2,
-                      float* __restrict__ out, int L, int hid, float attn_eps, float ln_eps,
-                      int norm_bf16) {
-  constexpr int G = D / 128, HD = D / H;
-  static_assert(tail_wbuf<D>() >= TS * D && HD % 4 == 0 && apply_smem<D, H>() <= 232448,
-                "apply: Q' fits the weight buffer, a lane's 4 columns in one head");
-  extern __shared__ __align__(16) float smem[];
-  float* A = smem;
-  float* Hs = A + TS * D;
-  float* wbuf = Hs + TS * 128;
-  float* kvs = wbuf + tail_wbuf<D>();
-  float* kss = kvs + H * HD * HD;
-  float* ms = kss + D;
-  const int b = blockIdx.y, row0 = blockIdx.x * TS;
-  const int nvalid = min(TS, L - row0);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const float* xb = x + ((size_t)b * L + row0) * D;
-  load_rows<RM, G, D>(xb, A, nvalid);
-  for (int e = threadIdx.x; e < H * HD * HD / 4; e += kThreads)
-    reinterpret_cast<float4*>(kvs)[e] =
-        __ldg(reinterpret_cast<const float4*>(kv + (size_t)b * H * HD * HD) + e);
-  for (int e = threadIdx.x; e < D; e += kThreads) kss[e] = ksum[(size_t)b * D + e];
-  if (threadIdx.x < TS)
-    ms[threadIdx.x] = (int)threadIdx.x < nvalid ? mask[(size_t)b * L + row0 + threadIdx.x] : 0.f;
-  // (gemm's barriers order these stores before any read of kvs, kss, ms.)
-  float acc[RM][4 * G];
-  zero(acc);
-  gemm<RM, G, D, D>(acc, A, wbuf, [=](int k, int c) { return wq + (size_t)k * D + c; });
+// Q' = (elu(q) + 1) * mask in registers, then per head of the warpgroup
+// msg = Q' KV / (Q'.K_sum + eps), each sum one fmaf chain over the head's
+// dims in order, written over that head's Q' registers. A row's head dims
+// lie in the 4 lanes of a quad; each lane gathers the row's Q' values from
+// its quad by shuffles and makes the message for its own columns.
+template <int NW, int HD>
+__device__ __forceinline__ void attend(float (&acc)[NW / 2], const float* ms, const Rows& w,
+                                       const float* kvs, const float* kss, float eps) {
+  constexpr int HJ = HD / 8, NH = NW / HD;
+  const float m[2] = {ms[w.r0], ms[w.r0 + 8]};
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const float m = ms[w * RM + i];
+  for (int i = 0; i < NW / 2; ++i) acc[i] = tf32::elu1(acc[i]) * m[(i >> 1) & 1];
+  const int base = w.lane & ~3;
 #pragma unroll
-    for (int e = 0; e < 4 * G; ++e) acc[i][e] = elu1(acc[i][e]) * m;
-  }
-  // Q' into the weight buffer, idle between products (TS rows of D fit),
-  // then the message into the row tile, so no register tile lives across
-  // the per-head loop.
-  float* Qs = wbuf;
-  store_rows<RM, G, D>(acc, Qs);
-  // Per row and head: att_j = sum_e Q'_e KV[e][j], z = sum_e Q'_e K_sum_e,
-  // e = 0 .. HD-1 in order; this lane's 4 columns lie in one head.
-#pragma unroll 1
-  for (int i = 0; i < RM; ++i) {
-    const int r = w * RM + i;
+  for (int hl = 0; hl < NH; ++hl) {
+    const int h = w.cp * NH + hl;
+    float att[2][HJ][2], z[2] = {0.f, 0.f};
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int c = 128 * g + 4 * lane, h = c / HD, jc = c % HD;
-      const float* qrow = Qs + r * D + h * HD;
-      const float* kvh = kvs + h * HD * HD + jc;
-      const float* ksh = kss + h * HD;
-      float at[4] = {0.f, 0.f, 0.f, 0.f}, z = 0.f;
-#pragma unroll 4
-      for (int e = 0; e < HD; e += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + e);
-        const float4 kse = *reinterpret_cast<const float4*>(ksh + e);
+    for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float qe = comp(qv, u);
-          z = fmaf(qe, comp(kse, u), z);
-          const float4 kr = *reinterpret_cast<const float4*>(kvh + (e + u) * HD);
-          at[0] = fmaf(qe, kr.x, at[0]);
-          at[1] = fmaf(qe, kr.y, at[1]);
-          at[2] = fmaf(qe, kr.z, at[2]);
-          at[3] = fmaf(qe, kr.w, at[3]);
-        }
+      for (int jj = 0; jj < HJ; ++jj) att[hh][jj][0] = att[hh][jj][1] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      // Q'[row][h HD + d] is register 4 (hl HJ + d/8) + 2 hh + d%2 of lane
+      // base + (d%8)/2.
+      const int i = 4 * (hl * HJ + d / 8) + (d & 1);
+      const int src = base | ((d & 7) >> 1);
+      const float q0 = __shfl_sync(0xffffffffu, acc[i], src);
+      const float q1 = __shfl_sync(0xffffffffu, acc[i + 2], src);
+      const float ks = kss[h * HD + d];
+      z[0] = fmaf(q0, ks, z[0]);
+      z[1] = fmaf(q1, ks, z[1]);
+#pragma unroll
+      for (int jj = 0; jj < HJ; ++jj) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kvs + (h * HD + d) * HD + 8 * jj + 2 * w.t);
+        att[0][jj][0] = fmaf(q0, kv.x, att[0][jj][0]);
+        att[0][jj][1] = fmaf(q0, kv.y, att[0][jj][1]);
+        att[1][jj][0] = fmaf(q1, kv.x, att[1][jj][0]);
+        att[1][jj][1] = fmaf(q1, kv.y, att[1][jj][1]);
       }
-      const float inv = 1.f / (z + attn_eps);
-      *reinterpret_cast<float4*>(A + r * D + c) =
-          make_float4(at[0] * inv, at[1] * inv, at[2] * inv, at[3] * inv);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float inv = 1.f / (z[hh] + eps);
+#pragma unroll
+      for (int jj = 0; jj < HJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc[4 * (hl * HJ + jj) + 2 * hh + e] = att[hh][jj][e] * inv;
     }
   }
-  __syncthreads();  // every warp's reads of Q' before the tail's first product refills wbuf
-  tail_body<RM, G, D>(A, Hs, wbuf, wm, g1, b1, w1, w2, g2, b2, xb,
-                      out + ((size_t)b * L + row0) * D, nvalid, hid, ln_eps, norm_bf16 != 0);
 }
 
-template <int D, int H>
-int launch_stats(const void* x, const void* mask, const void* wk, const void* wv, void* ws,
-                 void* kv, void* ksum, int B, int S, cudaStream_t stream) {
-  constexpr int HD = D / H, PER = H * HD * HD + D;
-  const int nt = (S + TS - 1) / TS;
-  if (nt > 0) {
-    constexpr int smem = stats_smem<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_stats_f32_kernel<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    attn_stats_f32_kernel<D, H><<<dim3(nt, B), kThreads, smem, stream>>>(
-        (const float*)x, (const float*)mask, (const float*)wk, (const float*)wv, (float*)ws, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// acc <- LN(acc + res) over whole rows (both warpgroups' columns), fp32
+// statistics, var = max(0, E[x^2] - mu^2), y = (x - mu) (rsqrt(var + eps) g)
+// + b, rounded through bf16 when the norm dtype is bf16. res: the tile's
+// first row in global memory (stride D); rows at or past nvalid add 0.
+// Ends past a barrier of both warpgroups, after which neither reads the
+// row tile for the product before it.
+template <int D>
+__device__ __forceinline__ void add_ln(float (&acc)[D / 4], const float* __restrict__ res,
+                                       int nvalid, const float* __restrict__ g,
+                                       const float* __restrict__ b, float eps, bool nbf,
+                                       float2* stats, const Rows& w) {
+  constexpr int NW = D / 2;
+  const int c0 = w.cp * NW + 2 * w.t;
+  float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = w.r0 + 8 * hh;
+    const float* rp = res + (size_t)row * D + c0;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const float2 q = row < nvalid ? __ldg(reinterpret_cast<const float2*>(rp + 8 * j))
+                                    : make_float2(0.f, 0.f);
+      float& a0 = acc[4 * j + 2 * hh];
+      float& a1 = acc[4 * j + 2 * hh + 1];
+      a0 += q.x;
+      a1 += q.y;
+      s[hh] += a0 + a1;
+      s2[hh] = fmaf(a1, a1, fmaf(a0, a0, s2[hh]));
+    }
   }
-  const int n = B * PER;
-  attn_stats_f32_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      (const float*)ws, (float*)kv, (float*)ksum, B, nt, PER, H * HD * HD);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], o);
+      s2[hh] += __shfl_xor_sync(0xffffffffu, s2[hh], o);
+    }
+  if (w.t == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) stats[w.cp * TM + w.r0 + 8 * hh] = make_float2(s[hh], s2[hh]);
+  hopper::named_sync(1, 256);
+  float mu[2], rs[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float2 p0 = stats[w.r0 + 8 * hh], p1 = stats[TM + w.r0 + 8 * hh];
+    mu[hh] = (p0.x + p1.x) / D;
+    rs[hh] = rsqrtf(fmaxf(0.f, (p0.y + p1.y) / D - mu[hh] * mu[hh]) + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c0 + 8 * j));
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c0 + 8 * j));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float& a0 = acc[4 * j + 2 * hh];
+      float& a1 = acc[4 * j + 2 * hh + 1];
+      a0 = (a0 - mu[hh]) * (rs[hh] * gg.x) + bb.x;
+      a1 = (a1 - mu[hh]) * (rs[hh] * gg.y) + bb.y;
+      if (nbf) {
+        a0 = hopper::round_bf16(a0);
+        a1 = hopper::round_bf16(a1);
+      }
+    }
+  }
+}
+
+template <int D, int HD>
+__global__ void __launch_bounds__(tail::kThreads, 1)
+attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                      const float* __restrict__ wpack, const float* __restrict__ kv,
+                      const float* __restrict__ ksum, const float* __restrict__ g1,
+                      const float* __restrict__ b1, const float* __restrict__ g2,
+                      const float* __restrict__ b2, float* __restrict__ out, int B, int L,
+                      int hid, float attn_eps, float ln_eps, int norm_bf16) {
+  using C = Apply<D, HD>;
+  constexpr int NW = C::NW, H = C::H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const typename C::S::Ring ring0(hopper::smem_u32(smem));
+  const int tpb = (L + TM - 1) / TM, ntiles = B * tpb;
+  if (threadIdx.x == 0) ring0.init(tail::kConsumers);
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * tail::kConsumers) {
+    hopper::setmaxnreg_dec<tail::kProducerRegs>();
+    if (threadIdx.x == 128 * tail::kConsumers) {
+      typename C::S::Ring ring = ring0;
+      const int per = C::stages(hid);
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
+        for (int s = 0; s < per; ++s) {
+          ring.fill(wpack + (size_t)s * (kStage / 4));
+          ring.advance();
+        }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<tail::kConsumerRegs>();
+  typename C::S::Ring ring = ring0;
+  const int tid = threadIdx.x, wt = tid & 127;
+  Rows w;
+  w.lane = tid & 31;
+  w.r0 = 16 * (wt >> 5) + (w.lane >> 2);
+  w.t = w.lane & 3;
+  w.cp = tid >> 7;
+  unsigned char* base = smem + C::S::NST * kStage;
+  float* At = reinterpret_cast<float*>(base + C::A);
+  float* Hs = reinterpret_cast<float*>(base + C::HID);
+  float* kvs = Hs;  // the batch's KV, in the hidden buffers (idle until the FFN)
+  float* kss = reinterpret_cast<float*>(base + C::KSUM);
+  float2* stats = reinterpret_cast<float2*>(base + C::ST);
+  float* ms = reinterpret_cast<float*>(base + C::MS);
+  const uint32_t b_d = 32 * NW * w.cp, b_h = 32 * 64 * w.cp;
+  const bool nbf = norm_bf16 != 0;
+
+  // A product's master sum and the wgmma chunk; the W1 product (64 columns
+  // a warpgroup) keeps its master in c[32 .. 64): ptxas holds a thread to
+  // 168 registers, and at d 256 f, c, a separate master and a stage's A
+  // fragments would need 192.
+  float acc[NW / 2], c[64];
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = tile / tpb, l0 = (tile % tpb) * TM;
+    const int nvalid = L - l0 < TM ? L - l0 : TM;
+    const size_t row0 = (size_t)b * L + l0;
+    const float* xb = x + row0 * D;
+    hopper::named_sync(1, 256);  // the last tile's reads of the buffers are done
+    tf32::load_tile<D>(At, xb, nvalid, tid, 256);
+    for (int i = tid; i < H * HD * HD / 4; i += 256)
+      reinterpret_cast<float4*>(kvs)[i] =
+          __ldg(reinterpret_cast<const float4*>(kv + (size_t)b * H * HD * HD) + i);
+    for (int i = tid; i < D / 4; i += 256)
+      reinterpret_cast<float4*>(kss)[i] =
+          __ldg(reinterpret_cast<const float4*>(ksum + (size_t)b * D) + i);
+    if (tid < TM) ms[tid] = tid < nvalid ? mask[row0 + tid] : 0.f;
+    hopper::named_sync(1, 256);
+
+    // q, then the message in its place.
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    tf32::ring_mma3<NW, C::KS_D, D, D>(acc, c, ring, C::S_D, At, b_d, wt);
+    attend<NW, HD>(acc, ms, w, kvs, kss, attn_eps);
+    hopper::named_sync(1, 256);  // both warpgroups' reads of x in the tile are done
+    store_tile<NW, D>(acc, At, w, false);
+    hopper::named_sync(1, 256);
+
+    // t = msg @ Wm + x; y = LN1(t) into the tile.
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    tf32::ring_mma3<NW, C::KS_D, D, D>(acc, c, ring, C::S_D, At, b_d, wt);
+    add_ln<D>(acc, xb, nvalid, g1, b1, ln_eps, nbf, stats, w);
+    store_tile<NW, D>(acc, At, w, false);
+    hopper::named_sync(1, 256);
+
+    // f = sum over 128-column hidden chunks of relu(y @ W1[:, ch]) @ W2[ch, :].
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int ch = 0; ch < hid / GC; ++ch) {
+      // h into c[32 .. 64); at d 256 its 32-row stages in two wgmma windows
+      // of 16 A registers (the 168-register budget again).
+      constexpr int WK = NW >= 128 ? 2 : KS_G / 8;
+#pragma unroll
+      for (int i = 32; i < 64; ++i) c[i] = 0.f;
+      tf32::ring_mma3<64, KS_G, D, GC, 32, WK>(c, c, ring, C::S_W1, At, b_h, wt);
+      float* hb = Hs + (ch & 1) * TM * GC;
+      store_tile<64, GC, 32>(c, hb, w, true);
+      hopper::named_sync(1, 256);  // the chunk's 128 columns are in
+      tf32::ring_mma3<NW, C::KS_D, GC, D>(acc, c, ring, C::S_W2, hb, b_d, wt);
+    }
+    add_ln<D>(acc, xb, nvalid, g2, b2, ln_eps, nbf, stats, w);
+    float* ob = out + row0 * D + w.cp * NW + 2 * w.t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = w.r0 + 8 * hh;
+      if (row >= nvalid) continue;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+        *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * j) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// The split of a weight element: hi, or lo for the second half of a stage.
+__device__ __forceinline__ float split_half(float v, unsigned lo) {
+  const uint32_t hi = tf32::rna(v);
+  return __uint_as_float(lo ? tf32::rna(v - __uint_as_float(hi)) : hi);
+}
+
+// [Wk|Wv] (d, d) each -> the stats blob: stage s = g (d / 32) + p holds
+// packed columns 128 g .. 128 g + 127 by k-rows 32 p .. 32 p + 31, hi then
+// lo, where packed column c is column w of k_h (w < hd) or column w - hd of
+// v_h, h = c / (2 hd), w = c % (2 hd). One output float a thread.
+__global__ void pack_stats_f32_kernel(const float* __restrict__ wk, const float* __restrict__ wv,
+                                      float* __restrict__ out, unsigned d, unsigned hd) {
+  const unsigned n = 4 * d * d, sp = d / KS_G;
+  for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < n;
+       o += gridDim.x * blockDim.x) {
+    const unsigned s = o / (2 * tf32::kHalfFloats);
+    unsigned k, col;
+    tf32::stage_src(o % tf32::kHalfFloats, GC, k, col);
+    k += KS_G * (s % sp);
+    col += GC * (s / sp);
+    const unsigned h = col / (2 * hd), w = col % (2 * hd);
+    const float v = w < hd ? wk[k * d + h * hd + w] : wv[k * d + h * hd + w - hd];
+    out[o] = split_half(v, (o / tf32::kHalfFloats) & 1);
+  }
+}
+
+// Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) -> the apply blob, hi then lo in
+// every stage: Wq and Wm in stages of 4096 / d k-rows, then per 128-column
+// hidden chunk its W1 columns in stages of 32 k-rows and its W2 rows in
+// stages of 4096 / d (Apply::stages).
+__global__ void pack_apply_f32_kernel(const float* __restrict__ wq, const float* __restrict__ wm,
+                                      const float* __restrict__ w1,
+                                      const float* __restrict__ w2, float* __restrict__ out,
+                                      unsigned d, unsigned hid) {
+  const unsigned ksd = 4096 / d, s_d = d / ksd, s_w1 = d / KS_G, s_w2 = GC / ksd;
+  const unsigned n = 2 * (2 * d * d + 2 * d * hid);
+  for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < n;
+       o += gridDim.x * blockDim.x) {
+    const unsigned s = o / (2 * tf32::kHalfFloats);
+    const float* src;
+    unsigned ld, k0, n0, ns;
+    if (s < 2 * s_d) {
+      src = s < s_d ? wq : wm;
+      ld = d, k0 = (s % s_d) * ksd, n0 = 0, ns = d;
+    } else {
+      const unsigned r = (s - 2 * s_d) % (s_w1 + s_w2), ch = (s - 2 * s_d) / (s_w1 + s_w2);
+      if (r < s_w1)
+        src = w1, ld = hid, k0 = r * KS_G, n0 = ch * GC, ns = GC;
+      else
+        src = w2, ld = d, k0 = ch * GC + (r - s_w1) * ksd, n0 = 0, ns = d;
+    }
+    unsigned k, col;
+    tf32::stage_src(o % tf32::kHalfFloats, ns, k, col);
+    out[o] = split_half(src[(size_t)(k0 + k) * ld + n0 + col], (o / tf32::kHalfFloats) & 1);
+  }
+}
+
+int pack_grid(unsigned n) { return (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048); }
+
+int launch_pack_stats(const void* wk, const void* wv, void* out, int d, int heads,
+                      cudaStream_t stream) {
+  pack_stats_f32_kernel<<<pack_grid(4u * d * d), 256, 0, stream>>>(
+      (const float*)wk, (const float*)wv, (float*)out, (unsigned)d, (unsigned)(d / heads));
   return (int)cudaGetLastError();
 }
 
-template <int D, int H>
-int launch_apply(const void* x, const void* mask, const void* wq, const void* kv,
-                 const void* ksum, const void* wm, const void* g1, const void* b1,
-                 const void* w1, const void* w2, const void* g2, const void* b2, void* out,
-                 int B, int L, int hid, float attn_eps, float ln_eps, int norm_bf16,
-                 cudaStream_t stream) {
-  constexpr int smem = apply_smem<D, H>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_f32_kernel<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_apply_f32_kernel<D, H><<<dim3((L + TS - 1) / TS, B), kThreads, smem, stream>>>(
-      (const float*)x, (const float*)mask, (const float*)wq, (const float*)kv,
-      (const float*)ksum, (const float*)wm, (const float*)g1, (const float*)b1,
-      (const float*)w1, (const float*)w2, (const float*)g2, (const float*)b2, (float*)out, L,
-      hid, attn_eps, ln_eps, norm_bf16);
+int launch_pack_apply(const void* wq, const void* wm, const void* w1, const void* w2, void* out,
+                      int d, int hid, cudaStream_t stream) {
+  const unsigned n = 2u * (2u * d * d + 2u * d * hid);
+  pack_apply_f32_kernel<<<pack_grid(n), 256, 0, stream>>>(
+      (const float*)wq, (const float*)wm, (const float*)w1, (const float*)w2, (float*)out,
+      (unsigned)d, (unsigned)hid);
   return (int)cudaGetLastError();
+}
+
+// The kernel's dynamic shared memory limit raised to bytes, once per device
+// (the bits of `devices`): cudaFuncSetAttribute on every launch would add to
+// the host time of a small call, which bounds the serving shapes.
+template <class K>
+int set_smem(K kernel, int bytes, std::atomic<unsigned>& devices) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (devices.load(std::memory_order_acquire) & bit) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!err) devices.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int D, int HD>
+int launch_stats(const void* x, const void* mask, const void* wpack, void* ws, void* kv,
+                 void* ksum, int B, int S, cudaStream_t stream) {
+  using C = Stats<D, HD>;
+  static std::atomic<unsigned> smem_set{0};
+  const int nt = (S + TM - 1) / TM, nitems = B * nt;
+  if (nitems > 0) {
+    int err = set_smem(attn_stats_f32_kernel<D, HD>, C::S::BYTES, smem_set);
+    if (err) return err;
+    const int grid = nitems < tail::num_sms() ? nitems : tail::num_sms();
+    attn_stats_f32_kernel<D, HD><<<grid, tail::kThreads, C::S::BYTES, stream>>>(
+        (const float*)x, (const float*)mask, (const float*)wpack, (float*)ws, S, nitems);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int n = B * C::PER;
+  attn_stats_f32_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      (const float*)ws, (float*)kv, (float*)ksum, B, nt, C::PER, C::H * HD * HD);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int HD>
+int launch_apply(const void* x, const void* mask, const void* wpack, const void* kv,
+                 const void* ksum, const void* g1, const void* b1, const void* g2,
+                 const void* b2, void* out, int B, int L, int hid, float attn_eps,
+                 float ln_eps, int norm_bf16, cudaStream_t stream) {
+  using C = Apply<D, HD>;
+  static std::atomic<unsigned> smem_set{0};
+  int err = set_smem(attn_apply_f32_kernel<D, HD>, C::S::BYTES, smem_set);
+  if (err) return err;
+  const int ntiles = B * ((L + TM - 1) / TM);
+  const int grid = ntiles < tail::num_sms() ? ntiles : tail::num_sms();
+  attn_apply_f32_kernel<D, HD><<<grid, tail::kThreads, C::S::BYTES, stream>>>(
+      (const float*)x, (const float*)mask, (const float*)wpack, (const float*)kv,
+      (const float*)ksum, (const float*)g1, (const float*)b1, (const float*)g2,
+      (const float*)b2, (float*)out, B, L, hid, attn_eps, ln_eps, norm_bf16);
+  return (int)cudaGetLastError();
+}
+
+// Whether (d, heads) is a cell of ATTN_F32_CELLS.
+bool f32_cell(int d, int heads) {
+#define ATTN_F32_IS_CELL(D, H) \
+  if (d == D && heads == H) return true;
+  ATTN_F32_CELLS(ATTN_F32_IS_CELL)
+#undef ATTN_F32_IS_CELL
+  return false;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, S, d) fp32, mask (B, S) fp32, Wk, Wv (d, d) fp32, (d, heads) a cell
-// of ATTN_F32_CELLS -> KV (B, H, hd, hd) and K_sum (B, d) fp32; ws a
-// workspace of B ceil(S/64) (H hd^2 + d) floats.
+// x (B, S, d) fp32, mask (B, S) fp32, Wk, Wv (d, d) fp32 (in, out), (d,
+// heads) a cell of ATTN_F32_CELLS -> KV (B, H, hd, hd) and K_sum (B, d)
+// fp32. Three launches: the weight pack into wpack (4 d^2 floats,
+// pack_stats_f32_kernel), the projection and per-tile sums into ws (B
+// ceil(S/64) (H hd^2 + d) floats), the reduce.
 int scream_attn_stats_f32(const void* x, const void* mask, const void* wk, const void* wv,
-                          void* ws, void* kv, void* ksum, int B, int S, int d, int heads,
-                          void* stream) {
+                          void* wpack, void* ws, void* kv, void* ksum, int B, int S, int d,
+                          int heads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || S < 0) return (int)cudaErrorInvalidValue;
-#define ATTN_F32_STATS(D, H) \
-  if (d == D && heads == H) return launch_stats<D, H>(x, mask, wk, wv, ws, kv, ksum, B, S, s);
+  if (B <= 0 || S < 0 || !f32_cell(d, heads))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_pack_stats(wk, wv, wpack, d, heads, s);
+  if (err) return err;
+#define ATTN_F32_STATS(D, H)                                                             \
+  if (d == D && heads == H)                                                              \
+    return launch_stats<D, D / H>(x, mask, wpack, ws, kv, ksum, B, S, s);
   ATTN_F32_CELLS(ATTN_F32_STATS)
 #undef ATTN_F32_STATS
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, L, d) fp32 (query source and both residuals), mask (B, L) fp32, the
-// stats of scream_attn_stats_f32, weights (in, out) fp32, LayerNorm params
-// (d,) fp32 -> out (B, L, d) fp32. (d, heads) a cell of ATTN_F32_CELLS,
-// hidden a multiple of 128; norm_bf16 rounds the LayerNorm outputs through
-// bf16 (norm dtype bf16).
-int scream_attn_apply_f32(const void* x, const void* mask, const void* wq, const void* kv,
-                          const void* ksum, const void* wm, const void* g1, const void* b1,
-                          const void* w1, const void* w2, const void* g2, const void* b2,
-                          void* out, int B, int L, int d, int heads, int hid, float attn_eps,
-                          float ln_eps, int norm_bf16, void* stream) {
+// Wk, Wv (d, d) fp32, (in, out), (d, heads) a cell -> the stats blob out,
+// 4 d^2 floats (pack_stats_f32_kernel; scream_attn_stats_f32 launches it
+// too). One launch.
+int scream_pack_stats_f32(const void* wk, const void* wv, void* out, int d, int heads,
+                          void* stream) {
+  if (!f32_cell(d, heads)) return (int)cudaErrorInvalidValue;
+  return launch_pack_stats(wk, wv, out, d, heads, (cudaStream_t)stream);
+}
+
+// Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) fp32, (in, out), d 128 or 256,
+// hid a multiple of 128 -> the apply blob out, 2 (2 d^2 + 2 d hid) floats
+// (pack_apply_f32_kernel; scream_attn_apply_f32 launches it too). One
+// launch.
+int scream_pack_apply_f32(const void* wq, const void* wm, const void* w1, const void* w2,
+                          void* out, int d, int hid, void* stream) {
+  if ((d != 128 && d != 256) || hid <= 0 || hid % GC) return (int)cudaErrorInvalidValue;
+  return launch_pack_apply(wq, wm, w1, w2, out, d, hid, (cudaStream_t)stream);
+}
+
+// x (B, L, d) fp32 (query source and both residuals), mask (B, L) fp32,
+// Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) fp32 (in, out), the stats of
+// scream_attn_stats_f32, LayerNorm params (d,) fp32 -> out (B, L, d) fp32.
+// (d, heads) a cell of ATTN_F32_CELLS, hidden a multiple of 128; norm_bf16
+// rounds the LayerNorm outputs through bf16 (norm dtype bf16). Two
+// launches: the weight pack into wpack (2 (2 d^2 + 2 d hid) floats,
+// pack_apply_f32_kernel), then the block.
+int scream_attn_apply_f32(const void* x, const void* mask, const void* wq, const void* wm,
+                          const void* w1, const void* w2, void* wpack, const void* kv,
+                          const void* ksum, const void* g1, const void* b1, const void* g2,
+                          const void* b2, void* out, int B, int L, int d, int heads, int hid,
+                          float attn_eps, float ln_eps, int norm_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || L <= 0 || hid <= 0 || hid % 128) return (int)cudaErrorInvalidValue;
-#define ATTN_F32_APPLY(D, H)                                                                  \
-  if (d == D && heads == H)                                                                   \
-    return launch_apply<D, H>(x, mask, wq, kv, ksum, wm, g1, b1, w1, w2, g2, b2, out, B, L,  \
-                              hid, attn_eps, ln_eps, norm_bf16, s);
+  if (B <= 0 || L <= 0 || hid <= 0 || hid % GC || !f32_cell(d, heads))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_pack_apply(wq, wm, w1, w2, wpack, d, hid, s);
+  if (err) return err;
+#define ATTN_F32_APPLY(D, H)                                                             \
+  if (d == D && heads == H)                                                              \
+    return launch_apply<D, D / H>(x, mask, wpack, kv, ksum, g1, b1, g2, b2, out, B, L,  \
+                                  hid, attn_eps, ln_eps, norm_bf16, s);
   ATTN_F32_CELLS(ATTN_F32_APPLY)
 #undef ATTN_F32_APPLY
   return (int)cudaErrorInvalidValue;

@@ -1,14 +1,17 @@
-// fp32 building blocks of the float32 attention-block kernels for Hopper
-// (sm_90a): a register-tiled fp32 FMA product over a row tile in shared
-// memory, the row LayerNorm, and the block tail, shared by attn_f32.cu
-// (apply) and tail_f32.cu as the bf16 kernels share tail_tile.cuh.
+// fp32 building blocks of the float32 block-tail kernel for Hopper
+// (sm_90a, tail_f32.cu): a register-tiled fp32 FMA product over a row tile
+// in shared memory, the row LayerNorm, and the block tail.
 //
-// The float32 configuration asks for fp32 products at HIGHEST precision
-// (the JAX package's prec for fp32), so no tensor-core route applies: bf16
-// wgmma rounds the operands, one-pass TF32 keeps ~10 mantissa bits. Every
-// product here is fp32 FMA on the CUDA cores, each output one fmaf chain
-// over k in ascending order, so a launch's result depends on neither the
-// card nor the grid, and two launches agree bit for bit.
+// tail_f32.cu replaces scream_tpu/ops/ffn_pallas.py:_tail_kernel for the
+// float32 configuration (prec = HIGHEST). What bounds it on the H100: fp32
+// FMA on the CUDA cores (67 TFLOP/s): at d 384, 8 x 4,096 rows, hidden
+// 1,536 it does ~87 GFLOP, 1.30 ms at that rate, far above the fp32 ridge
+// of 20 FLOP a byte. Every product here is fp32 FMA, each output one fmaf
+// chain over k in ascending order, so a launch's result depends on neither
+// the card nor the grid, and two launches agree bit for bit. (The fp32
+// attention kernels, attn_f32.cu, run on the tensor cores as split-TF32
+// wgmma, tf32_tile.cuh, which keeps the fp32 bars at three TF32 passes a
+// product; the tail has not been redesigned that way.)
 //
 // Geometry: 256 threads, 8 warps. Warp w owns the RM rows w RM .. w RM +
 // RM - 1 of a TM = 8 RM row tile; lane l owns the columns 128 g + 4 l ..
@@ -46,9 +49,6 @@ __device__ __forceinline__ void cp_wait() {
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
-
-// elu(x) + 1 as where(x > 0, x + 1, exp(x)) (attn_pallas._elu1).
-__device__ __forceinline__ float elu1(float v) { return v > 0.f ? v + 1.f : expf(v); }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -124,27 +124,33 @@ def build() -> Path:
     return out
 
 
-def _declare(lib) -> None:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    signatures = {
-        "scream_attn_stats": [P, P, P, P, P, P, I, I, I, I, P],
-        "scream_pack_stats": [P, P, P, I, I, P],
-        "scream_attn_apply": [P] * 10 + [I, I, I, I, I, F, F, P],
-        "scream_nn_exact": [P, P, P, P, I, I, I, I, P],
-        "scream_nn_tile_boxes": [P, P, I, I, P],
-        "scream_nn_bounded": [P, P, P, P, F, P, P, I, I, I, I, P],
-        "scream_max_splat": [P, P, P, P, I, I, I, F, I, P, P],
-        "scream_splat_expf_check": [P, P],
-        "scream_block_tail": [P] * 8 + [I, I, I, F, P],
-        "scream_pack_weights": [P, P, P, P, I, P, I, I, P],
-        "scream_attn_stats_f32": [P] * 7 + [I, I, I, I, P],
-        "scream_attn_apply_f32": [P] * 13 + [I, I, I, I, I, F, F, I, P],
-        "scream_block_tail_f32": [P] * 10 + [I, I, I, F, I, P],
-    }
-    for name, args in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+# Argument types of the C entry points (P pointer, I int, F float); each
+# returns a cudaError_t as int.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "scream_attn_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "scream_pack_stats": [_P, _P, _P, _I, _I, _P],
+    "scream_attn_apply": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _F, _P],
+    "scream_nn_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "scream_nn_tile_boxes": [_P, _P, _I, _I, _P],
+    "scream_nn_bounded": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    "scream_max_splat": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P],
+    "scream_splat_expf_check": [_P, _P],
+    "scream_block_tail": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "scream_pack_weights": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
+    "scream_attn_stats_f32": [_P] * 8 + [_I, _I, _I, _I, _P],
+    "scream_pack_stats_f32": [_P, _P, _P, _I, _I, _P],
+    "scream_attn_apply_f32": [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "scream_pack_apply_f32": [_P] * 5 + [_I, _I, _P],
+    "scream_block_tail_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+}
+
+
+def declare(lib, name) -> None:
+    """Set the argument and return types of the C entry point ``name``."""
+    fn = getattr(lib, name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
 
 
 def kernels():
@@ -153,7 +159,8 @@ def kernels():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            _declare(lib)
+            for name in SIGNATURES:
+                declare(lib, name)
             _lib = lib
         return _lib
 
@@ -165,10 +172,12 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    """The current CUDA stream of ``t``'s device, as an int for ctypes (the
+    raw handle, without building a ``torch.cuda.Stream``, which costs a small
+    call's host several microseconds)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def route(x) -> bool:

@@ -24,9 +24,14 @@ bf16, d_model 128 and 256 with head dim 16, 32 or 64 and d_model 384 with
 head dim 16, 32, 48 or 64 (8 heads of 48 at ``--d-model 384``); in fp32,
 d_model 128 and 256 with head dim 16, 32 or 64. The fp32 configuration has
 its own pair, ``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
-``attn_stats_f32_reduce_kernel``, and ``attn_apply_f32_kernel``): fp32 FMA
-throughout, the weights read as they are (no pack), the stats summed per
-64-row tile and then over the tiles in tile order. Each wrapper dispatches on
+``attn_stats_f32_reduce_kernel``, and ``attn_apply_f32_kernel``): every
+product on the tensor cores as split-TF32 ("3xTF32") wgmma, each operand
+``hi + lo`` (:func:`split_tf32`) and each product ``lo hi + hi lo + hi hi``
+into an accumulator promoted into an fp32 master sum every
+``F32_PROMOTE_K`` k values; the weights split and packed once per call
+(:func:`pack_stats_weights_f32`, :func:`pack_apply_weights_f32`), the
+stats summed per 64-row tile and then over the tiles in tile order. Each
+wrapper dispatches on
 the compute dtype, launches its kernel for CUDA tensors (raising on what the
 kernel does not take) and runs its plain PyTorch version, defined beside it,
 only for CPU tensors. The stats are kept per head, ``(B, H, hd, hd)``: the
@@ -57,9 +62,22 @@ KERNEL_HID_CHUNK = 128
 # The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
 # (batch, tile) items, and the workspace holds S rounded up to it.
 STATS_TILE = 128
-# The fp32 stats kernel's row tile (csrc/attn_f32.cu TS): one workspace slot
-# of partial sums per (batch, tile), added in tile order.
+# The fp32 kernels' row tile (csrc/attn_f32.cu TM): in the stats, one
+# workspace slot of partial sums per (batch, tile), added in tile order.
 STATS_F32_TILE = 64
+# The fp32 kernels' promotion chunk, csrc/tf32_tile.cuh:kPromoteK (a
+# compile-time constant there; tests/test_torch_port_tf32x3.py checks that
+# the two agree): every F32_PROMOTE_K k values of a product the tensor
+# cores' accumulator is added into an fp32 master sum and started afresh
+# (tf32_tile.cuh:ring_mma3). The split arithmetic's CPU model in that test
+# keeps the fp32 bars at this chunk even if every k8 step's add truncates.
+F32_PROMOTE_K = 64
+# A ring stage of the fp32 kernels: 4,096 floats of hi, then 4,096 of lo
+# (csrc/tf32_tile.cuh kHalfFloats); a stats stage is 32 k-rows of a 128-column
+# group, an apply stage 4,096 / d k-rows of a d-wide weight or 32 k-rows of a
+# 128-column W1 chunk.
+F32_STAGE_HALF = 4096
+F32_GROUP = 128
 
 
 def jax_fusable_block(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
@@ -230,26 +248,131 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
 attn_stats.launches = 0
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as fp32 (``cvt.rna.tf32.f32`` with the 13 low bits
+    cleared): half an ulp of TF32 added to the magnitude's bits, then
+    truncated."""
+    bits = x.contiguous().float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32_rna(x)``, ``lo = tf32_rna(x - hi)`` (the
+    subtraction is exact), the kernels' split of every fp32 operand."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def f32_stage_layout(W: torch.Tensor, ks: int) -> torch.Tensor:
+    """``W`` ``(K, N)`` fp32 as ``K / ks`` ring stages of ``ks`` k-rows, each
+    its hi block then its lo block, flat: within a block the wgmma operand
+    layout of ``csrc/tf32_tile.cuh`` (k8 step, column group of 8, k half,
+    column in group, k in half; each core-matrix row 4 k values)."""
+    K, N = W.shape
+    parts = []
+    for half in split_tf32(W):
+        # (stage, k8 step, k half, k in half, column group, column in group)
+        v = half.reshape(K // ks, ks // 8, 2, 4, N // 8, 8).permute(0, 1, 4, 2, 5, 3)
+        parts.append(v.reshape(K // ks, 1, ks * N))
+    return torch.cat(parts, 1).reshape(-1)
+
+
+def pack_stats_weights_f32(Wk, Wv, *, num_heads) -> torch.Tensor:
+    """``Wk``, ``Wv`` ``(d, d)`` fp32 (``(in, out)``) as the fp32 stats
+    kernel's ring blob, flat fp32 of ``4 d^2``: ``[Wk|Wv]`` with its columns
+    regrouped per head as ``[k_h | v_h]``, cut into 128-column groups of 32
+    k-row stages (stage ``g (d / 32) + p``), each split hi then lo
+    (:func:`f32_stage_layout`). On the card one launch of
+    ``pack_stats_f32_kernel`` (which the fp32 stats also launch, in their own
+    C call); for CPU weights the permuted copies below, which define the
+    layout."""
+    d = Wk.shape[0]
+    if Wk.dim() != 2 or tuple(Wk.shape) != (d, d) or tuple(Wv.shape) != (d, d):
+        raise ValueError(f"pack_stats_weights_f32: Wk {tuple(Wk.shape)} and Wv "
+                         f"{tuple(Wv.shape)} must be one square shape")
+    _require_cell("pack_stats_weights_f32: the fp32 stats", d, num_heads, torch.float32)
+    f32 = torch.float32
+    if _build.route(Wk):
+        _check(Wk, "Wk", f32, (d, d))
+        _check(Wv, "Wv", f32, (d, d))
+        blob = torch.empty(4 * d * d, dtype=f32, device=Wk.device)
+        err = _build.kernels().scream_pack_stats_f32(Wk.data_ptr(), Wv.data_ptr(),
+                                                     blob.data_ptr(), d, num_heads,
+                                                     _build.stream_ptr(Wk))
+        _build.check(err, "pack_stats_weights_f32")
+        return blob
+    hd = d // num_heads
+    with torch.no_grad():
+        W = torch.cat([Wk.reshape(d, num_heads, hd), Wv.reshape(d, num_heads, hd)],
+                      -1).reshape(d, 2 * d).to(f32)
+        return torch.cat([f32_stage_layout(W[:, g:g + F32_GROUP], 32)
+                          for g in range(0, 2 * d, F32_GROUP)])
+
+
+def pack_apply_weights_f32(Wq, Wm, W1, W2) -> torch.Tensor:
+    """The fp32 apply kernel's ring blob, flat fp32 of ``2 (2 d^2 + 2 d
+    hid)``: ``Wq`` and ``Wm`` in stages of ``4096 / d`` k-rows, then per
+    128-column hidden chunk its ``W1`` columns in stages of 32 k-rows and its
+    ``W2`` rows in stages of ``4096 / d``, each stage split hi then lo
+    (:func:`f32_stage_layout`), in the order the kernel consumes them. On the
+    card one launch of ``pack_apply_f32_kernel`` (which the fp32 apply also
+    launches, in its own C call); for CPU weights the permuted copies below,
+    which define the layout."""
+    d, hid = W1.shape
+    if d not in KERNEL_CELLS[torch.float32] or hid <= 0 or hid % KERNEL_HID_CHUNK \
+            or tuple(Wq.shape) != (d, d) or tuple(Wm.shape) != (d, d) \
+            or tuple(W2.shape) != (hid, d):
+        raise ValueError(f"pack_apply_weights_f32: d in {tuple(KERNEL_CELLS[torch.float32])} "
+                         f"and a hidden multiple of {KERNEL_HID_CHUNK}; got Wq "
+                         f"{tuple(Wq.shape)}, Wm {tuple(Wm.shape)}, W1 {tuple(W1.shape)}, "
+                         f"W2 {tuple(W2.shape)}")
+    f32 = torch.float32
+    if _build.route(W1):
+        for name, w, shape in (("Wq", Wq, (d, d)), ("Wm", Wm, (d, d)), ("W1", W1, (d, hid)),
+                               ("W2", W2, (hid, d))):
+            _check(w, name, f32, shape)
+        blob = torch.empty(2 * (2 * d * d + 2 * d * hid), dtype=f32, device=W1.device)
+        err = _build.kernels().scream_pack_apply_f32(
+            Wq.data_ptr(), Wm.data_ptr(), W1.data_ptr(), W2.data_ptr(), blob.data_ptr(), d,
+            hid, _build.stream_ptr(W1))
+        _build.check(err, "pack_apply_weights_f32")
+        return blob
+    ks = F32_STAGE_HALF // d
+    with torch.no_grad():
+        parts = [f32_stage_layout(Wq.to(f32), ks), f32_stage_layout(Wm.to(f32), ks)]
+        for c in range(0, hid, F32_GROUP):
+            parts.append(f32_stage_layout(W1[:, c:c + F32_GROUP].to(f32), 32))
+            parts.append(f32_stage_layout(W2[c:c + F32_GROUP].to(f32), ks))
+        return torch.cat(parts)
+
+
 def _attn_stats_f32(x, mask, Wk, Wv, *, num_heads):
-    """The fp32 stats kernel (``csrc/attn_f32.cu``): Wk and Wv read as they
-    are; partials per 64-row tile into a workspace, added in tile order by
-    the second launch."""
+    """The fp32 stats kernel (``csrc/attn_f32.cu``), one C call: ``[Wk|Wv]``
+    split and packed (``pack_stats_f32_kernel``, as
+    :func:`pack_stats_weights_f32` lays it out), partials per 64-row tile
+    into a workspace, added in tile order by the third launch. One C call,
+    not the bf16 wrappers' pack call and then kernel call: at the serving
+    shapes the host's time bounds the call, and :func:`pack_stats_weights_f32`
+    alone costs about half of it (``scripts/torch_port_f32_probe.py``)."""
     B, S, d = x.shape
     f32 = torch.float32
-    _check(x, "x", f32, (B, S, d))
-    _check(mask, "mask", f32, (B, S))
-    _check(Wk, "Wk", f32, (d, d))
-    _check(Wv, "Wv", f32, (d, d))
+    for name, t, shape in (("x", x, (B, S, d)), ("mask", mask, (B, S)), ("Wk", Wk, (d, d)),
+                           ("Wv", Wv, (d, d))):
+        _check(t, name, f32, shape)
     hd = d // num_heads
-    nkv, per = num_heads * hd * hd, num_heads * hd * hd + d
+    nkv, per, nblob = num_heads * hd * hd, num_heads * hd * hd + d, 4 * d * d
     nt = -(-S // STATS_F32_TILE)
-    # One allocation: KV, K_sum, then the partials (B, nt, per).
-    buf = torch.empty(B * per * (1 + nt), device=x.device, dtype=f32)
-    KV = buf[:B * nkv].view(B, num_heads, hd, hd)
-    ksum = buf[B * nkv:B * per].view(B, d)
+    # One allocation: the packed weights, KV, K_sum, then the partials (B, nt,
+    # per); the parts addressed by offset, since at the serving shapes the
+    # host's time bounds the call and a slice costs more than an offset.
+    buf = x.new_empty(nblob + B * per * (1 + nt))
+    KV = buf.as_strided((B, num_heads, hd, hd), (nkv, hd * hd, hd, 1), nblob)
+    ksum = buf.as_strided((B, d), (d, 1), nblob + B * nkv)
+    p = buf.data_ptr()
     err = _build.kernels().scream_attn_stats_f32(
-        x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(),
-        buf[B * per:].data_ptr(), KV.data_ptr(), ksum.data_ptr(), B, S, d, num_heads,
+        x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(), p,
+        p + 4 * (nblob + B * per), p + 4 * nblob, p + 4 * (nblob + B * nkv), B, S, d, num_heads,
         _build.stream_ptr(x))
     _build.check(err, "attn_stats")
     attn_stats.launches += 1
@@ -308,8 +431,9 @@ attn_apply.launches = 0
 
 def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                     attn_eps, ln_eps, norm_dtype):
-    """The fp32 apply kernel (``csrc/attn_f32.cu``): every tensor fp32, the
-    weights read as they are."""
+    """The fp32 apply kernel (``csrc/attn_f32.cu``), one C call: every tensor
+    fp32, the weights split and packed (``pack_apply_f32_kernel``, as
+    :func:`pack_apply_weights_f32` lays them out), then the block."""
     B, L, d = x.shape
     hid, H = W1.shape[1], KV.shape[1]
     f32 = torch.float32
@@ -319,14 +443,16 @@ def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                            ("W2", W2, (hid, d)), ("g1", g1, (d,)), ("b1", b1, (d,)),
                            ("g2", g2, (d,)), ("b2", b2, (d,))):
         _check(t, name, f32, shape)
-    out = torch.empty((B, L, d), device=x.device, dtype=f32)
+    out = x.new_empty((B, L, d))
     if B * L == 0:
         return out
+    wpack = x.new_empty(2 * (2 * d * d + 2 * d * hid))
     err = _build.kernels().scream_attn_apply_f32(
-        x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), KV.data_ptr(), ksum.data_ptr(),
-        Wm.data_ptr(), g1.data_ptr(), b1.data_ptr(), W1.data_ptr(), W2.data_ptr(),
-        g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, H, hid, float(attn_eps),
-        float(ln_eps), int(norm_dtype == torch.bfloat16), _build.stream_ptr(x))
+        x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), Wm.data_ptr(), W1.data_ptr(),
+        W2.data_ptr(), wpack.data_ptr(), KV.data_ptr(), ksum.data_ptr(), g1.data_ptr(),
+        b1.data_ptr(), g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, H, hid,
+        float(attn_eps), float(ln_eps), int(norm_dtype == torch.bfloat16),
+        _build.stream_ptr(x))
     _build.check(err, "attn_apply")
     attn_apply.launches += 1
     return out

@@ -4,7 +4,7 @@ a digest of their output bits, their time and each kernel's device time.
 
 Usage, on a machine with an NVIDIA GPU:
 
-    python3 scripts/torch_port_stats_profile.py [TREE]
+    python3 scripts/torch_port_stats_profile.py [TREE] [--f32]
 
 ``TREE`` (default: this checkout) is the root of the tree whose
 ``scream_tpu_torch`` is imported, for example an unpacked ``git archive``
@@ -13,7 +13,10 @@ stats kernels give the same bits on these inputs. Per shape (B x S, d;
 inputs made on the card from a seed, 20 % of the rows masked) it prints
 the SHA-256 of KV and K_sum, the ms of a call by CUDA events (best and all
 of 3 rounds of 10 calls) and the device time of each kernel a call
-launches under ``torch.profiler`` (10 calls). It gates nothing:
+launches under ``torch.profiler`` (10 calls). ``--f32``: the float32
+kernels instead (``csrc/attn_f32.cu``) at path 7's and path 9's shapes,
+stats and then apply (8 heads, hidden 4 d, fed the plain stats), each
+with its weight pack's launch among its kernels. It gates nothing:
 ``chip_smoke.py`` holds the kernels to their plain versions.
 """
 
@@ -23,20 +26,76 @@ import sys
 
 SHAPES = [(16, 4096, 256), (8, 4096, 256), (8, 4000, 256), (8, 512, 128), (3, 129, 128),
           (1, 448, 128), (2, 1, 256)]
+SHAPES_F32 = [(16, 4096, 256), (60, 512, 128), (8, 512, 128)]
+
+
+def profile_call(name, shape, call, digest=None):
+    """One line: digest, CUDA-event time and device time by kernel of ``call``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rounds = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+        rounds.append(e0.elapsed_time(e1) / 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if dt > 0:
+            kname = ev.key.split("::")[-1].split("<")[0].split("(")[0]
+            kernels.append(f"{kname} {dt / ev.count:.1f} us")
+    B, S, d = shape
+    print(f"{name}{B} x {S}, d {d}: " + (f"sha256 {digest[:16]} | " if digest else "")
+          + f"{min(rounds):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in rounds)}) | "
+          f"device a call: {'; '.join(kernels)} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+
+def f32_shapes():
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    for B, S, d in SHAPES_F32:
+        g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
+        x = torch.randn((B, S, d), generator=g, device="cuda")
+        m = (torch.rand((B, S), generator=g, device="cuda") > 0.2).float()
+        w = lambda *s: torch.randn(s, generator=g, device="cuda") / s[0] ** 0.5
+        Wq, Wk, Wv, Wm, W1, W2 = w(d, d), w(d, d), w(d, d), w(d, d), w(d, 4 * d), w(4 * d, d)
+        ln = [torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")] * 2
+        stats = lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=8)
+        KV, ks = stats()
+        digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
+        profile_call("fp32 stats ", (B, S, d), stats, digest.hexdigest())
+        KVp, ksp = attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=8)
+        profile_call("fp32 apply ", (B, S, d), lambda: attn_cuda.attn_apply(
+            x, m, KVp, ksp, Wq, Wm, ln[0], ln[1], W1, W2, ln[2], ln[3], attn_eps=1e-6,
+            ln_eps=1e-5, norm_dtype=torch.float32))
 
 
 def main():
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+    args = [a for a in sys.argv[1:] if a != "--f32"]
+    root = os.path.abspath(args[0] if args else
                            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from scream_tpu_torch.ops import attn_cuda
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_stats_profile: needs a CUDA GPU")
+    if "--f32" in sys.argv[1:]:
+        return f32_shapes()
     for B, S, d in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
         x = torch.randn((B, S, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -46,29 +105,7 @@ def main():
         call = lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=8)
         KV, ks = call()
         digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
-        rounds = []
-        for _ in range(3):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(10):
-                call()
-            e1.record()
-            torch.cuda.synchronize()
-            rounds.append(e0.elapsed_time(e1) / 10)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        kernels = []
-        for ev in prof.key_averages():
-            dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-            if dt > 0:
-                name = ev.key.split("::")[-1].split("<")[0].split("(")[0]
-                kernels.append(f"{name} {dt / ev.count:.1f} us")
-        print(f"{B} x {S}, d {d}: sha256 {digest.hexdigest()[:16]} | "
-              f"{min(rounds):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in rounds)}) | "
-              f"device a call: {'; '.join(kernels)} | {torch.cuda.get_device_name(0)}",
-              flush=True)
+        profile_call("", (B, S, d), call, digest.hexdigest())
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ package.
   the tail kernel at d 384 and under ``fused_attention=False``, as the JAX
   rules send them on the TPU; and each wrapper, given fp32 tensors it takes
   a CUDA route for, calls its fp32 C entry point (a recording stand-in for
-  the library) with the shapes, and counts the launch.
+  the library) with the shapes and the promotion chunk, and counts the
+  launch.
 * ``tests/data/torch_port_fp32_reference.npz``
   (``scripts/torch_port_make_fp32_reference.py``), the JAX forwards that
   ``chip_smoke.py`` holds the card to: recomputed here within 1e-5, and met

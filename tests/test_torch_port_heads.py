@@ -230,8 +230,10 @@ def test_kernel_layouts_fit_shared_memory(d, heads):
     """The stats projection keeps at least 2 ring stages, the apply kernel
     at least 2 (at d 384, head dim 64: exactly 2; head dim 48: 3), and every
     block of the two fits the card; at d 384 each apply warpgroup's 192
-    columns hold whole heads. fp32 apply (d <= 256): the row tile, a hidden
-    chunk, the weight chunks, KV, K_sum and the mask."""
+    columns hold whole heads. fp32 (d <= 256): at least 2 ring stages of
+    32 KB beside the stats block's x tile, K' | V tile and mask and beside
+    the apply block's row tile, two hidden chunks (which hold the KV while
+    it is read), K_sum, row statistics and mask."""
     hd = d // heads
     nst, total, reduce_bytes = stats_smem(d, heads)
     assert nst >= 2 and total <= SMEM and reduce_bytes <= SMEM
@@ -240,9 +242,14 @@ def test_kernel_layouts_fit_shared_memory(d, heads):
     assert (d // (2 if d > 256 else 1)) % hd == 0 and hd % 16 == 0
     if d == 384 and hd in (48, 64):
         assert nst_a == {48: 3, 64: 2}[hd]
-    if d <= 256:
-        wbuf = max(2 * 32 * d, 2 * 32 * 128)
-        assert (64 * d + 64 * 128 + wbuf + d * hd + d + 64) * 4 <= SMEM
+    if d <= 256:  # fp32 (csrc/attn_f32.cu): 32 KB ring stages after the block's own bytes
+        stats_rest = 64 * d * 4 + 64 * 136 * 4 + 64 * 4  # x tile, K' | V tile, mask
+        apply_rest = 64 * d * 4 + 2 * 64 * 128 * 4 + d * 4 + 2 * 64 * 8 + 64 * 4
+        for rest in (stats_rest, apply_rest):
+            nst = min(8, (SMEM - rest - 16 * 8) // 32768)
+            assert nst >= 2 and nst * 32768 + rest + 16 * nst <= SMEM
+        assert d * hd * 4 <= 2 * 64 * 128 * 4  # the KV fits apply's hidden buffers
+        assert (d // 2) % hd == 0  # each warpgroup's d / 2 columns hold whole heads
 
 
 @pytest.mark.parametrize("d,heads", [(384, 8), (384, 6), (256, 4), (384, 24)])
