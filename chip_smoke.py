@@ -345,6 +345,10 @@ STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12, "_f32": 0.7397,
 # Apply at path 1's 16 x 4,096, d 256: above the runs of PRs 8-13
 # (0.3918-0.4418 ms), so that generalizing the kernel cannot slow it unseen.
 APPLY_GATE_MS = {"": 0.50, "_f32": 2.4090, "_f32_d128": 0.0950, "_f32_robust60": 0.3640}
+# The fp32 tail (split-TF32 wgmma) at d 384, 8 x 4,096 (path 7's first DSM
+# stem block) and at d 256, 16 x 4,096 (fused_attention=False): the FMA
+# kernel's times it replaced (PERF.md).
+TAIL_GATE_MS = {"_f32": 2.2564, "_f32_d256": 2.0961}
 NN_SINGLE_GATE_MS, NN_BATCHED_GATE_MS = 0.06, 0.10
 # The splat at 48 x 8,192 x 64^2, rho 24, and the exact NN at 16 x 4,096:
 # below the best of their first versions (PERF.md), so that a redesign that
@@ -482,9 +486,9 @@ def phase_build():
     # registers: no spills; and ptxas serializes no wgmma of the fp32 ones
     # (C7515; its C7519 lines, a wgmma fence added around registers a wgmma
     # reads, are counted).
-    f32_new = ("attn_stats_f32_kernel", "attn_apply_f32_kernel", "pack_stats_f32_kernel",
-               "pack_apply_f32_kernel")
-    for name in ("max_splat_kernel", "nn_exact_kernel", "tail_f32_kernel") + f32_new:
+    f32_new = ("attn_stats_f32_kernel", "attn_apply_f32_kernel", "tail_f32_kernel",
+               "pack_stats_f32_kernel", "pack_block_f32_kernel")
+    for name in ("max_splat_kernel", "nn_exact_kernel") + f32_new:
         hits = {f: v for f, v in spills.items() if name in f}
         check(hits and all(not any(v) for v in hits.values()),
               f"ptxas: {name} spills or is missing from the report: {hits}")
@@ -535,9 +539,39 @@ def check_pack(Wm, W1, W2, Wq=None, suffix=""):
         f"pack {same} | {cuda_ms(lambda: pack(*ws)):.4f} ms")
 
 
+def check_pack_tail_f32(block, suffix=""):
+    """The fp32 tail's weight pack on the card (``pack_block_f32_kernel``
+    without Wq, launched alone by ``scream_pack_block_f32``; the tail's own C
+    call launches it before every tail) against its plain version on the
+    CPU: bit-identical. Returns a record: its ms, the plain version's on
+    the card's tensors, the bound of its bytes (weights read once, hi and
+    lo written once)."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    ws = [block.merge.kernel.detach().float().contiguous(),
+          block.ffn_in.kernel.detach().float().contiguous(),
+          block.ffn_out.kernel.detach().float().contiguous()]
+    got = attn_cuda.pack_block_weights_f32(*ws)
+    want = attn_cuda.pack_block_weights_f32(*(w.cpu() for w in ws))
+    same = torch.equal(got.cpu(), want)
+    d, hid = ws[1].shape
+    check(same, f"pack_tail_weights{suffix}: the card's blob differs from the plain pack")
+    ms = cuda_ms(lambda: attn_cuda.pack_block_weights_f32(*ws))
+    pms = cuda_ms(lambda: attn_cuda.pack_block_f32_plain(None, *ws))
+    b_ms, b_by = bound(3 * 4 * (d * d + 2 * d * hid), [])
+    log(f"kernel pack_tail_weights{suffix} (d {d}, hidden {hid}): identical to the plain "
+        f"pack {same} | {ms:.4f} ms")
+    return dict(name="pack_tail" + suffix, err=0.0, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by, bar="bit for bit", route="cuda",
+                source="scream_tpu_torch/csrc/attn_f32.cu",
+                replaces="scream_tpu/ops/ffn_pallas.py:86 (its weight casts, ffn_pallas.py:120)")
+
+
 def check_pack_f32(Wk, Wv, Wq, Wm, W1, W2, heads, suffix):
     """The fp32 kernels' weight packs on the card (``pack_stats_f32_kernel``,
-    ``pack_apply_f32_kernel``: transposed and split hi / lo) against their
+    ``pack_block_f32_kernel``: transposed and split hi / lo) against their
     plain versions on the CPU: bit-identical. Their time is part of the
     stats' and apply's times."""
     import torch
@@ -546,7 +580,8 @@ def check_pack_f32(Wk, Wv, Wq, Wm, W1, W2, heads, suffix):
 
     packs = (("stats", lambda *w: attn_cuda.pack_stats_weights_f32(*w, num_heads=heads),
               (Wk, Wv)),
-             ("apply", attn_cuda.pack_apply_weights_f32, (Wq, Wm, W1, W2)))
+             ("apply", lambda *w: attn_cuda.pack_block_weights_f32(*w[1:], Wq=w[0]),
+              (Wq, Wm, W1, W2)))
     for name, pack, ws in packs:
         same = torch.equal(pack(*ws).cpu(), pack(*(w.cpu() for w in ws)))
         check(same, f"pack_{name}_weights_f32{suffix}: the card's blob differs from the plain "
@@ -1989,8 +2024,11 @@ def check_tail(block, x, q, m_bool, suffix="", dtype=None):
     weights through ``_FusedTail`` against those through ``tail_plain``,
     same upstream gradient, each within 3e-2 of its largest (the TPU
     selftest's tail bar). With ``dtype`` fp32 the fp32 kernel
-    (``csrc/tail_f32.cu``), forward and gradients within 2e-5. Returns a
-    record."""
+    (``csrc/tail_f32.cu``), forward and gradients within 2e-5, two launches
+    bit-identical, a batch whose rows are all zero (the first sequence of a
+    3-D input, else the first half of the rows) within the bar, and the
+    best of 3 timing rounds held to ``TAIL_GATE_MS`` where the suffix has a
+    gate. Returns a record."""
     import torch
 
     from scream_tpu_torch.ops import tail_cuda
@@ -2024,15 +2062,44 @@ def check_tail(block, x, q, m_bool, suffix="", dtype=None):
     check(err <= bar and g_err <= g_bar and bool(torch.isfinite(out.float()).all()),
           f"block_tail{suffix}: forward relative error {err:.3g} (bar {bar}), gradient "
           f"relative error {g_err:.3g} (bar {g_bar})")
-    with torch.no_grad():
-        ms = cuda_ms(lambda: kern(x, q, *w))
-        pms = cuda_ms(lambda: plain(x, q, *w))
     d, hid = x.shape[-1], w[3].shape[1]
     R = x.numel() // d
-    b_ms, b_by = bound((3 * R * d + d * d + 2 * d * hid) * isz + 4 * d * 4,
-                       [(2 * R * d * (d + 2 * hid), peak)])
+    if fp32:  # no float atomics: a second launch gives the same bits
+        with torch.no_grad():
+            same = bool(torch.equal(out, kern(x, q, *w)))
+            n0 = x.shape[1] if x.dim() == 3 else R // 2
+            x0, q0 = x.clone(), q.clone()
+            x0.view(-1, d)[:n0] = 0
+            q0.view(-1, d)[:n0] = 0
+            out0, ref0 = kern(x0, q0, *w), plain(x0, q0, *w)
+        err0 = rel_err(out0, ref0, rows=m_bool)
+        check(same and err0 <= bar and bool(torch.isfinite(out0).all()),
+              f"block_tail{suffix}: two launches identical {same}, with {n0} rows all zero "
+              f"relative error {err0:.3g} (bar {bar})")
+        log(f"kernel block_tail{suffix}: two launches bit identical {same}, {n0} rows all "
+            f"zero within the bar ({err0:.3e})")
+    gate = TAIL_GATE_MS.get(suffix)
+    with torch.no_grad():
+        if gate is None:
+            ms = cuda_ms(lambda: kern(x, q, *w))
+            pms = cuda_ms(lambda: plain(x, q, *w))
+        else:
+            ms, ms_all = timed(lambda: kern(x, q, *w))
+            pms, pms_all = timed(lambda: plain(x, q, *w))
+            check(ms <= gate, f"block_tail{suffix}: {ms:.4f} ms (rounds {ms_all}) against the "
+                  f"{gate} ms gate")
+            log(f"kernel block_tail{suffix} ({tuple(x.shape[:-1])} rows, d {d}): timing rounds "
+                f"{', '.join(f'{t:.4f}' for t in ms_all)} ms (gate {gate} ms on the best), "
+                f"plain {', '.join(f'{t:.4f}' for t in pms_all)} ms")
+    t_bytes = (3 * R * d + d * d + 2 * d * hid) * isz + 4 * d * 4
+    t_ops = 2 * R * d * (d + 2 * hid)
+    # fp32: the three products' three TF32 passes on the tensor cores (the
+    # kernel's work); beside it the bound of the same products on fp32 FMA.
+    b_ms, b_by = bound(t_bytes, [(TF32_PASSES * t_ops, PEAK_TF32) if fp32 else (t_ops, peak)])
     log(f"kernel block_tail{suffix} (d {d}, {tuple(x.shape[:-1])} rows, {cd}): gradient "
-        f"rel err {g_err:.3e} (bar {g_bar})")
+        f"rel err {g_err:.3e} (bar {g_bar})"
+        + (f" | bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA bound "
+           f"{bound(t_bytes, [(t_ops, PEAK_FP32)])[0]:.4f} ms" if fp32 else ""))
     return dict(name="block_tail" + suffix, err=err, max_abs_err=abs_err, ms=ms,
                 plain_ms=pms, bound_ms=b_ms, bound_by=b_by, bar=f"{bar} rel", route="cuda",
                 source=f"scream_tpu_torch/csrc/{'tail_f32' if fp32 else 'tail'}.cu",
@@ -3165,6 +3232,7 @@ def phase_kernels_f32(model, batch, hf):
     args = (db["dsm"], db["dem_coarse"], db["dsm_mask"], db["dem_coarse_mask"])
     x, q, m = tail_inputs(dem, dem.trunk.stem_src_0, args)
     d = x.shape[-1]
+    records.append(check_pack_tail_f32(dem.trunk.stem_src_0, "_f32"))
     records.append(check_tail(dem.trunk.stem_src_0, x[:8].contiguous(), q[:8].contiguous(),
                               m[:8], suffix="_f32", dtype=f32))
     records.append(check_tail(dem.trunk.stem_src_0, x.reshape(-1, d)[:F32_TAIL_RAGGED],
@@ -3172,7 +3240,22 @@ def phase_kernels_f32(model, batch, hf):
                               m.reshape(-1)[:F32_TAIL_RAGGED],
                               suffix=f"_f32_r{F32_TAIL_RAGGED}", dtype=f32))
     refs = [tail_matmul_reference(dem.trunk.stem_src_0, x[:8])]
-    del dem, x, q
+    del x, q
+    # The whole d 384 fp32 forward at 8 x 4,096, every block's tail on the
+    # kernel.
+    args8 = tuple(a[:8] for a in args)
+    reset_launch_counts()
+    with torch.no_grad():
+        dem(*args8)
+    fwd_counts = launch_counts()
+    with torch.no_grad():
+        fwd_ms, fwd_all = timed(lambda: dem(*args8), reps=3, warmup=1)
+    check(fwd_counts["block_tail"] == 24 and fwd_counts["attn_apply"] == 0,
+          f"fp32 d {F32_TAIL_D} DEM forward: launches {fwd_counts}, expected 24 tails")
+    log(f"path 7 fp32 d {F32_TAIL_D} DEM forward (8 x {F32_TAIL_CAP}): {fwd_ms:.4f} ms (best of "
+        f"rounds {', '.join(f'{t:.4f}' for t in fwd_all)}) | {fwd_counts['block_tail']} tail "
+        f"launches")
+    del dem
 
     unfused = PointTransformer(ModelConfig(dtype="float32", fused_attention=False),
                                device=DEV)
@@ -3187,6 +3270,7 @@ def phase_kernels_f32(model, batch, hf):
           f"ModelConfig(dtype='float32', fused_attention=False) at d 256: launches "
           f"{counts}, expected 24 tail kernels and no fused block")
     x, q, m = tail_inputs(unfused, unfused.trunk.stem_0, pargs)
+    records.append(check_pack_tail_f32(unfused.trunk.stem_0, "_f32_d256"))
     records.append(check_tail(unfused.trunk.stem_0, x, q, m, suffix="_f32_d256", dtype=f32))
     refs.append(tail_matmul_reference(unfused.trunk.stem_0, x))
     log(f"path 7 fused_attention=False at d 256, fp32 ({B} x {CAP}): one forward launched "
@@ -3595,6 +3679,8 @@ def phase_tail_widths():
         for d, all_rows in rows_of.items():
             blk = AttentionBlock(d, 8, 4, dtype=cd,
                                  generator=torch.Generator().manual_seed(d)).to(DEV)
+            if cd == torch.float32:
+                records.append(check_pack_tail_f32(blk, f"_d{d}_f32"))
             for R in all_rows:
                 x, q = (torch.randn((R, d), generator=g, device=DEV) for _ in range(2))
                 m = torch.rand((R,), generator=g, device=DEV) > 0.1
@@ -3648,6 +3734,8 @@ def phase_ffn_mult_cells(kinds=("apply", "tail")):
                 x, q = (torch.randn((FFN_TAIL_ROWS, d), generator=g, device=DEV)
                         for _ in range(2))
                 m = torch.rand((FFN_TAIL_ROWS,), generator=g, device=DEV) > 0.1
+                if cd == torch.float32:
+                    records.append(check_pack_tail_f32(blk, suffix))
                 records.append(check_tail(blk, x, q, m, suffix=suffix, dtype=cd))
             del blk
     log_records(records)
@@ -4778,7 +4866,9 @@ def main():
         "attn_apply_f32": f32_counts["main"]["attn_apply"],
         "attn_stats_f32_d128": f32_counts["serving"]["attn_stats"],
         "attn_apply_f32_d128": f32_counts["serving"]["attn_apply"],
-        "block_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches,
+        "block_tail_f32": f32_counts["train_cli"]["block_tail"],
+        # launched by the fp32 tail's own C call, once before each tail
+        "pack_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches,
         **mw_launches}
     kernels = []
     for r in records:

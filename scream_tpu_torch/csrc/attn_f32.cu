@@ -43,12 +43,13 @@
 //     operand) stays fp32 in shared memory and is split in registers, one
 //     stage's fragments before its wgmma fence; the weights are transposed to
 //     N x K and pre-split into the ring's hi and lo halves once per call by
-//     pack_stats_f32_kernel / pack_apply_f32_kernel, launched by the same C
-//     entry point as the kernel (plain versions in ops/attn_cuda.py): at the
-//     serving shapes the host's time bounds a call, and a pack call of its
-//     own, as the bf16 wrappers make, would add about half again
+//     pack_stats_f32_kernel / pack_block_f32_kernel (the latter the fp32
+//     tail's too, without Wq), launched by the same C entry point as the
+//     kernel (plain versions in ops/attn_cuda.py): at the serving shapes the
+//     host's time bounds a call, and a pack call of its own, as the bf16
+//     wrappers make, would add about half again
 //     (scripts/torch_port_f32_probe.py). scream_pack_stats_f32 /
-//     scream_pack_apply_f32 launch the packs alone, for their check.
+//     scream_pack_block_f32 launch the packs alone, for their check.
 //   * stats, in two launches. attn_stats_f32_kernel walks the (batch, tile)
 //     items; per 128-column group of the packed [k_h | v_h] columns (1, 2
 //     or 4 heads) it projects the tile on wgmma, applies elu1 and the mask,
@@ -66,9 +67,11 @@
 //     fp32 FMA from shared memory (a row's head dims lie in a quad of
 //     lanes, whose Q' values it gathers by shuffles; the KV is staged in
 //     the hidden buffers, idle until the FFN), the message into the row
-//     tile, then the merge, LN1, the FFN in 128-column hidden chunks
-//     (double-buffered in shared memory) and LN2, every product on wgmma.
-//     LayerNorm statistics cross the two warpgroups through shared memory.
+//     tile, then the tail on it (tf32_tail.cuh:tail_rows, the fp32 tail
+//     kernel's body too): the merge, LN1, the FFN in 128-column hidden
+//     chunks (double-buffered in shared memory) and LN2, every product on
+//     wgmma. LayerNorm statistics cross the two warpgroups through shared
+//     memory.
 //
 // Widths: d_model 128 and 256 with head dim 16, 32 or 64 (ATTN_F32_CELLS;
 // 8 heads at both widths is the shipped models' split); hidden any multiple
@@ -80,35 +83,22 @@
 // packed by the pack kernels below; masks (B, S) / (B, L) fp32; KV (B, H,
 // hd, hd), K_sum (B, d).
 
-#include <atomic>
-
-#include "tail_tile.cuh"  // the block geometry: tail::kThreads, num_sms, ...
-#include "tf32_tile.cuh"
+#include "tf32_tail.cuh"
 
 namespace {
 
 using namespace scream;
 using tf32::kStage;
+using tf32::Rows;
+using tf32::Smem;
+using tf32::TM;
 
 // The (d, heads) cells the kernels are instantiated for: head dim 16, 32, 64.
 #define ATTN_F32_CELLS(X) X(128, 8) X(128, 4) X(128, 2) X(256, 16) X(256, 8) X(256, 4)
 
-constexpr int TM = 64;       // rows of a tile
 constexpr int GC = 128;      // columns of a stats column group, and of an FFN hidden chunk
-constexpr int KS_G = 32;     // k-rows of a stats stage, and of a W1 chunk stage
+constexpr int KS_G = 32;     // k-rows of a stats stage
 constexpr int LDP = GC + 8;  // stats: row stride of the K' | V tile (bank-shifted)
-
-// Shared memory of a block: NST ring stages first, then the kernel's own
-// REST bytes, then the barriers; as many stages as fit, at most 8.
-template <int REST>
-struct Smem {
-  static constexpr int FIT = (tail::kSmemMax - REST - 16 * 8) / kStage;
-  static constexpr int NST = FIT < 8 ? FIT : 8;
-  static constexpr int BARS = NST * kStage + REST;
-  static constexpr int BYTES = BARS + 16 * NST;
-  static_assert(NST >= 2 && BYTES <= tail::kSmemMax, "shared memory");
-  using Ring = hopper::Ring<NST, kStage, BARS>;
-};
 
 // Stats at width D, head dim HD: per item the x tile, then G column groups
 // of SP stages (KS_G k-rows x 128 columns) each.
@@ -124,24 +114,22 @@ struct Stats {
                 "stats: whole heads a group, a thread's KV outputs in one row");
 };
 
-// Apply at width D, head dim HD: the warpgroups' NW columns each; ring
-// stages of KS_D k-rows of a D-wide weight (Wq, Wm, a W2 chunk's rows) or
-// KS_G k-rows of a W1 chunk's 128 columns.
+// Apply at width D, head dim HD: the tail's geometry (tf32_tail.cuh:Block;
+// at D 128 / 256 the warpgroups' NW = D / 2 columns each in one pass, ring
+// stages of 4096 / D k-rows of a D-wide weight or 32 k-rows of a 128-column
+// W1 chunk), with Wq's stages first.
 template <int D, int HD>
 struct Apply {
-  static constexpr int H = D / HD, NW = D / 2;
-  static constexpr int KS_D = 4096 / D;
-  static constexpr int S_D = D / KS_D, S_W1 = D / KS_G, S_W2 = GC / KS_D;
-  static constexpr int A = 0, HID = A + TM * D * 4, KSUM = HID + 2 * TM * GC * 4,
+  using G = tf32::Block<D>;
+  static constexpr int H = D / HD, NW = G::NW;
+  static constexpr int A = 0, HID = A + TM * D * 4, KSUM = HID + 2 * TM * G::HC * 4,
                        ST = KSUM + D * 4, MS = ST + 2 * TM * 8;
   using S = Smem<MS + TM * 4>;
-  static_assert(NW % HD == 0 && HD % 8 == 0 && H * HD * HD * 4 <= 2 * TM * GC * 4 &&
-                    KS_D % 8 == 0,
-                "apply: whole heads a warpgroup, the KV fits the hidden buffers");
-  // Ring stages of one tile: Wq, Wm, then per hidden chunk its W1 and W2 stages.
-  static __host__ __device__ constexpr int stages(int hid) {
-    return 2 * S_D + hid / GC * (S_W1 + S_W2);
-  }
+  static_assert(G::PASSES == 1 && NW % HD == 0 && HD % 8 == 0 &&
+                    H * HD * HD * 4 <= 2 * TM * G::HC * 4,
+                "apply: one pass, whole heads a warpgroup, the KV fits the hidden buffers");
+  // Ring stages of one tile: Wq, then the tail's.
+  static __host__ __device__ constexpr int stages(int hid) { return G::stages(2, hid); }
 };
 
 // Stats, pass 1: per (batch, 64-row tile) item the partial K'^T V and K_sum
@@ -267,29 +255,6 @@ __global__ void attn_stats_f32_reduce_kernel(const float* __restrict__ ws, float
     ksum[(size_t)b * (per - nkv) + e - nkv] = s;
 }
 
-// One consumer thread's rows (r0, r0 + 8 of the tile), quad lane t, column
-// half cp (its NW columns start at n0 = cp NW).
-struct Rows {
-  int r0, t, cp, lane;
-};
-
-// acc[AO .. AO + NW/2) (this warpgroup's NW columns, accumulator layout)
-// into the tile of K columns.
-template <int NW, int K, int AO = 0, int AN>
-__device__ __forceinline__ void store_tile(const float (&acc)[AN], float* tile, const Rows& w,
-                                           bool relu) {
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float v = acc[AO + 4 * j + 2 * hh + e];
-        tile[tf32::tile_idx(w.r0 + 8 * hh, w.cp * NW + 8 * j + 2 * w.t + e, K)] =
-            relu ? fmaxf(v, 0.f) : v;
-      }
-}
-
 // Q' = (elu(q) + 1) * mask in registers, then per head of the warpgroup
 // msg = Q' KV / (Q'.K_sum + eps), each sum one fmaf chain over the head's
 // dims in order, written over that head's Q' registers. A row's head dims
@@ -344,72 +309,6 @@ __device__ __forceinline__ void attend(float (&acc)[NW / 2], const float* ms, co
   }
 }
 
-// acc <- LN(acc + res) over whole rows (both warpgroups' columns), fp32
-// statistics, var = max(0, E[x^2] - mu^2), y = (x - mu) (rsqrt(var + eps) g)
-// + b, rounded through bf16 when the norm dtype is bf16. res: the tile's
-// first row in global memory (stride D); rows at or past nvalid add 0.
-// Ends past a barrier of both warpgroups, after which neither reads the
-// row tile for the product before it.
-template <int D>
-__device__ __forceinline__ void add_ln(float (&acc)[D / 4], const float* __restrict__ res,
-                                       int nvalid, const float* __restrict__ g,
-                                       const float* __restrict__ b, float eps, bool nbf,
-                                       float2* stats, const Rows& w) {
-  constexpr int NW = D / 2;
-  const int c0 = w.cp * NW + 2 * w.t;
-  float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = w.r0 + 8 * hh;
-    const float* rp = res + (size_t)row * D + c0;
-#pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const float2 q = row < nvalid ? __ldg(reinterpret_cast<const float2*>(rp + 8 * j))
-                                    : make_float2(0.f, 0.f);
-      float& a0 = acc[4 * j + 2 * hh];
-      float& a1 = acc[4 * j + 2 * hh + 1];
-      a0 += q.x;
-      a1 += q.y;
-      s[hh] += a0 + a1;
-      s2[hh] = fmaf(a1, a1, fmaf(a0, a0, s2[hh]));
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], o);
-      s2[hh] += __shfl_xor_sync(0xffffffffu, s2[hh], o);
-    }
-  if (w.t == 0)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) stats[w.cp * TM + w.r0 + 8 * hh] = make_float2(s[hh], s2[hh]);
-  hopper::named_sync(1, 256);
-  float mu[2], rs[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float2 p0 = stats[w.r0 + 8 * hh], p1 = stats[TM + w.r0 + 8 * hh];
-    mu[hh] = (p0.x + p1.x) / D;
-    rs[hh] = rsqrtf(fmaxf(0.f, (p0.y + p1.y) / D - mu[hh] * mu[hh]) + eps);
-  }
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j) {
-    const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c0 + 8 * j));
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c0 + 8 * j));
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float& a0 = acc[4 * j + 2 * hh];
-      float& a1 = acc[4 * j + 2 * hh + 1];
-      a0 = (a0 - mu[hh]) * (rs[hh] * gg.x) + bb.x;
-      a1 = (a1 - mu[hh]) * (rs[hh] * gg.y) + bb.y;
-      if (nbf) {
-        a0 = hopper::round_bf16(a0);
-        a1 = hopper::round_bf16(a1);
-      }
-    }
-  }
-}
-
 template <int D, int HD>
 __global__ void __launch_bounds__(tail::kThreads, 1)
 attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mask,
@@ -454,14 +353,13 @@ attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
   float* kss = reinterpret_cast<float*>(base + C::KSUM);
   float2* stats = reinterpret_cast<float2*>(base + C::ST);
   float* ms = reinterpret_cast<float*>(base + C::MS);
-  const uint32_t b_d = 32 * NW * w.cp, b_h = 32 * 64 * w.cp;
   const bool nbf = norm_bf16 != 0;
 
   // A product's master sum and the wgmma chunk; the W1 product (64 columns
   // a warpgroup) keeps its master in c[32 .. 64): ptxas holds a thread to
   // 168 registers, and at d 256 f, c, a separate master and a stage's A
   // fragments would need 192.
-  float acc[NW / 2], c[64];
+  float acc[NW / 2], c[C::G::CN];
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int b = tile / tpb, l0 = (tile % tpb) * TM;
@@ -482,47 +380,15 @@ attn_apply_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
     // q, then the message in its place.
 #pragma unroll
     for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-    tf32::ring_mma3<NW, C::KS_D, D, D>(acc, c, ring, C::S_D, At, b_d, wt);
+    tf32::wide_mma<typename C::G, D>(acc, c, ring, At, w.cp, wt);
     attend<NW, HD>(acc, ms, w, kvs, kss, attn_eps);
     hopper::named_sync(1, 256);  // both warpgroups' reads of x in the tile are done
-    store_tile<NW, D>(acc, At, w, false);
+    tf32::store_tile<NW, D>(acc, At, w, false);
     hopper::named_sync(1, 256);
 
-    // t = msg @ Wm + x; y = LN1(t) into the tile.
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-    tf32::ring_mma3<NW, C::KS_D, D, D>(acc, c, ring, C::S_D, At, b_d, wt);
-    add_ln<D>(acc, xb, nvalid, g1, b1, ln_eps, nbf, stats, w);
-    store_tile<NW, D>(acc, At, w, false);
-    hopper::named_sync(1, 256);
-
-    // f = sum over 128-column hidden chunks of relu(y @ W1[:, ch]) @ W2[ch, :].
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int ch = 0; ch < hid / GC; ++ch) {
-      // h into c[32 .. 64); at d 256 its 32-row stages in two wgmma windows
-      // of 16 A registers (the 168-register budget again).
-      constexpr int WK = NW >= 128 ? 2 : KS_G / 8;
-#pragma unroll
-      for (int i = 32; i < 64; ++i) c[i] = 0.f;
-      tf32::ring_mma3<64, KS_G, D, GC, 32, WK>(c, c, ring, C::S_W1, At, b_h, wt);
-      float* hb = Hs + (ch & 1) * TM * GC;
-      store_tile<64, GC, 32>(c, hb, w, true);
-      hopper::named_sync(1, 256);  // the chunk's 128 columns are in
-      tf32::ring_mma3<NW, C::KS_D, GC, D>(acc, c, ring, C::S_W2, hb, b_d, wt);
-    }
-    add_ln<D>(acc, xb, nvalid, g2, b2, ln_eps, nbf, stats, w);
-    float* ob = out + row0 * D + w.cp * NW + 2 * w.t;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = w.r0 + 8 * hh;
-      if (row >= nvalid) continue;
-#pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
-        *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * j) =
-            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-    }
+    // The tail on the message, x the residual.
+    tf32::tail_rows<D>(acc, c, ring, At, Hs, stats, xb, out + row0 * D, nvalid, hid, g1, b1,
+                       g2, b2, ln_eps, nbf, w, wt);
   }
 }
 
@@ -552,33 +418,43 @@ __global__ void pack_stats_f32_kernel(const float* __restrict__ wk, const float*
   }
 }
 
-// Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) -> the apply blob, hi then lo in
-// every stage: Wq and Wm in stages of 4096 / d k-rows, then per 128-column
-// hidden chunk its W1 columns in stages of 32 k-rows and its W2 rows in
-// stages of 4096 / d (Apply::stages).
-__global__ void pack_apply_f32_kernel(const float* __restrict__ wq, const float* __restrict__ wm,
+// The block blob of tf32_tail.cuh:Block (its geometry in g): [Wq], Wm,
+// then per hidden chunk of g.hc columns its W1 columns in stages of g.ksh
+// k-rows and its W2 rows in stages of g.ksd; each D-wide weight in g.passes
+// passes of stages of g.ksd k-rows x 2 g.nd columns, pass p's packed column
+// c being column (c / nd) (d / 2) + p nd + c % nd. Hi then lo in every
+// stage. One output float a thread.
+struct PackGeo {
+  unsigned nd, passes, ksd, hc, ksh;
+};
+
+__global__ void pack_block_f32_kernel(const float* __restrict__ wq, const float* __restrict__ wm,
                                       const float* __restrict__ w1,
                                       const float* __restrict__ w2, float* __restrict__ out,
-                                      unsigned d, unsigned hid) {
-  const unsigned ksd = 4096 / d, s_d = d / ksd, s_w1 = d / KS_G, s_w2 = GC / ksd;
-  const unsigned n = 2 * (2 * d * d + 2 * d * hid);
+                                      unsigned d, unsigned hid, PackGeo g) {
+  const unsigned kst = d / g.ksd, s_d = g.passes * kst, s_w1 = d / g.ksh,
+                 per = g.hc / g.ksd, s_w2 = g.passes * per, sq = wq ? 2 : 1;
+  const unsigned n = 2 * (sq * d * d + 2 * d * hid);
   for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < n;
        o += gridDim.x * blockDim.x) {
     const unsigned s = o / (2 * tf32::kHalfFloats);
     const float* src;
-    unsigned ld, k0, n0, ns;
-    if (s < 2 * s_d) {
-      src = s < s_d ? wq : wm;
-      ld = d, k0 = (s % s_d) * ksd, n0 = 0, ns = d;
+    unsigned ld = d, k0, n0 = 0, ns = 2 * g.nd, p = 0;
+    bool wide = true;  // a D-wide weight: its stage's columns from pass p
+    if (s < sq * s_d) {
+      src = wq && s < s_d ? wq : wm;
+      p = (s % s_d) / kst, k0 = (s % kst) * g.ksd;
     } else {
-      const unsigned r = (s - 2 * s_d) % (s_w1 + s_w2), ch = (s - 2 * s_d) / (s_w1 + s_w2);
-      if (r < s_w1)
-        src = w1, ld = hid, k0 = r * KS_G, n0 = ch * GC, ns = GC;
-      else
-        src = w2, ld = d, k0 = ch * GC + (r - s_w1) * ksd, n0 = 0, ns = d;
+      const unsigned r = (s - sq * s_d) % (s_w1 + s_w2), ch = (s - sq * s_d) / (s_w1 + s_w2);
+      if (r < s_w1) {
+        src = w1, ld = hid, k0 = r * g.ksh, n0 = ch * g.hc, ns = g.hc, wide = false;
+      } else {
+        src = w2, p = (r - s_w1) / per, k0 = ch * g.hc + ((r - s_w1) % per) * g.ksd;
+      }
     }
     unsigned k, col;
     tf32::stage_src(o % tf32::kHalfFloats, ns, k, col);
+    if (wide) col = (col / g.nd) * (d / 2) + p * g.nd + col % g.nd;
     out[o] = split_half(src[(size_t)(k0 + k) * ld + n0 + col], (o / tf32::kHalfFloats) & 1);
   }
 }
@@ -592,30 +468,6 @@ int launch_pack_stats(const void* wk, const void* wv, void* out, int d, int head
   return (int)cudaGetLastError();
 }
 
-int launch_pack_apply(const void* wq, const void* wm, const void* w1, const void* w2, void* out,
-                      int d, int hid, cudaStream_t stream) {
-  const unsigned n = 2u * (2u * d * d + 2u * d * hid);
-  pack_apply_f32_kernel<<<pack_grid(n), 256, 0, stream>>>(
-      (const float*)wq, (const float*)wm, (const float*)w1, (const float*)w2, (float*)out,
-      (unsigned)d, (unsigned)hid);
-  return (int)cudaGetLastError();
-}
-
-// The kernel's dynamic shared memory limit raised to bytes, once per device
-// (the bits of `devices`): cudaFuncSetAttribute on every launch would add to
-// the host time of a small call, which bounds the serving shapes.
-template <class K>
-int set_smem(K kernel, int bytes, std::atomic<unsigned>& devices) {
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (devices.load(std::memory_order_acquire) & bit) return 0;
-  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (!err) devices.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <int D, int HD>
 int launch_stats(const void* x, const void* mask, const void* wpack, void* ws, void* kv,
                  void* ksum, int B, int S, cudaStream_t stream) {
@@ -623,7 +475,7 @@ int launch_stats(const void* x, const void* mask, const void* wpack, void* ws, v
   static std::atomic<unsigned> smem_set{0};
   const int nt = (S + TM - 1) / TM, nitems = B * nt;
   if (nitems > 0) {
-    int err = set_smem(attn_stats_f32_kernel<D, HD>, C::S::BYTES, smem_set);
+    int err = tf32::set_smem(attn_stats_f32_kernel<D, HD>, C::S::BYTES, smem_set);
     if (err) return err;
     const int grid = nitems < tail::num_sms() ? nitems : tail::num_sms();
     attn_stats_f32_kernel<D, HD><<<grid, tail::kThreads, C::S::BYTES, stream>>>(
@@ -644,7 +496,7 @@ int launch_apply(const void* x, const void* mask, const void* wpack, const void*
                  float ln_eps, int norm_bf16, cudaStream_t stream) {
   using C = Apply<D, HD>;
   static std::atomic<unsigned> smem_set{0};
-  int err = set_smem(attn_apply_f32_kernel<D, HD>, C::S::BYTES, smem_set);
+  int err = tf32::set_smem(attn_apply_f32_kernel<D, HD>, C::S::BYTES, smem_set);
   if (err) return err;
   const int ntiles = B * ((L + TM - 1) / TM);
   const int grid = ntiles < tail::num_sms() ? ntiles : tail::num_sms();
@@ -664,7 +516,24 @@ bool f32_cell(int d, int heads) {
   return false;
 }
 
+template <int D>
+PackGeo pack_geo() {
+  using G = tf32::Block<D>;
+  return PackGeo{G::ND, G::PASSES, G::KS_D, G::HC, G::KS_H};
+}
+
 }  // namespace
+
+int scream::tf32::launch_pack_block(const void* wq, const void* wm, const void* w1,
+                                    const void* w2, void* out, int d, int hid,
+                                    cudaStream_t stream) {
+  const PackGeo g = d == 128 ? pack_geo<128>() : d == 256 ? pack_geo<256>() : pack_geo<384>();
+  const unsigned n = 2u * ((wq ? 2u : 1u) * d * d + 2u * d * hid);
+  pack_block_f32_kernel<<<pack_grid(n), 256, 0, stream>>>(
+      (const float*)wq, (const float*)wm, (const float*)w1, (const float*)w2, (float*)out,
+      (unsigned)d, (unsigned)hid, g);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -698,14 +567,16 @@ int scream_pack_stats_f32(const void* wk, const void* wv, void* out, int d, int 
   return launch_pack_stats(wk, wv, out, d, heads, (cudaStream_t)stream);
 }
 
-// Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) fp32, (in, out), d 128 or 256,
-// hid a multiple of 128 -> the apply blob out, 2 (2 d^2 + 2 d hid) floats
-// (pack_apply_f32_kernel; scream_attn_apply_f32 launches it too). One
-// launch.
-int scream_pack_apply_f32(const void* wq, const void* wm, const void* w1, const void* w2,
+// Wq (d, d) or NULL, Wm (d, d), W1 (d, hid), W2 (hid, d) fp32, (in, out),
+// d 128 or 256 with Wq (apply), 128, 256 or 384 without (the tail), hid a
+// multiple of 128 -> the block blob out, 2 ((2 or 1) d^2 + 2 d hid) floats
+// (pack_block_f32_kernel; scream_attn_apply_f32 and scream_block_tail_f32
+// launch it too). One launch.
+int scream_pack_block_f32(const void* wq, const void* wm, const void* w1, const void* w2,
                           void* out, int d, int hid, void* stream) {
-  if ((d != 128 && d != 256) || hid <= 0 || hid % GC) return (int)cudaErrorInvalidValue;
-  return launch_pack_apply(wq, wm, w1, w2, out, d, hid, (cudaStream_t)stream);
+  if ((d != 128 && d != 256 && (wq || d != 384)) || hid <= 0 || hid % GC)
+    return (int)cudaErrorInvalidValue;
+  return tf32::launch_pack_block(wq, wm, w1, w2, out, d, hid, (cudaStream_t)stream);
 }
 
 // x (B, L, d) fp32 (query source and both residuals), mask (B, L) fp32,
@@ -714,7 +585,7 @@ int scream_pack_apply_f32(const void* wq, const void* wm, const void* w1, const 
 // (d, heads) a cell of ATTN_F32_CELLS, hidden a multiple of 128; norm_bf16
 // rounds the LayerNorm outputs through bf16 (norm dtype bf16). Two
 // launches: the weight pack into wpack (2 (2 d^2 + 2 d hid) floats,
-// pack_apply_f32_kernel), then the block.
+// pack_block_f32_kernel), then the block.
 int scream_attn_apply_f32(const void* x, const void* mask, const void* wq, const void* wm,
                           const void* w1, const void* w2, void* wpack, const void* kv,
                           const void* ksum, const void* g1, const void* b1, const void* g2,
@@ -723,7 +594,7 @@ int scream_attn_apply_f32(const void* x, const void* mask, const void* wq, const
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || L <= 0 || hid <= 0 || hid % GC || !f32_cell(d, heads))
     return (int)cudaErrorInvalidValue;
-  const int err = launch_pack_apply(wq, wm, w1, w2, wpack, d, hid, s);
+  const int err = tf32::launch_pack_block(wq, wm, w1, w2, wpack, d, hid, s);
   if (err) return err;
 #define ATTN_F32_APPLY(D, H)                                                             \
   if (d == D && heads == H)                                                              \

@@ -1,11 +1,12 @@
-// Split-TF32 ("3xTF32") building blocks for the float32 attention kernels on
-// Hopper (sm_90a), beside hopper_tile.cuh's bf16 ones (attn_f32.cu):
+// Split-TF32 ("3xTF32") building blocks for the float32 attention and tail
+// kernels on Hopper (sm_90a), beside hopper_tile.cuh's bf16 ones
+// (attn_f32.cu, tail_f32.cu, through tf32_tail.cuh):
 //
 //   * split: an fp32 value a as hi = tf32_rna(a) and lo = tf32_rna(a - hi),
 //     both fp32 bit patterns with the 13 low mantissa bits zero
 //     (cvt.rna.tf32.f32, then masked), so the tensor cores never truncate a
 //     raw fp32 operand. a - hi is exact; hi + lo is a within 2^-22 of |a|.
-//   * wgmma.mma_async m64nNk8 .f32.tf32.tf32, N 64 or 128, A from registers
+//   * wgmma.mma_async m64nNk8 .f32.tf32.tf32, N 32, 64 or 128, A from registers
 //     (the four values of the thread's fragment) and B from shared memory
 //     through a K-major, no-swizzle descriptor, scale-d a runtime predicate.
 //     The 3xTF32 product of one k8 step is three of them into one fp32
@@ -118,6 +119,24 @@ __device__ __forceinline__ void load_a(const float* tile, int s, int r0, int t,
 // D (+)= A @ B for one k8 step: scale_d 0 overwrites D; D is d[0 .. N/2).
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  template <int R>
+  __device__ static __forceinline__ void mma(float (&d)[R], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    static_assert(R >= 16, "accumulator");
+    asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<64> {

@@ -141,8 +141,8 @@ SIGNATURES = {
     "scream_attn_stats_f32": [_P] * 8 + [_I, _I, _I, _I, _P],
     "scream_pack_stats_f32": [_P, _P, _P, _I, _I, _P],
     "scream_attn_apply_f32": [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "scream_pack_apply_f32": [_P] * 5 + [_I, _I, _P],
-    "scream_block_tail_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    "scream_pack_block_f32": [_P] * 5 + [_I, _I, _P],
+    "scream_block_tail_f32": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
 }
 
 

@@ -29,8 +29,9 @@ product on the tensor cores as split-TF32 ("3xTF32") wgmma, each operand
 ``hi + lo`` (:func:`split_tf32`) and each product ``lo hi + hi lo + hi hi``
 into an accumulator promoted into an fp32 master sum every
 ``F32_PROMOTE_K`` k values; the weights split and packed once per call
-(:func:`pack_stats_weights_f32`, :func:`pack_apply_weights_f32`), the
-stats summed per 64-row tile and then over the tiles in tile order. Each
+(:func:`pack_stats_weights_f32`, :func:`pack_block_weights_f32`, the
+latter the fp32 tail kernel's too, without ``Wq``), the stats summed per
+64-row tile and then over the tiles in tile order. Each
 wrapper dispatches on
 the compute dtype, launches its kernel for CUDA tensors (raising on what the
 kernel does not take) and runs its plain PyTorch version, defined beside it,
@@ -48,7 +49,7 @@ import torch
 
 from scream_tpu_torch.ops import _build
 from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
-from scream_tpu_torch.ops.tail_cuda import pack_weights
+from scream_tpu_torch.ops.tail_cuda import KERNEL_WIDTHS_F32, pack_weights
 
 # What the CUDA kernels take: per compute dtype, d_model -> the head dims
 # (d_model / heads) of its instantiations (csrc/attn.cu ATTN_CELLS,
@@ -74,8 +75,7 @@ STATS_F32_TILE = 64
 F32_PROMOTE_K = 64
 # A ring stage of the fp32 kernels: 4,096 floats of hi, then 4,096 of lo
 # (csrc/tf32_tile.cuh kHalfFloats); a stats stage is 32 k-rows of a 128-column
-# group, an apply stage 4,096 / d k-rows of a d-wide weight or 32 k-rows of a
-# 128-column W1 chunk.
+# group, an apply or tail stage as f32_block_geometry says.
 F32_STAGE_HALF = 4096
 F32_GROUP = 128
 
@@ -310,41 +310,75 @@ def pack_stats_weights_f32(Wk, Wv, *, num_heads) -> torch.Tensor:
                           for g in range(0, 2 * d, F32_GROUP)])
 
 
-def pack_apply_weights_f32(Wq, Wm, W1, W2) -> torch.Tensor:
-    """The fp32 apply kernel's ring blob, flat fp32 of ``2 (2 d^2 + 2 d
-    hid)``: ``Wq`` and ``Wm`` in stages of ``4096 / d`` k-rows, then per
-    128-column hidden chunk its ``W1`` columns in stages of 32 k-rows and its
-    ``W2`` rows in stages of ``4096 / d``, each stage split hi then lo
-    (:func:`f32_stage_layout`), in the order the kernel consumes them. On the
-    card one launch of ``pack_apply_f32_kernel`` (which the fp32 apply also
-    launches, in its own C call); for CPU weights the permuted copies below,
-    which define the layout."""
+def f32_block_geometry(d: int) -> tuple:
+    """``csrc/tf32_tail.cuh:Block<d>``, the ring stages of the fp32 apply
+    and tail kernels: (``nd``, ``passes``, ``ksd``, ``hc``, ``ksh``). Each
+    of the two consumer warpgroups owns ``d / 2`` output columns and makes
+    them in ``passes`` passes of ``nd``; a d-wide weight (``Wq``, ``Wm``, a
+    hidden chunk's ``W2`` rows) streams in stages of ``ksd`` k-rows x ``2
+    nd`` columns (pass ``p``: columns ``p nd ..`` of warpgroup 0, then the
+    same of warpgroup 1); the hidden goes in chunks of ``hc`` columns, their
+    ``W1`` columns in stages of ``ksh`` k-rows. At d 128 / 256 one pass of
+    ``d / 2`` and 128-column chunks; at d 384, where a 192-column pass would
+    not fit a thread's registers, three passes of 64 and 64-column chunks."""
+    pass64 = d > 256
+    nd = 64 if pass64 else d // 2
+    hc = 64 if pass64 else F32_GROUP
+    return nd, d // 2 // nd, F32_STAGE_HALF // (2 * nd), hc, F32_STAGE_HALF // hc
+
+
+def pack_block_f32_plain(Wq, Wm, W1, W2) -> torch.Tensor:
+    """Plain version of ``pack_block_f32_kernel`` (``csrc/attn_f32.cu``), on
+    any device: ``[Wq]`` (optional) and ``Wm``, then per hidden chunk its
+    ``W1`` columns and its ``W2`` rows, in :func:`f32_block_geometry`'s
+    stages, each split hi then lo (:func:`f32_stage_layout`), in the order
+    the kernels consume them; flat fp32 of ``2 ((2 or 1) d^2 + 2 d hid)``."""
     d, hid = W1.shape
-    if d not in KERNEL_CELLS[torch.float32] or hid <= 0 or hid % KERNEL_HID_CHUNK \
-            or tuple(Wq.shape) != (d, d) or tuple(Wm.shape) != (d, d) \
-            or tuple(W2.shape) != (hid, d):
-        raise ValueError(f"pack_apply_weights_f32: d in {tuple(KERNEL_CELLS[torch.float32])} "
-                         f"and a hidden multiple of {KERNEL_HID_CHUNK}; got Wq "
-                         f"{tuple(Wq.shape)}, Wm {tuple(Wm.shape)}, W1 {tuple(W1.shape)}, "
-                         f"W2 {tuple(W2.shape)}")
-    f32 = torch.float32
-    if _build.route(W1):
-        for name, w, shape in (("Wq", Wq, (d, d)), ("Wm", Wm, (d, d)), ("W1", W1, (d, hid)),
-                               ("W2", W2, (hid, d))):
-            _check(w, name, f32, shape)
-        blob = torch.empty(2 * (2 * d * d + 2 * d * hid), dtype=f32, device=W1.device)
-        err = _build.kernels().scream_pack_apply_f32(
-            Wq.data_ptr(), Wm.data_ptr(), W1.data_ptr(), W2.data_ptr(), blob.data_ptr(), d,
-            hid, _build.stream_ptr(W1))
-        _build.check(err, "pack_apply_weights_f32")
-        return blob
-    ks = F32_STAGE_HALF // d
+    nd, passes, ksd, hc, ksh = f32_block_geometry(d)
+    f32, h = torch.float32, d // 2
+
+    def wide(W):
+        W = W.to(f32)
+        return [f32_stage_layout(torch.cat([W[:, p * nd:(p + 1) * nd],
+                                            W[:, h + p * nd:h + (p + 1) * nd]], 1), ksd)
+                for p in range(passes)]
+
     with torch.no_grad():
-        parts = [f32_stage_layout(Wq.to(f32), ks), f32_stage_layout(Wm.to(f32), ks)]
-        for c in range(0, hid, F32_GROUP):
-            parts.append(f32_stage_layout(W1[:, c:c + F32_GROUP].to(f32), 32))
-            parts.append(f32_stage_layout(W2[c:c + F32_GROUP].to(f32), ks))
+        parts = (wide(Wq) if Wq is not None else []) + wide(Wm)
+        for c in range(0, hid, hc):
+            parts.append(f32_stage_layout(W1[:, c:c + hc].to(f32), ksh))
+            parts += wide(W2[c:c + hc])
         return torch.cat(parts)
+
+
+def pack_block_weights_f32(Wm, W1, W2, Wq=None) -> torch.Tensor:
+    """The ring blob of the fp32 tail kernel (``csrc/tail_f32.cu``, d 128,
+    256, 384) or, with ``Wq``, of the fp32 apply kernel (d 128, 256), flat
+    fp32 of ``2 ((1 or 2) d^2 + 2 d hid)`` (:func:`pack_block_f32_plain`):
+    the fp32 counterpart of ``tail_cuda.pack_weights``. On the card one
+    launch of ``pack_block_f32_kernel``, which each of the two kernels also
+    launches in its own C call; for CPU weights the plain version."""
+    d, hid = W1.shape
+    widths = KERNEL_CELLS[torch.float32] if Wq is not None else KERNEL_WIDTHS_F32
+    if d not in widths or hid <= 0 or hid % KERNEL_HID_CHUNK \
+            or (Wq is not None and tuple(Wq.shape) != (d, d)) or tuple(Wm.shape) != (d, d) \
+            or tuple(W2.shape) != (hid, d):
+        raise ValueError(f"pack_block_weights_f32: d in {tuple(widths)} and a hidden multiple "
+                         f"of {KERNEL_HID_CHUNK}; got Wq {None if Wq is None else tuple(Wq.shape)}, "
+                         f"Wm {tuple(Wm.shape)}, W1 {tuple(W1.shape)}, W2 {tuple(W2.shape)}")
+    if not _build.route(W1):
+        return pack_block_f32_plain(Wq, Wm, W1, W2)
+    f32 = torch.float32
+    ws = (("Wq", Wq, (d, d)),) if Wq is not None else ()
+    for name, w, shape in ws + (("Wm", Wm, (d, d)), ("W1", W1, (d, hid)), ("W2", W2, (hid, d))):
+        _check(w, name, f32, shape)
+    blob = torch.empty(2 * ((2 if Wq is not None else 1) * d * d + 2 * d * hid), dtype=f32,
+                       device=W1.device)
+    err = _build.kernels().scream_pack_block_f32(
+        Wq.data_ptr() if Wq is not None else None, Wm.data_ptr(), W1.data_ptr(), W2.data_ptr(),
+        blob.data_ptr(), d, hid, _build.stream_ptr(W1))
+    _build.check(err, "pack_block_weights_f32")
+    return blob
 
 
 def _attn_stats_f32(x, mask, Wk, Wv, *, num_heads):
@@ -432,8 +466,8 @@ attn_apply.launches = 0
 def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                     attn_eps, ln_eps, norm_dtype):
     """The fp32 apply kernel (``csrc/attn_f32.cu``), one C call: every tensor
-    fp32, the weights split and packed (``pack_apply_f32_kernel``, as
-    :func:`pack_apply_weights_f32` lays them out), then the block."""
+    fp32, the weights split and packed (``pack_block_f32_kernel``, as
+    :func:`pack_block_weights_f32` lays them out), then the block."""
     B, L, d = x.shape
     hid, H = W1.shape[1], KV.shape[1]
     f32 = torch.float32

@@ -13,8 +13,11 @@ The kernel takes bf16 at d_model 128, 256, 384 and 512 (every bf16 width at
 hidden 4d where the JAX package's tail rule holds) with a hidden width in
 128-column chunks (:func:`kernel_takes`). The fp32 configuration has its own
 kernel, ``tail_f32_kernel`` (``csrc/tail_f32.cu``), at d_model 128, 256 and
-384 (every fp32 width where the rule holds): fp32 FMA throughout, the
-weights read as they are, no pack.
+384 (every fp32 width where the rule holds): the fp32 apply kernel's tail
+body (``csrc/tf32_tail.cuh``), every product split-TF32 ("3xTF32") wgmma,
+its weights split and packed by ``pack_block_f32_kernel`` in the same C
+call (``ops/attn_cuda.py:pack_block_weights_f32`` is that pack alone, and
+its plain version).
 
 The kernel streams its weights through a ring of shared-memory stages
 (``csrc/tail_tile.cuh``), one bulk copy a stage; :func:`pack_weights` lays
@@ -160,8 +163,9 @@ def _tail_forward(x, q, Wm, g1, b1, W1, W2, g2, b2, kw):
 
 
 def _tail_forward_f32(x, q, Wm, g1, b1, W1, W2, g2, b2, nd, eps):
-    """The fp32 tail kernel (``csrc/tail_f32.cu``) on CUDA tensors: every
-    tensor fp32, the weights read as they are."""
+    """The fp32 tail kernel (``csrc/tail_f32.cu``) on CUDA tensors, one C
+    call: every tensor fp32, the weights split and packed into a scratch
+    blob (``pack_block_f32_kernel`` without ``Wq``), then the tail."""
     *lead, d = x.shape
     hid = W1.shape[1]
     f32 = torch.float32
@@ -177,9 +181,11 @@ def _tail_forward_f32(x, q, Wm, g1, b1, W1, W2, g2, b2, nd, eps):
     out = torch.empty((R, d), device=x.device, dtype=f32)
     if R == 0:
         return out.reshape(*lead, d)
+    wpack = x2.new_empty(2 * (d * d + 2 * d * hid))
     err = _build.kernels().scream_block_tail_f32(
-        x2.data_ptr(), q2.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(), R, d,
-        hid, float(eps), int(nd == torch.bfloat16), _build.stream_ptr(x))
+        x2.data_ptr(), q2.data_ptr(), *(t.data_ptr() for t in ws), wpack.data_ptr(),
+        out.data_ptr(), R, d, hid, float(eps), int(nd == torch.bfloat16),
+        _build.stream_ptr(x))
     _build.check(err, "block_tail")
     block_tail.launches += 1
     return out.reshape(*lead, d)

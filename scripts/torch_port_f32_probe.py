@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the fp32 attention kernels (``csrc/attn_f32.cu``) goes,
-and what their promotion chunk buys: the same kernels built with one part of
-their work taken out, or without promotion, timed side by side on one card.
+"""Where the time of the fp32 kernels (``csrc/attn_f32.cu``,
+``csrc/tail_f32.cu``) goes, and what their promotion chunk buys: the same
+kernels built with one part of their work taken out, or without promotion,
+timed side by side on one card.
 
 Usage, on a machine with an NVIDIA GPU and ``nvcc``:
 
     python3 scripts/torch_port_f32_probe.py
+    python3 scripts/torch_port_f32_probe.py --forward [TREE]
 
-Each variant is a copy of ``attn_f32.cu`` and the headers it includes under
-``build/f32_probe/<name>/`` with the edits below, compiled alone (one
-``nvcc`` a variant, all at once) into a library that the port's wrappers
-then call through ``_build._lib``:
+Each variant is a copy of ``attn_f32.cu``, ``tail_f32.cu`` and the headers
+they include under ``build/f32_probe/<name>/`` with the edits below,
+compiled alone (one ``nvcc`` a variant, all at once) into a library that
+the port's wrappers then call through ``_build._lib``:
 
 * ``base``: the sources as they are;
 * ``no_mma``: no wgmma is issued (the A fragments are still loaded and
@@ -21,14 +23,20 @@ then call through ``_build._lib``:
 * ``neither``: no wgmma and 16-byte stages;
 * ``no_split``: A enters the wgmma unsplit (hi = the fp32 bits, lo = 0);
 * ``no_promotion``: ``tf32_tile.cuh:kPromoteK`` so large that no product is
-  promoted before its end (one wgmma accumulator over all its k).
+  promoted before its end (one wgmma accumulator over all its k; the W2
+  product still at the end of each hidden chunk);
+* ``d384_wk2``: at d 384 the d-wide passes' wgmma windows of 2 k8 steps
+  instead of 4 (``tf32_tail.cuh:Block::WK_D``; the tail only).
 
-``base`` and ``no_promotion`` compute the function, and for them the script
-also prints stats' and apply's relative errors against their plain versions
-on the same inputs; the others give wrong values and are timed only. Per
-shape (16 x 4,096 at d 256 and 60 x 512 at d 128, 8 heads, hidden 4 d,
-seeded random inputs) it prints stats' and apply's best of 3 rounds of 10
-calls for each variant, in the order base, variants, base.
+``base``, ``no_promotion`` and ``d384_wk2`` compute the function, and for
+them the script also prints the relative errors against the plain versions
+on the same inputs; the others give wrong values and are timed only. The
+build prints each variant's ptxas spill line for the tail kernel at each
+width. Per shape (16 x
+4,096 at d 256 and 60 x 512 at d 128, 8 heads, hidden 4 d, seeded random
+inputs) it prints stats' and apply's best of 3 rounds of 10 calls for each
+variant, in the order base, variants, base; then the same for the tail at
+d 384, 8 x 4,096 rows, hidden 1,536, and at d 256, 16 x 4,096, hidden 1,024.
 
 Then, at the serving shape 8 x 512 (d 128, 8 heads), where the host's time
 bounds a call, the host microseconds a call of the fp32 stats and apply
@@ -36,6 +44,13 @@ wrappers as built (each one C call that launches its weight pack too), of
 their pack wrappers alone (what a separate pack call, the bf16 wrappers'
 pattern, would add), and of the bf16 stats wrapper (pack, then kernel). It
 gates nothing.
+
+``--forward [TREE]`` times, with the ``scream_tpu_torch`` of ``TREE``
+(default: this checkout; an unpacked ``git archive`` of another commit to
+compare two in one call), the fp32 d 384 DEM forward at 8 x 4,096 (a
+seeded random-init ``DEMTransformer``, every block's tail on the tail
+kernel) and the fp32 tail at the two shapes above, best of 3 rounds each,
+and nothing else.
 """
 
 import ctypes
@@ -48,6 +63,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "build", "f32_probe")
 SHAPES = [(16, 4096, 256), (60, 512, 128)]
+TAIL_SHAPES = [(8 * 4096, 384), (16 * 4096, 256)]  # (rows, d), hidden 4 d
 MMA = ("      Wgmma<N>::mma(c, lo[i], bh, w0 + i == 0 ? !fresh : 1);\n"
        "      Wgmma<N>::mma(c, hi[i], bl, 1);\n"
        "      Wgmma<N>::mma(c, hi[i], bh, 1);\n")
@@ -58,7 +74,8 @@ SMALL_COPY = ("    mbar_expect_tx(full(slot), 16);\n"
               "    bulk_g2s(base + slot * STAGE, src, 16, full(slot));")
 SPLIT = "  hi = rna(a);\n  lo = rna(a - __uint_as_float(hi));\n"
 PROMOTE = "constexpr int kPromoteK = 64;"
-EXACT = ("base", "no_promotion")
+WK_D = "static constexpr int WK_D = PASS64 ? 4 : KS_D / 8;"
+EXACT = ("base", "no_promotion", "d384_wk2")
 VARIANTS = {
     "base": [],
     "no_mma": [("tf32_tile.cuh", MMA, NO_MMA)],
@@ -68,6 +85,7 @@ VARIANTS = {
     "neither": [("tf32_tile.cuh", MMA, NO_MMA), ("hopper_tile.cuh", COPY, SMALL_COPY)],
     "no_split": [("tf32_tile.cuh", SPLIT, "  hi = __float_as_uint(a);\n  lo = 0u;\n")],
     "no_promotion": [("tf32_tile.cuh", PROMOTE, "constexpr int kPromoteK = 1 << 30;")],
+    "d384_wk2": [("tf32_tail.cuh", WK_D, WK_D.replace("PASS64 ? 4", "PASS64 ? 2"))],
 }
 
 
@@ -79,7 +97,8 @@ def build(nvcc, flags):
         d = os.path.join(OUT, name)
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
-        for f in ("attn_f32.cu", "tf32_tile.cuh", "tail_tile.cuh", "hopper_tile.cuh"):
+        for f in ("attn_f32.cu", "tail_f32.cu", "tf32_tail.cuh", "tf32_tile.cuh",
+                  "tail_tile.cuh", "hopper_tile.cuh"):
             shutil.copy(os.path.join(src, f), d)
         for f, old, new in edits:
             p = os.path.join(d, f)
@@ -90,11 +109,19 @@ def build(nvcc, flags):
             open(p, "w").write(text.replace(old, new))
         lib = os.path.join(d, "lib.so")
         procs.append((name, lib, subprocess.Popen(
-            [nvcc, *flags, "-shared", "-o", lib, os.path.join(d, "attn_f32.cu")],
+            [nvcc, *flags, "-shared", "-o", lib, os.path.join(d, "attn_f32.cu"),
+             os.path.join(d, "tail_f32.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, lib, p in procs:
         log = p.communicate(timeout=900)[0]
+        fn = None
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+            elif "spill" in ln and fn and "tail_f32_kernel" in fn:
+                print(f"{name}: ptxas, {fn.split('ILi')[1].split('E')[0]}-wide tail: "
+                      f"{ln.strip()}", flush=True)
         if p.returncode:
             raise SystemExit(f"torch_port_f32_probe: {name} does not build:\n{log[-3000:]}")
         libs[name] = ctypes.CDLL(lib)
@@ -135,7 +162,7 @@ def host_times(attn_cuda, smi):
         ("fp32 apply", lambda: attn_cuda.attn_apply(
             x, m, KV, ks, Wq, Wm, ones, zeros, W1, W2, ones, zeros, attn_eps=1e-6,
             ln_eps=1e-5, norm_dtype=torch.float32)),
-        ("its pack alone", lambda: attn_cuda.pack_apply_weights_f32(Wq, Wm, W1, W2)),
+        ("its pack alone", lambda: attn_cuda.pack_block_weights_f32(Wm, W1, W2, Wq=Wq)),
         ("bf16 stats (pack, then kernel)",
          lambda: attn_cuda.attn_stats(xb, m, Wkb, Wvb, num_heads=H)),
     ]
@@ -144,22 +171,75 @@ def host_times(attn_cuda, smi):
           flush=True)
 
 
+def tail_args(rows, d, g):
+    """Seeded random fp32 tail inputs on the card: x, q (rows, d), then Wm,
+    g1, b1, W1, W2, g2, b2 at hidden 4 d."""
+    import torch
+
+    w = lambda *s: torch.randn(s, generator=g, device="cuda") / s[0] ** 0.5
+    x, q = (torch.randn((rows, d), generator=g, device="cuda") for _ in range(2))
+    ones, zeros = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    return x, q, w(d, d), ones, zeros, w(d, 4 * d), w(4 * d, d), ones, zeros
+
+
+def forward_times(tree, smi):
+    """``--forward``: the d 384 fp32 DEM forward and the fp32 tail with
+    ``tree``'s package."""
+    sys.path.insert(0, tree)
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from scream_tpu_torch.models import DEMTransformer
+    from scream_tpu_torch.ops import tail_cuda
+    from scream_tpu_torch.pipeline.register import to_device
+
+    model_cfg, _ = chip_smoke.dem_config()
+    dem = DEMTransformer(dataclasses.replace(model_cfg, d_model=384, dtype="float32"),
+                         device="cuda", generator=torch.Generator().manual_seed(0))
+    db = to_device(chip_smoke.dem_batch(chip_smoke.make_dem_items(1, seed=1300, batch=8,
+                                                                  points=4096)[0],
+                                        cap=4096, coarse=512), "cuda")
+    args = (db["dsm"], db["dem_coarse"], db["dsm_mask"], db["dem_coarse_mask"])
+    with torch.no_grad():
+        best, rounds = chip_smoke.timed(lambda: dem(*args), reps=3, warmup=1)
+    print(f"{tree}: fp32 d 384 DEM forward, 8 x 4096: {best:.4f} ms (rounds "
+          f"{', '.join(f'{t:.4f}' for t in rounds)}) | {smi.strip()}", flush=True)
+    del dem
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for rows, d in TAIL_SHAPES:
+        a = tail_args(rows, d, g)
+        with torch.no_grad():
+            best, rounds = chip_smoke.timed(lambda: tail_cuda.block_tail(
+                *a, dtype=torch.float32, norm_dtype=torch.float32))
+        print(f"{tree}: fp32 tail, {rows} rows, d {d}: {best:.4f} ms (rounds "
+              f"{', '.join(f'{t:.4f}' for t in rounds)}) | {smi.strip()}", flush=True)
+
+
 def main():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    if "--forward" in sys.argv[1:]:
+        rest = [a for a in sys.argv[1:] if a != "--forward"]
+        tree = os.path.abspath(rest[0] if rest else REPO)
+        os.chdir(tree)
+        return forward_times(tree, smi)
     sys.path.insert(0, REPO)
     os.chdir(REPO)
     import torch
 
     import chip_smoke
-    from scream_tpu_torch.ops import _build, attn_cuda
+    from scream_tpu_torch.ops import _build, attn_cuda, tail_cuda
+    from scream_tpu_torch.ops.ffn import tail_plain
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_f32_probe: needs a CUDA GPU")
     libs = build(_build.find_nvcc(), _build.NVCC_FLAGS)
     for lib in libs.values():
-        for entry in ("scream_attn_stats_f32", "scream_attn_apply_f32"):
+        for entry in ("scream_attn_stats_f32", "scream_attn_apply_f32",
+                      "scream_block_tail_f32"):
             _build.declare(lib, entry)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True).stdout
     g = torch.Generator(device="cuda").manual_seed(0)
     for B, L, d in SHAPES:
         x = torch.randn((B, L, d), generator=g, device="cuda")
@@ -183,6 +263,20 @@ def main():
                 err = f"; relative error stats {s_err:.3e}, apply {a_err:.3e}"
             print(f"{B} x {L}, d {d}, {name}: stats {s_ms:.4f} ms, apply {a_ms:.4f} ms{err} | "
                   f"{smi.strip()}", flush=True)
+    f32 = torch.float32
+    for rows, d in TAIL_SHAPES:
+        a = tail_args(rows, d, g)
+        out = tail_plain(*a, cd=f32, nd=f32, eps=1e-5)
+        kern = lambda: tail_cuda.block_tail(*a, dtype=f32, norm_dtype=f32)
+        for name in ["base", *[v for v in VARIANTS if v != "base"], "base"]:
+            _build._lib = libs[name]
+            with torch.no_grad():
+                ms = chip_smoke.timed(kern)[0]
+                err = (f"; relative error {chip_smoke.rel_err(kern(), out):.3e}"
+                       if name in EXACT else "")
+            print(f"tail {rows} rows, d {d}, {name}: {ms:.4f} ms{err} | {smi.strip()}",
+                  flush=True)
+        del a, out
     _build._lib = None  # the port's own build of every source
     host_times(attn_cuda, smi)
 

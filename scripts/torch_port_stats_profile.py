@@ -15,8 +15,10 @@ the SHA-256 of KV and K_sum, the ms of a call by CUDA events (best and all
 of 3 rounds of 10 calls) and the device time of each kernel a call
 launches under ``torch.profiler`` (10 calls). ``--f32``: the float32
 kernels instead (``csrc/attn_f32.cu``) at path 7's and path 9's shapes,
-stats and then apply (8 heads, hidden 4 d, fed the plain stats), each
-with its weight pack's launch among its kernels. It gates nothing:
+stats and then apply (8 heads, hidden 4 d, fed the plain stats), then the
+tail (``csrc/tail_f32.cu``, hidden 4 d) at d 384, 8 x 4,096 and d 256, 16 x
+4,096, each with a digest of its output and its weight pack's launch among
+its kernels. It gates nothing:
 ``chip_smoke.py`` holds the kernels to their plain versions.
 """
 
@@ -27,6 +29,7 @@ import sys
 SHAPES = [(16, 4096, 256), (8, 4096, 256), (8, 4000, 256), (8, 512, 128), (3, 129, 128),
           (1, 448, 128), (2, 1, 256)]
 SHAPES_F32 = [(16, 4096, 256), (60, 512, 128), (8, 512, 128)]
+TAIL_SHAPES_F32 = [(8, 4096, 384), (16, 4096, 256)]
 
 
 def profile_call(name, shape, call, digest=None):
@@ -51,7 +54,8 @@ def profile_call(name, shape, call, digest=None):
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if dt > 0:
-            kname = ev.key.split("::")[-1].split("<")[0].split("(")[0]
+            kname = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            kname = kname.split("<")[0].split("::")[-1]
             kernels.append(f"{kname} {dt / ev.count:.1f} us")
     B, S, d = shape
     print(f"{name}{B} x {S}, d {d}: " + (f"sha256 {digest[:16]} | " if digest else "")
@@ -63,7 +67,7 @@ def profile_call(name, shape, call, digest=None):
 def f32_shapes():
     import torch
 
-    from scream_tpu_torch.ops import attn_cuda
+    from scream_tpu_torch.ops import attn_cuda, tail_cuda
 
     for B, S, d in SHAPES_F32:
         g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
@@ -77,9 +81,21 @@ def f32_shapes():
         digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
         profile_call("fp32 stats ", (B, S, d), stats, digest.hexdigest())
         KVp, ksp = attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=8)
-        profile_call("fp32 apply ", (B, S, d), lambda: attn_cuda.attn_apply(
+        apply = lambda: attn_cuda.attn_apply(
             x, m, KVp, ksp, Wq, Wm, ln[0], ln[1], W1, W2, ln[2], ln[3], attn_eps=1e-6,
-            ln_eps=1e-5, norm_dtype=torch.float32))
+            ln_eps=1e-5, norm_dtype=torch.float32)
+        digest = hashlib.sha256(apply().cpu().numpy().tobytes())
+        profile_call("fp32 apply ", (B, S, d), apply, digest.hexdigest())
+    for B, S, d in TAIL_SHAPES_F32:
+        g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
+        x, q = (torch.randn((B, S, d), generator=g, device="cuda") for _ in range(2))
+        w = lambda *s: torch.randn(s, generator=g, device="cuda") / s[0] ** 0.5
+        Wm, W1, W2 = w(d, d), w(d, 4 * d), w(4 * d, d)
+        ln = [torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")] * 2
+        tail = lambda: tail_cuda.block_tail(x, q, Wm, ln[0], ln[1], W1, W2, ln[2], ln[3],
+                                            dtype=torch.float32, norm_dtype=torch.float32)
+        digest = hashlib.sha256(tail().cpu().numpy().tobytes())
+        profile_call("fp32 tail ", (B, S, d), tail, digest.hexdigest())
 
 
 def main():

@@ -327,8 +327,16 @@ def test_fp32_tensors_launch_the_fp32_tail_kernel(fake_cuda, d):
                                norm_dtype=torch.float32)
     assert out.shape == (1, R, d) and out.dtype == torch.float32
     assert [c[0] for c in fake_cuda.calls] == ["scream_block_tail_f32"]
-    assert fake_cuda.calls[0][1][-6:] == [R, d, hid, pytest.approx(1e-5), 0, 0]
+    # x, q, Wm, g1, b1, W1, W2, g2, b2, the pack's scratch, out; then the
+    # shapes, eps, the norm dtype and the stream.
+    args = fake_cuda.calls[0][1]
+    assert len(args) == 17 and args[-6:] == [R, d, hid, pytest.approx(1e-5), 0, 0]
     assert tail_cuda.block_tail.launches == n0 + 1
+    fake_cuda.calls.clear()
+    blob = attn_cuda.pack_block_weights_f32(Wm, W1, W2)
+    assert blob.shape == (2 * (d * d + 2 * d * hid),)
+    assert [c[0] for c in fake_cuda.calls] == ["scream_pack_block_f32"]
+    assert fake_cuda.calls[0][1][-3:] == [d, hid, 0]
     with pytest.raises(ValueError, match="fp32"):
         tail_cuda.block_tail(torch.zeros(1, 4, 512), torch.zeros(1, 4, 512),
                              torch.zeros(512, 512), torch.ones(512), torch.ones(512),

@@ -1,13 +1,14 @@
 """A CPU model of the split-TF32 ("3xTF32") arithmetic of the fp32 attention
-kernels (``csrc/attn_f32.cu``, ``csrc/tf32_tile.cuh``), against the JAX
-package.
+and tail kernels (``csrc/attn_f32.cu``, ``csrc/tail_f32.cu``,
+``csrc/tf32_tile.cuh``, ``csrc/tf32_tail.cuh``), against the JAX package.
 
 * The split: ``attn_cuda.tf32_rna`` (bit arithmetic on an int32 view)
   against round-to-nearest, ties away from zero, done in float64; ``hi`` and
   ``lo`` carry at most 10 explicit mantissa bits and ``hi + lo`` is the
   input within 2^-22 of it.
-* The packs: the plain versions of the two weight packs equal, bit for bit,
-  a numpy restatement of the pack kernels' index arithmetic, and each k8
+* The packs: the plain versions of the weight packs (stats; apply, and the
+  tail's at every width) equal, bit for bit, a numpy restatement of the
+  pack kernels' index arithmetic and of the tail's geometry, and each k8
   step read through the wgmma descriptor's layout (LBO 128, SBO 256 bytes)
   gives the weights' hi and lo blocks.
 * The products: every product of the kernels, A and B split, per k8 step
@@ -21,8 +22,11 @@ package.
   published behaviour of NVIDIA tensor cores' fp32 accumulation, taken at
   its worst), at every ``ATTN_F32_CELLS`` cell and on the first attention
   block's input of the two fp32 reference forwards
-  (``tests/data/torch_port_fp32_reference.npz``). The kernels' promotion
-  chunk is the model's.
+  (``tests/data/torch_port_fp32_reference.npz``). The tail's model, in its
+  d-wide passes and hidden chunks, against ``_tail_kernel`` within a
+  quarter of its 2e-5 bar at d 128-384 and ffn_mult 1-4. The kernels'
+  promotion chunk is the model's, and every product's stages and hidden
+  chunks fall on its boundaries.
 """
 
 import dataclasses
@@ -39,12 +43,13 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from scream_tpu.ops import attn_pallas as jattn
+from scream_tpu.ops import ffn_pallas
 from scream_tpu_torch.models import PointTransformer
-from scream_tpu_torch.ops import attn_cuda
+from scream_tpu_torch.ops import attn_cuda, tail_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIGHEST = jax.lax.Precision.HIGHEST
-STATS_BAR, APPLY_BAR = 1e-5 / 4, 2e-5 / 4
+STATS_BAR, APPLY_BAR, TAIL_BAR = 1e-5 / 4, 2e-5 / 4, 2e-5 / 4
 CELLS = [(d, d // hd) for d, hds in attn_cuda.KERNEL_CELLS[torch.float32].items()
          for hd in hds]
 
@@ -128,25 +133,41 @@ def kernel_pack_stats(Wk, Wv, heads):
     return np.where((o // 4096) & 1, lo, hi)
 
 
-def kernel_pack_apply(Wq, Wm, W1, W2):
-    """``pack_apply_f32_kernel``'s index arithmetic on every output float."""
+def block_geometry(d):
+    """``csrc/tf32_tail.cuh:Block<d>`` restated: (nd, passes, ksd, hc, ksh).
+    At d 384 three 64-column passes a warpgroup and 64-column hidden
+    chunks; below, one pass of d / 2 and 128-column chunks; every stage
+    half 4,096 floats."""
+    nd, hc = (64, 64) if d > 256 else (d // 2, 128)
+    return nd, d // 2 // nd, 4096 // (2 * nd), hc, 4096 // hc
+
+
+def kernel_pack_block(Wq, Wm, W1, W2):
+    """``pack_block_f32_kernel``'s index arithmetic on every output float:
+    ``[Wq]``, ``Wm``, then per hidden chunk its W1 and W2 stages; a d-wide
+    stage of pass ``p`` holds packed column ``c`` = column ``(c // nd) (d /
+    2) + p nd + c % nd``."""
     d, hid = W1.shape
-    ksd = 4096 // d
-    s_d, s_w1, s_w2 = d // ksd, d // 32, 128 // ksd
-    o = np.arange(2 * (2 * d * d + 2 * d * hid))
-    s = o // 8192
-    out = np.empty(o.size, np.float32)
-    for st in range(int(s[-1]) + 1):
-        idx = o[s == st]
-        if st < 2 * s_d:
-            src, k0, n0, ns = (Wq if st < s_d else Wm), (st % s_d) * ksd, 0, d
+    nd, passes, ksd, hc, ksh = block_geometry(d)
+    kst = d // ksd
+    s_d, s_w1, per = passes * kst, d // ksh, hc // ksd
+    s_w2, sq = passes * per, 1 if Wq is None else 2
+    out = np.empty(2 * (sq * d * d + 2 * d * hid), np.float32)
+    for st in range(out.size // 8192):
+        idx = np.arange(st * 8192, (st + 1) * 8192)
+        wide, n0, ns = True, 0, 2 * nd
+        if st < sq * s_d:
+            src = Wq if sq == 2 and st < s_d else Wm
+            p, k0 = (st % s_d) // kst, (st % kst) * ksd
         else:
-            r, ch = (st - 2 * s_d) % (s_w1 + s_w2), (st - 2 * s_d) // (s_w1 + s_w2)
+            r, ch = (st - sq * s_d) % (s_w1 + s_w2), (st - sq * s_d) // (s_w1 + s_w2)
             if r < s_w1:
-                src, k0, n0, ns = W1, r * 32, ch * 128, 128
+                src, k0, n0, ns, wide = W1, r * ksh, ch * hc, hc, False
             else:
-                src, k0, n0, ns = W2, ch * 128 + (r - s_w1) * ksd, 0, d
+                src, p, k0 = W2, (r - s_w1) // per, ch * hc + (r - s_w1) % per * ksd
         k, col = stage_src(idx % 4096, ns)
+        if wide:
+            col = col // nd * (d // 2) + p * nd + col % nd
         hi, lo = split_np(src[k0 + k, n0 + col])
         out[idx] = np.where((idx // 4096) & 1, lo, hi)
     return out
@@ -169,10 +190,10 @@ def test_plain_packs_are_the_kernels_layout(d, heads, hid):
     W1 = rng.standard_normal((d, hid)).astype(np.float32)
     W2 = rng.standard_normal((hid, d)).astype(np.float32)
     stats = attn_cuda.pack_stats_weights_f32(t(Wk), t(Wv), num_heads=heads).numpy()
-    apply = attn_cuda.pack_apply_weights_f32(t(Wq), t(Wm), t(W1), t(W2)).numpy()
+    apply = attn_cuda.pack_block_weights_f32(t(Wm), t(W1), t(W2), Wq=t(Wq)).numpy()
     np.testing.assert_array_equal(stats.view(np.int32), kernel_pack_stats(Wk, Wv, heads)
                                   .view(np.int32))
-    np.testing.assert_array_equal(apply.view(np.int32), kernel_pack_apply(Wq, Wm, W1, W2)
+    np.testing.assert_array_equal(apply.view(np.int32), kernel_pack_block(Wq, Wm, W1, W2)
                                   .view(np.int32))
     # The descriptor's view: W1's first chunk is stage 2 (d / (4096 / d)) of
     # the apply blob; warpgroup 1 reads its columns 64-127, k8 step 1 of
@@ -191,6 +212,42 @@ def test_plain_packs_are_the_kernels_layout(d, heads, hid):
                                   split_np(packed[24:32, 128:192])[0])
 
 
+@pytest.mark.parametrize("d,hid", [(128, 512), (256, 1024), (384, 1536), (384, 384),
+                                   (384, 1152)])
+def test_plain_tail_pack_is_the_kernels_layout(d, hid):
+    """The fp32 tail's blob (the apply blob without Wq) at every width,
+    and at d 384 at hidden 1 and 3 x d: the plain pack equals the kernel's
+    index arithmetic bit for bit, its geometry is the header's, and the
+    descriptors read the weights' columns where the warpgroups' products
+    put them."""
+    rng = np.random.default_rng(d + hid)
+    Wm = rng.standard_normal((d, d)).astype(np.float32)
+    W1 = rng.standard_normal((d, hid)).astype(np.float32)
+    W2 = rng.standard_normal((hid, d)).astype(np.float32)
+    assert attn_cuda.f32_block_geometry(d) == block_geometry(d)
+    blob = attn_cuda.pack_block_weights_f32(t(Wm), t(W1), t(W2)).numpy()
+    assert blob.size == 2 * (d * d + 2 * d * hid)
+    np.testing.assert_array_equal(blob.view(np.int32),
+                                  kernel_pack_block(None, Wm, W1, W2).view(np.int32))
+    nd, passes, ksd, hc, ksh = block_geometry(d)
+    # Wm, warpgroup 1, its last pass, k-stage 1, k8 step 0: output columns
+    # d / 2 + (passes - 1) nd .. of k-rows ksd .. ksd + 7.
+    st = blob[((passes - 1) * (d // ksd) + 1) * 8192:][:8192]
+    c0 = d // 2 + (passes - 1) * nd
+    np.testing.assert_array_equal(read_b(st[:4096], 2 * nd, 0, nd, nd),
+                                  split_np(Wm[ksd:ksd + 8, c0:c0 + nd])[0])
+    # The second hidden chunk: its W1 stage 1 (warpgroup 1, k8 step 2) and
+    # its W2 pass 0 stage 0 (warpgroup 0, k8 step 1, the lo half).
+    s_d, s_w1 = passes * (d // ksd), d // ksh
+    ch = s_d + (s_w1 + passes * (hc // ksd))
+    st = blob[(ch + 1) * 8192:][:8192]
+    np.testing.assert_array_equal(read_b(st[:4096], hc, 2, hc // 2, hc // 2),
+                                  split_np(W1[ksh + 16:ksh + 24, hc + hc // 2:2 * hc])[0])
+    st = blob[(ch + s_w1) * 8192:][:8192]
+    np.testing.assert_array_equal(read_b(st[4096:], 2 * nd, 1, 0, nd),
+                                  split_np(W2[hc + 8:hc + 16, :nd])[1])
+
+
 def round32(x64, mode):
     """float64 -> fp32, to nearest ("rn") or toward zero ("rz")."""
     r = x64.float()
@@ -200,17 +257,19 @@ def round32(x64, mode):
     return r
 
 
-def mm3(A, B, mode):
+def mm3(A, B, mode, master=None):
     """``A @ B`` (fp32) as the kernels compute it: both split; per k8 step
     the passes lo(A) hi(B), hi(A) lo(B), hi(A) hi(B), each an exact sum of 8
     products added into the fp32 chunk accumulator with one rounding
     (``mode``); every ``F32_PROMOTE_K`` k values the chunk is added into an
-    fp32 master sum (round to nearest) and starts afresh."""
+    fp32 master sum (round to nearest; zeros, or ``master`` to go on from)
+    and starts afresh."""
     promote_k = attn_cuda.F32_PROMOTE_K
     K = A.shape[1]
     assert K % 8 == 0 and promote_k % 8 == 0
     (Ah, Al), (Bh, Bl) = (tuple(p.double() for p in attn_cuda.split_tf32(M)) for M in (A, B))
-    master = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32)
+    if master is None:
+        master = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32)
     chunk = torch.zeros_like(master)
     for k0 in range(0, K, 8):
         ks = slice(k0, k0 + 8)
@@ -255,6 +314,64 @@ def model_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, mode, eps=1e-
     y = layer_norm(mm3(msg, Wm, mode) + x2, g1, b1, ln_eps)
     f = mm3(torch.relu(mm3(y, W1, mode)), W2, mode)
     return layer_norm(x2 + f, g2, b2, ln_eps).reshape(B, L, d)
+
+
+def wide3(A, W, mode, master):
+    """A d-wide product into ``master`` in the kernels' passes
+    (``tf32_tail.cuh:wide_mma``): pass ``p`` makes columns ``p nd ..`` of
+    each warpgroup's ``d / 2`` over all of ``A``'s k."""
+    d = W.shape[1]
+    nd, passes = block_geometry(d)[:2]
+    master = master.clone()
+    for p in range(passes):
+        for c0 in (p * nd, d // 2 + p * nd):
+            master[:, c0:c0 + nd] = mm3(A, W[:, c0:c0 + nd], mode, master[:, c0:c0 + nd])
+    return master
+
+
+def model_tail(x, q, Wm, g1, b1, W1, W2, g2, b2, mode, ln_eps=1e-5):
+    """The fp32 tail kernel (``tf32_tail.cuh:tail_rows``) in its order: the
+    merge in its passes, LN1, then per hidden chunk of ``hc`` columns h =
+    relu of its W1 product (promoted every k stage) and its W2 product in
+    passes added into f's master, then LN2; the LayerNorms in fp32."""
+    R, d = x.shape
+    hc = block_geometry(d)[3]
+    zeros = torch.zeros((R, d))
+    y = layer_norm(wide3(x, Wm, mode, zeros) + q, g1, b1, ln_eps)
+    f = zeros
+    for c0 in range(0, W1.shape[1], hc):
+        h = torch.relu(mm3(y, W1[:, c0:c0 + hc], mode))
+        f = wide3(h, W2[c0:c0 + hc], mode, f)
+    return layer_norm(q + f, g2, b2, ln_eps)
+
+
+@pytest.mark.parametrize("d,mult", [(128, 4), (256, 4), (384, 4), (384, 1), (384, 3)])
+def test_model_tail_meets_pallas_tail(d, mult):
+    """The fp32 tail's model against ``ffn_pallas._tail_kernel`` (interpret
+    mode, HIGHEST) within a quarter of the 2e-5 tail bar, with
+    round-to-nearest and with truncating adds, on 201 rows (ragged against
+    the 64-row tile and the Pallas kernel's 256); and its passes and chunks
+    give the bits of one product over the whole k (the promotion points are
+    the same)."""
+    rng = np.random.default_rng(d * mult)
+    R, hid = 201, mult * d
+    w = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+    args = (rng.standard_normal((R, d)).astype(np.float32),
+            rng.standard_normal((R, d)).astype(np.float32), w(d, d),
+            rng.uniform(0.5, 1.5, d).astype(np.float32),
+            (rng.standard_normal(d) * 0.1).astype(np.float32), w(d, hid), w(hid, d),
+            rng.uniform(0.5, 1.5, d).astype(np.float32),
+            (rng.standard_normal(d) * 0.1).astype(np.float32))
+    jtail = ffn_pallas._make_block_tail("float32", "float32", 1e-5, True, True)
+    want = np.asarray(jtail(*(jnp.asarray(a[None] if a.ndim == 2 and a.shape[0] == R else a)
+                              for a in args)))[0]
+    errs = {}
+    for mode in ("rn", "rz"):
+        got = model_tail(*map(t, args), mode)
+        errs[mode] = rel(got.numpy(), want)
+    assert max(errs.values()) <= TAIL_BAR, errs
+    x, Wm = t(args[0]), t(args[2])
+    assert torch.equal(wide3(x, Wm, "rz", torch.zeros((R, d))), mm3(x, Wm, "rz"))
 
 
 def jax_stats(x, mask, Wk, Wv, heads):
@@ -369,12 +486,17 @@ def test_promotion_chunk_divides_every_product():
     """The model's chunk is the kernels' (``csrc/tf32_tile.cuh:kPromoteK``),
     and each product of the kernels restarts its accumulator on a ring-stage
     boundary: the chunk is a multiple of every stage's k-rows (stats 32;
-    apply 4,096 / d and 32) and divides the hidden chunk (128)."""
+    apply and tail at each width, its d-wide and W1 stages) and divides
+    every product's k: d, and the hidden chunk whose W2 product ends in a
+    promotion."""
     promote = attn_cuda.F32_PROMOTE_K
     with open(os.path.join(REPO, "scream_tpu_torch", "csrc", "tf32_tile.cuh")) as f:
         header = f.read()
     assert re.findall(r"constexpr int kPromoteK = (\d+);", header) == [str(promote)]
-    for d in attn_cuda.KERNEL_CELLS[torch.float32]:
-        for ks in (32, attn_cuda.F32_STAGE_HALF // d):
-            assert promote % ks == 0
-    assert attn_cuda.F32_GROUP % promote == 0
+    assert promote % 32 == 0 and attn_cuda.F32_GROUP % promote == 0  # stats
+    widths = set(attn_cuda.KERNEL_CELLS[torch.float32]) | set(tail_cuda.KERNEL_WIDTHS_F32)
+    assert widths == {128, 256, 384}
+    for d in widths:
+        nd, passes, ksd, hc, ksh = block_geometry(d)
+        assert promote % ksd == 0 and promote % ksh == 0
+        assert d % promote == 0 and hc % promote == 0 and passes * nd == d // 2
