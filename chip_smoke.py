@@ -197,7 +197,25 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     equal to the in-process evaluations, KITTI on ``weights/kitti-generator``);
     and stats, apply, the fused block and the tail at hidden widths 1-3 x d
     (d 128-384, both dtypes) against their plain versions;
-18. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+18. path 11, the multi-GPU layer (``scream_tpu_torch/parallel``) on two
+    data ranks, NCCL with a card each where the machine has two, else gloo
+    with both on the one card (the log says which): (a) path 1's
+    ``register_batch`` at 16 x 4,096 with the shipped point-generator
+    through ``data_parallel_apply``, within 1e-5 of the single process (bit
+    for bit expected: a pair's result does not depend on its batch), stats,
+    apply and both NN kernels launched on each rank, pairs/s beside the
+    single process's; (b) the 3DMatch
+    preset's GAN step at 8 x 4,096 with the shipped discriminator through
+    ``data_parallel_step`` and ``data_parallel_arrays_step`` against the
+    single process on the card (point_loss 2e-2, gradient norm 5e-2; the
+    splat launched and the BatchNorm synchronized on both ranks) and an
+    fp32 step at d 128 (parameters 1e-5); (c) ``train 3dmatch``,
+    ``evaluate 3dmatch --bucketed`` (path 5's tree; JSON equal to the
+    single process's) and ``register --manifest`` (transforms 1e-5) with
+    ``--mesh data=2`` in subprocesses; (d) ``parallel/dryrun.py``'s modes
+    (DP, DP with the GAN, SP, TP, PP with the flagship, EP) on the card
+    against the single process under their bars;
+19. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -213,8 +231,8 @@ DEM path's row counts, fp32 d 128-384), ``--only apply`` stats and apply at
 path 1's shape (gates included) and at every (d, heads, dtype) cell; both
 also at hidden widths 1-3 x d; ``--only ingest`` runs phases 1-2 and path
 6, ``--only fp32`` path 7, ``--only d384`` path 8, ``--only multiway`` path
-9 (its CPU references' child started with it), ``--only tools`` path 10.
-None prints a result line.
+9 (its CPU references' child started with it), ``--only tools`` path 10,
+``--only mesh`` path 11. None prints a result line.
 """
 
 import faulthandler
@@ -381,7 +399,7 @@ MS_BUCKETS, MS_CPU_PAIRS, MS_ITERS, MS_CLI_PAIRS = (256, 4096), 2, 5, 8
 EDGE_CPU_DISPATCH, ROBUST_CPU_PAIRS, PATH9_CPU_WAIT_S, VOXEL = 8, 4, 420, 0.05
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact", "tail", "apply")  # kernels --only can check alone
-ONLY_PATHS = ("ingest", "fp32", "d384", "multiway", "tools")  # paths --only can run alone
+ONLY_PATHS = ("ingest", "fp32", "d384", "multiway", "tools", "mesh")  # paths --only runs
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -4689,6 +4707,305 @@ def path10(evaluation=None):
     return {"path10_s": secs, "scale_runner": rows}
 
 
+# Path 11, the multi-GPU layer: two data ranks (NCCL with a card each where the
+# machine has two, else gloo with both on cuda:0); path 1's batches and
+# shape; the GAN step at the 3DMatch preset's 8 x 4,096; an fp32 step at
+# d 128 (8 heads, 1 + 1 layers) on 8 x 1,024; the CLI on path 5's tree.
+MESH_RANKS, MESH_BATCHES, MESH_F32_CAP = 2, 3, 1024
+MESH_BARS = {"register": 1e-5, "point_loss": 2e-2, "grad_norm": 5e-2, "f32_step": 1e-5}
+
+
+def mesh_layout():
+    import torch
+
+    if torch.cuda.device_count() >= MESH_RANKS:
+        return f"{MESH_RANKS} ranks, one card each, over nccl"
+    return f"{MESH_RANKS} ranks sharing one card over gloo"
+
+
+def register_rows(model, *arrays):
+    """``register_batch`` on a batch given as arrays in ``PATH11_KEYS``
+    order: each pair's transform, RE and TE as one (B, 18) tensor."""
+    import torch
+
+    from scream_tpu_torch.pipeline.register import register_batch
+
+    m = register_batch(model, dict(zip(PATH11_KEYS, arrays)), icp_max_iter=ICP_ITERS,
+                       device=DEV)
+    return torch.cat([m.transform.reshape(-1, 16), m.re_deg[:, None], m.te[:, None]], 1)
+
+
+PATH11_KEYS = ("src", "tgt", "src_mask", "tgt_mask", "rot", "trans", "scale", "center")
+
+
+def f32_step_model(device):
+    """Path 11's fp32 model: d 128, 8 heads, 1 + 1 layers, seeded init."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+
+    cfg = ModelConfig(d_model=128, num_heads=8, self_layers=1, cross_layers=1,
+                      dtype="float32")
+    return PointTransformer(cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def f32_step(model, batch, wrap=None):
+    """One generator step of ``model`` (fp32) on ``batch``; ``wrap`` makes
+    the step a mesh's. Returns the updated parameters on the CPU."""
+    from scream_tpu_torch.config import TrainConfig
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (generator_optimizer, init_train_state,
+                                        make_registration_train_step)
+
+    opt, sched = generator_optimizer(model.parameters(), TrainConfig(), 10)
+    step = make_registration_train_step(model)
+    if wrap is not None:
+        step = wrap(step)
+    _, metrics, _ = step(init_train_state(opt, sched), to_device(batch, DEV))
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}, float(
+        metrics["point_loss"])
+
+
+def gan_dp_steps(mesh, init_state, batch):
+    """:func:`gan_steps` on the card with both steps wrapped for ``mesh``
+    (``data_parallel_step``, ``data_parallel_arrays_step``): point loss,
+    the averaged gradients' norm, d_loss, the discriminator's bn_3 running
+    variance, and the splat's launches on this rank."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.parallel import data_parallel_arrays_step, data_parallel_step
+    from scream_tpu_torch.pipeline.register import to_device
+    from scream_tpu_torch.train import (DiscState, discriminator_optimizer,
+                                        generator_optimizer, init_train_state,
+                                        make_disc_logit_fn, make_discriminator_step,
+                                        make_registration_train_step)
+    from scream_tpu_torch.utils.checkpoint import load_discriminator
+
+    tcfg, rcfg = TrainConfig(use_gan=True), RenderConfig()
+    model = PointTransformer(ModelConfig(), device=DEV)
+    model.load_state_dict(init_state)
+    disc = load_discriminator(DISC, DEV)
+    opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
+    step = data_parallel_step(make_registration_train_step(
+        model, use_gan=True, disc_apply=make_disc_logit_fn(), render_cfg=rcfg,
+        gan_weight=tcfg.gan_weight), mesh)
+    dstep = data_parallel_arrays_step(make_discriminator_step(rcfg), mesh)
+    tb = to_device(batch, DEV)
+    reset_launch_counts()
+    _, metrics, fake = step(init_train_state(opt, sched), tb, disc)
+    gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters()))
+    dstate = DiscState(disc, discriminator_optimizer(disc.parameters(), tcfg))
+    _, d_loss = dstep(dstate, fake, tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+                      tb["rot"], tb["trans"])
+    torch.cuda.synchronize()
+    return dict(point_loss=float(metrics["point_loss"]), grad_norm=float(gnorm),
+                d_loss=float(d_loss), bn3_var=disc.bn_3.running_var.cpu(),
+                launches=launch_counts())
+
+
+def path11_rank(mesh, work):
+    """One rank of path 11's world: (a) ``register_batch`` through
+    ``data_parallel_apply``, timed, with this rank's launches; (b) the GAN
+    step and the fp32 step through the DP wrappers; (d) the dryrun's SP,
+    TP, PP and EP modes (with DP) on the card. Rank 0 writes the results."""
+    import torch
+
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.parallel import data_parallel_apply, data_parallel_step, dryrun
+    from scream_tpu_torch.parallel.mesh import gather_objects
+
+    inp = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    out = {}
+    model, _ = load_weights(POINT_GEN, DEV)
+    run = data_parallel_apply(register_rows, mesh)
+    arrays = lambda b: [torch.as_tensor(b[k]).to(DEV) for k in PATH11_KEYS]
+    run(model, *arrays(inp["batches"][0]))  # warm-up
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [run(model, *arrays(b)).cpu() for b in inp["batches"][1:]]
+    elapsed = time.perf_counter() - t0
+    out["register"] = torch.stack(rows)
+    out["register_launches"] = gather_objects(launch_counts())
+    out["register_pps"] = B * len(rows) / elapsed
+    del model
+    torch.cuda.empty_cache()
+
+    out["gan"] = gan_dp_steps(mesh, inp["gan_init"], inp["gan_batch"])
+    out["gan_launches"] = gather_objects(out["gan"].pop("launches"))
+    torch.cuda.empty_cache()
+    m32 = f32_step_model(DEV)
+    out["f32"] = f32_step(m32, inp["f32_batch"], lambda s: data_parallel_step(s, mesh))
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.run_modes(mesh, strict=False)
+    out["dryrun_s"] = time.perf_counter() - t0
+    if torch.distributed.get_rank() == 0:
+        torch.save(out, os.path.join(work, "out.pt"))
+
+
+def path11_cli(work, root):
+    """(c) ``train 3dmatch``, ``evaluate 3dmatch --bucketed`` (path 5's tree)
+    and ``register --manifest`` with ``--mesh data=2`` in subprocesses, the
+    last two also without it, all at once."""
+    import numpy as np
+
+    pairs = make_gt_free_pairs(16, GT_FREE_POINTS, 1200)
+    lines = []
+    for i, p in enumerate(pairs):
+        for side in ("src", "tgt"):
+            np.save(os.path.join(work, f"{side}{i}.npy"), p[side].astype(np.float32))
+        lines.append(f"{os.path.join(work, f'src{i}.npy')} {os.path.join(work, f'tgt{i}.npy')}")
+    manifest = os.path.join(work, "pairs.txt")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ev = ["-m", "scream_tpu_torch", "evaluate", "3dmatch", "--root", root, "--params",
+          POINT_GEN, "--bucketed"]
+    reg = ["-m", "scream_tpu_torch", "register", "--manifest", manifest, "--params", HINTFREE,
+           "--batch-size", "8"]
+    mesh = ["--mesh", f"data={MESH_RANKS}"]
+    res = run_parallel({
+        "train": ["-m", "scream_tpu_torch", "train", "3dmatch", "--root",
+                  os.path.join(work, "none"), "--epochs", "2", "--synthetic-pairs", "32",
+                  "--max-points", "1024", "--checkpoint-dir", os.path.join(work, "ckpt"),
+                  *mesh],
+        "evaluate": ev, "evaluate_mesh": ev + mesh, "register": reg,
+        "register_mesh": reg + mesh}, timeout=400)
+    last = lambda k: json.loads(res[k][0].strip().splitlines()[-1])
+    final = last("train")["final_val"]
+    check(bool(final) and all(math.isfinite(v) for v in final.values()),
+          f"train --mesh final_val {final}")
+    single, meshed = last("evaluate"), last("evaluate_mesh")
+    check(single == meshed and single["n_pairs"] == meshed["n_pairs"] == EVAL_PAIRS,
+          f"evaluate --mesh vs single process:\n{meshed}\n{single}")
+    js = lambda k: [json.loads(ln) for ln in res[k][0].splitlines() if ln.startswith("{")]
+    a, b = js("register"), js("register_mesh")
+    t_err = max(float(np.abs(np.asarray(x["transform"]) - np.asarray(y["transform"])).max())
+                for x, y in zip(a, b))
+    check(len(a) == len(b) == len(pairs) and t_err <= MESH_BARS["register"],
+          f"register --mesh: {len(b)} of {len(a)} lines, transforms {t_err:.3g} apart")
+    log(f"path 11 cli ({mesh_layout()}): train 3dmatch --mesh data={MESH_RANKS} "
+        f"{res['train'][2]:.1f} s wall, final_val {json.dumps(final)} | evaluate 3dmatch "
+        f"--bucketed --mesh: {meshed['n_pairs']} pairs, JSON equal to the single process's "
+        f"({res['evaluate_mesh'][2]:.1f} s / {res['evaluate'][2]:.1f} s wall) | register "
+        f"--manifest --mesh: {len(b)} pairs, transforms within {t_err:.3g} of the single "
+        f"process's ({res['register_mesh'][2]:.1f} s / {res['register'][2]:.1f} s wall)")
+    return dict(mesh_cli_train=final, mesh_cli_register_err=t_err,
+                mesh_cli_walls={k: v[2] for k, v in res.items()})
+
+
+def path11():
+    """Path 11: the multi-GPU layer on the card (``parallel/``): the single
+    process's references here, then a world of two data ranks for (a) path
+    1's ``register_batch`` through ``data_parallel_apply`` (within 1e-5 of
+    the single process, bit for bit expected; stats, apply and both NN
+    kernels launched on each rank; pairs/s beside the single process's),
+    (b) the GAN step of the 3DMatch
+    preset at 8 x 4,096 with the shipped discriminator (point_loss 2e-2,
+    gradient norm 5e-2, the splat and the synchronized BatchNorm on both
+    ranks) and an fp32 step (parameters 1e-5), (d) SP, TP, PP and EP with
+    DP (``parallel/dryrun.py``'s bars); then (c) the three commands with
+    ``--mesh`` in subprocesses."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.parallel import dryrun, launch
+
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_path11_", dir="build")
+    try:
+        batches = make_batches(MESH_BATCHES + 1, seed=1100)
+        model, _ = load_weights(POINT_GEN, DEV)
+        arrays = lambda b: [torch.as_tensor(b[k]).to(DEV) for k in PATH11_KEYS]
+        register_rows(model, *arrays(batches[0])).cpu()  # warm-up
+        torch.cuda.synchronize()
+        t_single = time.perf_counter()
+        want = torch.stack([register_rows(model, *arrays(b)).cpu() for b in batches[1:]])
+        single_pps = B * MESH_BATCHES / (time.perf_counter() - t_single)
+        del model
+        gen = PointTransformer(ModelConfig(), device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+        gan_init = gen.state_dict()
+        gan_batch = make_batches(1, seed=1300, batch=TRAIN_B, cap=TRAIN_CAP)[0]
+        card_gan = gan_steps(DEV, gan_init, gan_batch)
+        f32_batch = make_batches(1, seed=1400, batch=8, n_src=MESH_F32_CAP - 64,
+                                 n_tgt=MESH_F32_CAP - 32, cap=MESH_F32_CAP)[0]
+        f32_want, f32_loss = f32_step(f32_step_model(DEV), f32_batch)
+        torch.cuda.empty_cache()
+        torch.save(dict(batches=batches, gan_init=gan_init, gan_batch=gan_batch,
+                        f32_batch=f32_batch), os.path.join(work, "in.pt"))
+        t_world = time.perf_counter()
+        launch(path11_rank, {"data": MESH_RANKS}, DEV, args=(work,))
+        t_world = time.perf_counter() - t_world
+        got = torch.load(os.path.join(work, "out.pt"), weights_only=False)
+
+        reg_err = float((got["register"] - want).abs().max())
+        bitwise = torch.equal(got["register"], want)
+        n_diff = int(((got["register"] - want).abs().amax(-1) > 0).sum())
+        g = got["gan"]
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        gan_errs = dict(point_loss=rel(g["point_loss"], card_gan["point_loss"]),
+                        grad_norm=rel(g["grad_norm"], card_gan["grad_norm"]),
+                        d_loss=rel(g["d_loss"], card_gan["d_loss"]),
+                        bn3_var=float((g["bn3_var"] - card_gan["bn3_var"]).abs().max()
+                                      / card_gan["bn3_var"].abs().max()))
+        f32_got, f32_got_loss = got["f32"]
+        f32_err = max(float((f32_got[k] - f32_want[k]).abs().max()) for k in f32_want)
+        log(f"path 11 ({mesh_layout()}; world {t_world:.1f} s): (a) register_batch {B} x "
+            f"{CAP} through data_parallel_apply over {MESH_BATCHES} batches: "
+            f"{got['register_pps']:.2f} pairs/s ({mesh_layout()}; the single process "
+            f"here {single_pps:.2f}), transforms / RE / TE within {reg_err:.3g} of the "
+            f"single process's (bar 1e-5; bit for bit: {bitwise}, {n_diff} of "
+            f"{B * MESH_BATCHES} pairs differing); launches per rank "
+            f"{json.dumps(got['register_launches'])}")
+        log(f"path 11 (b) GAN step (3DMatch preset, {TRAIN_B} x {TRAIN_CAP}, shipped "
+            f"discriminator) over the mesh vs the single process on the card: point_loss "
+            f"{g['point_loss']:.6f} / {card_gan['point_loss']:.6f} (rel "
+            f"{gan_errs['point_loss']:.2e}, bar 2e-2), grad norm {g['grad_norm']:.6f} / "
+            f"{card_gan['grad_norm']:.6f} (rel {gan_errs['grad_norm']:.2e}, bar 5e-2), d_loss "
+            f"rel {gan_errs['d_loss']:.2e}, bn_3 running var rel {gan_errs['bn3_var']:.2e}; "
+            f"splat launches per rank {[c['max_splat'] for c in got['gan_launches']]} | fp32 "
+            f"step (d 128, 8 x {MESH_F32_CAP}): parameters within {f32_err:.3g} (bar 1e-5), "
+            f"point_loss {f32_got_loss:.6f} / {f32_loss:.6f}")
+        log(f"path 11 (d) parallel/dryrun.py modes on the card ({got['dryrun_s']:.1f} s), "
+            f"largest errors: {json.dumps(got['dryrun'])}")
+        check(reg_err <= MESH_BARS["register"] and bool(torch.isfinite(got["register"]).all()),
+              f"path 11 register_batch over the mesh vs single process: {reg_err:.3g}")
+        kernels = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded")
+        check(all(c[k] > 0 for c in got["register_launches"] for k in kernels),
+              f"path 11 launches per rank: {got['register_launches']}")
+        check(gan_errs["point_loss"] <= MESH_BARS["point_loss"]
+              and gan_errs["grad_norm"] <= MESH_BARS["grad_norm"]
+              and all(c["max_splat"] > 0 for c in got["gan_launches"]),
+              f"path 11 GAN step over the mesh vs single process: {gan_errs}, launches "
+              f"{got['gan_launches']}")
+        check(f32_err <= MESH_BARS["f32_step"],
+              f"path 11 fp32 step over the mesh vs single process: {f32_err:.3g}")
+        bad = dryrun.failures(got["dryrun"])
+        check(not bad, f"path 11 (d): {'; '.join(bad)}")
+        root = os.path.join(work, "splits")
+        write_split_tree(root)
+        cli = path11_cli(work, root)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"path 11 took {secs:.1f} s")
+    return dict(path11_s=secs, mesh_register_pps=got["register_pps"],
+                single_register_pps=single_pps,
+                mesh_register_err=reg_err, mesh_register_bitwise=bitwise,
+                mesh_gan_errs=gan_errs, mesh_f32_err=f32_err, mesh_dryrun=got["dryrun"],
+                **cli)
+
+
 def run_only(names, smi):
     """``--only``: the named kernels' checks alone, after the device and
     build phases, at the shapes and on the inputs of the full run: the
@@ -4696,9 +5013,9 @@ def run_only(names, smi):
     at path 3's and the KITTI shape and on the adversarial scenes; the tail
     at every width (``tail``); stats and apply at path 1's shape, gates
     included, and at every (d, heads, dtype) cell (``apply``); or path 6
-    (``ingest``), path 7 (``fp32``), path 8 (``d384``) or path 9
-    (``multiway``, with its CPU references' child process) whole. No result
-    line is printed."""
+    (``ingest``), path 7 (``fp32``), path 8 (``d384``), path 9
+    (``multiway``, with its CPU references' child process), path 10
+    (``tools``) or path 11 (``mesh``) whole. No result line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
         log("kernels on exact ties: "
@@ -4724,6 +5041,8 @@ def run_only(names, smi):
             stop_child(child)
     if "tools" in names:
         path10()
+    if "mesh" in names:
+        path11()
     if "splat" in names:
         train = make_batches(2 * (TRAIN_ITERS + 1) + 1, seed=500, batch=TRAIN_B,
                              cap=TRAIN_CAP)[-1]
@@ -4849,6 +5168,10 @@ def main():
     # Path 10: selftest, convert, visualize, the GAN sample dump, the scale
     # runner, the kernels at hidden widths other than 4 d.
     tools = path10(evaluation)
+    torch.cuda.empty_cache()
+
+    # Path 11: the multi-GPU layer (two data ranks), the commands' --mesh.
+    mesh_results = path11()
 
     # Launches: each row from the run of the path that gives it its shape.
     launches_of = {
@@ -4891,7 +5214,8 @@ def main():
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
                     "launches_raw_kitti_refinement": raw_counts, **ingestion,
-                    **f32_results, **d384_results, **mw_results, **tools}, default=float))
+                    **f32_results, **d384_results, **mw_results, **tools,
+                    **mesh_results}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     faulthandler.cancel_dump_traceback_later()

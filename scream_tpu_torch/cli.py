@@ -13,8 +13,9 @@ directory is absent, as the JAX command does, saves the best weights under
 it), and prints ``{"final_val": ...}`` last. ``--init-params`` reads a
 weights directory of the port. ``--multi-scale`` trains on the size-bucketed
 loader (per-bucket synthetic pairs where the split is absent).
-``--sample-img-dir`` dumps GAN sample renders as PNGs. ``--mesh`` is not
-ported.
+``--sample-img-dir`` dumps GAN sample renders as PNGs. ``--mesh data=N``
+(``data=4,seq=2``, ``data=2,model=2``, ``data=2,pipe=2``, ``auto``) trains
+on a mesh of ranks, the default batch 8 per data rank (see below).
 
     python -m scream_tpu_torch evaluate 3dmatch --root data \
         --params scream_tpu_torch/weights/point-generator --bucketed
@@ -29,8 +30,9 @@ kitti, opengf) with the JAX command's flags and defaults, plus
 split under ``--root`` where it exists, else synthetic data. ``--params``
 names a torch checkpoint of the port whose ``model_config.json`` sets the
 architecture and the normalization (explicit flags win); without it the
-task preset's model runs from a seeded random init. ``--mesh`` is not
-ported. ``bench`` is ``scream_tpu_torch/bench.py``.
+task preset's model runs from a seeded random init. ``--mesh`` evaluates
+each batch's rows on the data ranks of a mesh. ``bench`` is
+``scream_tpu_torch/bench.py``.
 
     python -m scream_tpu_torch register --src a.npy --tgt b.ply \
         --params scream_tpu_torch/weights/point-generator-hintfree
@@ -53,7 +55,19 @@ registers N scans into scan 0's frame (``pipeline/multiway.py``): pairwise
 serving over each scan and the next ``--window`` scans, pose-graph
 synchronization, and ``--refine-rounds`` rounds of scan-to-map ICP; one JSON
 line per scan with its 4x4 pose, the edges' fitness on stderr, ``--out`` the
-(N, 4, 4) stack. ``--mesh`` is not ported.
+(N, 4, 4) stack. ``--mesh`` cuts each dispatch of ``--manifest`` and
+``--scans`` over the data ranks of a mesh (``--batch-size`` must divide by
+it; refused with ``--robust`` and single pairs).
+
+``--mesh`` runs one process per rank over ``torch.distributed``
+(``scream_tpu_torch/parallel``): without ``torchrun`` the command spawns its
+ranks itself, under ``torchrun`` it joins the world it is in; NCCL where
+each rank has a card of its own, gloo on the CPU (``--device cpu``) and
+where ranks share a card. Rank 0 alone prints, so the output is a single
+process's. On a seq, model or pipe mesh the fused kernels are off.
+
+    python -m scream_tpu_torch train 3dmatch --mesh data=2 --device cpu
+    torchrun --nproc-per-node 4 -m scream_tpu_torch train 3dmatch --mesh data=4
 
     python -m scream_tpu_torch preprocess 3dmatch --root raw/3dmatch --out data
     python -m scream_tpu_torch preprocess kitti --root raw/kitti --out data
@@ -191,10 +205,57 @@ def _apply_model_overrides(model_cfg, args):
     return dataclasses.replace(model_cfg, **over) if over else model_cfg
 
 
-def cmd_train(args):
+def _parse_mesh(args):
+    """``--mesh data=N[,seq=M|,model=K|,pipe=P]`` -> a mesh plan (or None
+    when the flag is absent); the ranks it needs are spawned by
+    :func:`_on_mesh`."""
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from scream_tpu_torch.parallel import parse_mesh_spec
+
+    try:
+        return parse_mesh_spec(spec, device=getattr(args, "device", "cpu"))
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+
+
+def _disable_unpartitionable_fusion(model_cfg, mesh):
+    """The fused kernels stay on for data-only meshes (each rank runs them on
+    its rows); seq / model / pipe meshes take the unfused blocks."""
+    from scream_tpu_torch.train.trainer import disable_unpartitionable_fusion
+
+    return disable_unpartitionable_fusion(model_cfg, mesh)
+
+
+def _rank_entry(mesh, command: str, args):
+    """One rank of a ``--mesh`` command: the command's body with the bound
+    mesh."""
+    globals()[command](args, mesh)
+
+
+def _on_mesh(command: str, args, mesh) -> bool:
+    """Run ``command(args, mesh)`` on the ranks of ``--mesh`` (spawned here,
+    or this process's ``torchrun`` world); False when there is no mesh or
+    this process already is one of its ranks."""
+    if mesh is None or mesh.bound:
+        return False
+    from scream_tpu_torch.parallel import launch
+
+    launch(_rank_entry, mesh.shape if "WORLD_SIZE" not in os.environ else args.mesh,
+           args.device, args=(command, args))
+    return True
+
+
+def cmd_train(args, mesh=None):
     """Train a model (JAX command: ``scream_tpu/cli.py:cmd_train``)."""
-    if args.mesh:
-        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
+    if mesh is None:
+        mesh = _parse_mesh(args)
+        if mesh is not None and args.batch_size is None:
+            # Keep the reference batch of 8 on each data rank.
+            args.batch_size = 8 * mesh.shape["data"]
+        if _on_mesh("cmd_train", args, mesh):
+            return
     from scream_tpu_torch.config import RenderConfig, kitti_gan_render_config
 
     model_cfg, train_cfg, data_cfg, eval_cfg = TASKS[args.task]()
@@ -229,7 +290,8 @@ def cmd_train(args):
                                       shuffle=sh, drop_last=sh)
         trainer = DEMTrainer(mk(tr_ds, True), mk(va_ds, False), model_cfg=model_cfg,
                              train_cfg=train_cfg, checkpoint_dir=args.checkpoint_dir,
-                             sample_img_dir=args.sample_img_dir, device=args.device)
+                             sample_img_dir=args.sample_img_dir, mesh=mesh,
+                             device=args.device)
     else:
         from scream_tpu_torch.train import RegistrationTrainer
 
@@ -244,7 +306,7 @@ def cmd_train(args):
             train_loader, val_loader, model_cfg=model_cfg, train_cfg=train_cfg,
             eval_cfg=eval_cfg, render_cfg=render_cfg,
             checkpoint_dir=args.checkpoint_dir, sample_img_dir=args.sample_img_dir,
-            device=args.device)
+            mesh=mesh, device=args.device)
     trainer.init()
     state_dir = os.path.join(args.checkpoint_dir, "state")
     if args.resume:
@@ -260,19 +322,19 @@ def cmd_train(args):
         from scream_tpu_torch.utils.checkpoint import load_params
 
         _, _, state = load_params(args.init_params)
-        trainer.model.load_state_dict(state, strict=True)
+        trainer.load_weights(state)
         print(f"[cli] initialized generator params from {args.init_params}",
               file=sys.stderr)
     final = trainer.fit(profile_dir=args.profile_dir)
     print(json.dumps({"final_val": final}))
 
 
-def _load_model(task, model_cfg, params_dir, args, device):
+def _load_model(task, model_cfg, params_dir, args, device, mesh=None):
     """``(model, normalize)`` for ``evaluate``: the checkpoint's architecture
     (its sidecar) and weights, or without ``params_dir`` the task preset's
-    ``model_cfg`` from a seeded random init, explicit flags on top; in eval
-    mode on ``device``. ``normalize`` is the sidecar's (None if it names
-    none)."""
+    ``model_cfg`` from a seeded random init, explicit flags on top (and the
+    mesh's fusion rule); in eval mode on ``device``. ``normalize`` is the
+    sidecar's (None if it names none)."""
     import torch
 
     from scream_tpu_torch.models import DEMTransformer, PointTransformer
@@ -281,7 +343,7 @@ def _load_model(task, model_cfg, params_dir, args, device):
     normalize, state = None, None
     if params_dir:
         model_cfg, normalize, state = load_params(params_dir)
-    model_cfg = _apply_model_overrides(model_cfg, args)
+    model_cfg = _disable_unpartitionable_fusion(_apply_model_overrides(model_cfg, args), mesh)
     cls = DEMTransformer if task == "opengf" else PointTransformer
     model = cls(model_cfg, device=device, generator=torch.Generator().manual_seed(0))
     if state is not None:
@@ -293,7 +355,7 @@ def _load_model(task, model_cfg, params_dir, args, device):
     return model, None if normalize in (None, "none") else normalize
 
 
-def cmd_evaluate(args):
+def cmd_evaluate(args, mesh=None):
     """Run a benchmark protocol (JAX command: ``scream_tpu/cli.py:cmd_evaluate``)."""
     from scream_tpu_torch import eval as protocols
     from scream_tpu_torch.config import eval_preset
@@ -301,8 +363,8 @@ def cmd_evaluate(args):
                                        PairDataset, PairLoader, SyntheticPairDataset,
                                        collated_or_build)
 
-    if args.mesh:
-        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
+    if mesh is None and _on_mesh("cmd_evaluate", args, _parse_mesh(args)):
+        return
     task = "opengf" if args.protocol == "opengf" else (
         "kitti" if args.protocol == "kitti" else "3dmatch")
     model_cfg, _, data_cfg, _ = TASKS[task]()
@@ -324,7 +386,8 @@ def cmd_evaluate(args):
         data_cfg = dataclasses.replace(data_cfg, max_points=args.max_points)
     split, normalize = EVAL_SPLITS[args.protocol]
     root, cap = args.root, data_cfg.max_points
-    model, side_normalize = _load_model(task, model_cfg, args.params, args, args.device)
+    model, side_normalize = _load_model(task, model_cfg, args.params, args, args.device,
+                                        mesh)
 
     if args.protocol == "opengf":
         if os.path.isdir(os.path.join(root, "OpenGF_test")):
@@ -334,7 +397,7 @@ def cmd_evaluate(args):
             ds = _SyntheticPatches(8, 256)
         loader = DEMLoader(ds, batch_size=args.batch_size, dsm_capacity=cap,
                            dem_capacity=cap, coarse_capacity=max(cap // 8, 64))
-        out = protocols.evaluate_open_gf(model, loader, device=args.device)
+        out = protocols.evaluate_open_gf(model, loader, device=args.device, mesh=mesh)
     else:
         normalize = side_normalize or normalize
         with_info = args.protocol.startswith("3d")
@@ -363,10 +426,10 @@ def cmd_evaluate(args):
                 icp_thresh=eval_cfg.icp_thresh, icp_max_iter=eval_cfg.icp_max_iter,
                 success_re_deg=eval_cfg.success_re_deg, success_te=eval_cfg.success_te,
                 center_mode=eval_cfg.center_mode, icp_chunk=args.icp_chunk,
-                device=args.device)
+                device=args.device, mesh=mesh)
         else:
             out = protocols.evaluate_registration(model, loader, eval_cfg,
-                                                  device=args.device)
+                                                  device=args.device, mesh=mesh)
     print(json.dumps(out, default=float))
 
 
@@ -529,9 +592,10 @@ def _read_manifest(path: str) -> list:
     return pairs
 
 
-def _build_model(args):
+def _build_model(args, mesh=None):
     """``(model, normalize)``: the checkpoint's sidecar config, explicit
-    flags on top, weights loaded (or a seeded random init) on the device."""
+    flags on top (and the mesh's fusion rule), weights loaded (or a seeded
+    random init) on the device."""
     import torch
 
     from scream_tpu_torch.config import ModelConfig
@@ -542,7 +606,7 @@ def _build_model(args):
     if args.params:
         cfg, normalize, state = load_params(args.params)
     normalize = args.normalize or normalize or "unit_sphere"
-    cfg = _apply_model_overrides(cfg, args)
+    cfg = _disable_unpartitionable_fusion(_apply_model_overrides(cfg, args), mesh)
     model = PointTransformer(cfg, device=args.device)
     if state is not None:
         model.load_state_dict(state, strict=True)
@@ -554,7 +618,7 @@ def _build_model(args):
     return model, normalize
 
 
-def cmd_register(args):
+def cmd_register(args, mesh=None):
     """GT-free registration of two raw clouds, a manifest of pairs, or N
     scans into one frame (``--scans``)."""
     import numpy as np
@@ -563,8 +627,6 @@ def cmd_register(args):
                                            register_pair, register_pair_robust,
                                            register_pairs, register_pairs_robust)
 
-    if args.mesh:
-        raise SystemExit("--mesh is not ported (ROADMAP.md); use the JAX package's command")
     scans = None
     if args.scans:
         if args.src or args.tgt or args.manifest:
@@ -590,7 +652,21 @@ def cmd_register(args):
         src = _load_cloud(args.src, "src")
         tgt = _load_cloud(args.tgt, "tgt")
 
-    model, normalize = _build_model(args)
+    # Mesh validation before the model build and the checkpoint load.
+    if args.mesh and (manifest is None and scans is None or args.robust):
+        raise SystemExit(
+            "--mesh shards the batched manifest/scans paths only "
+            "(single-pair and --robust dispatches are not sharded; see "
+            "pipeline.register_pairs)")
+    if mesh is None:
+        mesh = _parse_mesh(args)
+        if mesh is not None and args.batch_size % mesh.shape["data"] != 0:
+            raise SystemExit(
+                f"--mesh: --batch-size {args.batch_size} must divide by the mesh "
+                f"data axis ({mesh.shape['data']})")
+        if _on_mesh("cmd_register", args, mesh):
+            return
+    model, normalize = _build_model(args, mesh)
     kw = dict(normalize=normalize, dis_thresh=args.dis_thresh,
               icp_thresh=args.icp_thresh, icp_max_iter=args.icp_max_iter,
               device=args.device)
@@ -609,13 +685,13 @@ def cmd_register(args):
         res = register_multiway(
             model, scans, edges=default_edges(len(scans), window=args.window),
             refine_rounds=args.refine_rounds, batch_size=args.batch_size,
-            passes=args.passes, **kw)
+            passes=args.passes, mesh=mesh, **kw)
         for k, pose in enumerate(res.poses):
             print(json.dumps({"scan": k, "pose": pose.tolist()}))
         print(f"[cli] {len(res.edges)} pairwise edges, fitness "
               f"min/median {float(np.min(res.edge_fitness)):.3f}/"
               f"{float(np.median(res.edge_fitness)):.3f}", file=sys.stderr)
-        if args.out:
+        if args.out and _is_rank0(mesh):
             np.save(args.out, res.poses)
         return
 
@@ -625,7 +701,7 @@ def cmd_register(args):
                                             starts=args.robust_starts, **kw)
         else:
             results = register_pairs(model, manifest, batch_size=args.batch_size,
-                                     passes=args.passes, **kw)
+                                     passes=args.passes, mesh=mesh, **kw)
         for i, res in enumerate(results):
             print(json.dumps({"pair": i, **line(res)}))
         n_amb = sum(bool(r.ambiguous) for r in results)
@@ -634,7 +710,7 @@ def cmd_register(args):
                   "ambiguous (a distinct pose scored within the "
                   "near-symmetry band of the winner — likely symmetric "
                   "geometry; inspect score_margin)", file=sys.stderr)
-        if args.out:
+        if args.out and _is_rank0(mesh):
             np.save(args.out, np.stack([r.transform for r in results]))
         return
 
@@ -651,6 +727,12 @@ def cmd_register(args):
         np.save(args.out, res.transform)
         out["saved"] = args.out
     print(json.dumps(out))
+
+
+def _is_rank0(mesh) -> bool:
+    import torch
+
+    return mesh is None or torch.distributed.get_rank() == 0
 
 
 def cmd_convert(args):
@@ -825,7 +907,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--d-model", type=int, default=None)
     t.add_argument("--self-layers", type=int, default=None)
     t.add_argument("--cross-layers", type=int, default=None)
-    t.add_argument("--mesh", default=None, help="multi-GPU training: not ported yet")
+    t.add_argument("--mesh", default=None,
+                   help="multi-GPU mesh, e.g. 'data=8', 'data=4,seq=2', 'data=4,model=2' "
+                        "(Megatron tensor parallelism), 'data=2,pipe=4' (GPipe) or 'auto' "
+                        "(every card on the data axis): one process a rank over "
+                        "torch.distributed, batches cut over the data ranks")
     t.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
                    help="compute dtype override (bf16 is the default)")
     t.add_argument("--profile-dir", default=None,
@@ -876,7 +962,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--center-mode", choices=["trans", "neg_rt", "none"], default=None,
                    help="src_center hint (preset default; 'none' evaluates a "
                         "hint-free-trained checkpoint)")
-    e.add_argument("--mesh", default=None, help="multi-GPU evaluation: not ported yet")
+    e.add_argument("--mesh", default=None,
+                   help="multi-GPU mesh for eval, e.g. 'data=8' or 'auto'")
     e.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
                    help="compute dtype override")
     e.add_argument("--device", default="cuda",
@@ -936,7 +1023,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--refine-rounds", type=int, default=0,
                    help="multiway: scan-to-map ICP polish rounds after the "
                         "pose-graph synchronization")
-    r.add_argument("--mesh", default=None, help="sharded serving: not ported yet")
+    r.add_argument("--mesh", default=None,
+                   help="manifest/scans modes: cut each dispatch's pairs over the "
+                        "mesh's data axis, e.g. 'data=4' (--batch-size must divide by it)")
     r.add_argument("--d-model", type=int, default=None)
     r.add_argument("--self-layers", type=int, default=None)
     r.add_argument("--cross-layers", type=int, default=None)

@@ -156,6 +156,9 @@ class TrainConfig:
     # Steps between GAN sample-image dumps (--sample-img-dir).
     save_img_iter: int = 1000
     log_every: int = 50  # trainer batch-counter interval for metric snapshots
+    # GPipe microbatches for the pipeline-parallel trainer path
+    # (``--mesh pipe=N``); None -> 2 x n_stages. Batch size must divide it.
+    pp_microbatches: int | None = None
 
 
 def kitti_gan_render_config() -> RenderConfig:

@@ -23,6 +23,15 @@ staged on the device ahead of use (``prefetch_to_device``) and each
 result's copy to the host starts as soon as its work is queued
 (``fetch_async``), so that the next batch is queued before the host waits
 on the last (:func:`_lag1`).
+
+``mesh=`` (a bound ``parallel.Mesh``; every rank calls the protocol with the
+same loader): each rank evaluates its rows of each batch with the model
+broadcast from rank 0 and the kernels of a single process (the JAX package
+sends the NN searches to XLA under a mesh only because GSPMD cannot
+partition them); the per-pair results are gathered in batch order and
+every rank aggregates them as the single-process path does, so the metrics
+are the single process's. A batch that does not divide the data axis runs
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -43,8 +52,9 @@ from scream_tpu_torch.utils.device import fetch_async, resolve_device
 # Scene display names in scene-index order (reference evaluate_3d_match.py:61).
 SCENE_NAMES = ["Kitchen", "Home_1", "Home_2", "Hotel_1", "Hotel_2", "Hotel_3",
                "Study", "MIT_Lab"]
-# Host-only bookkeeping a batch carries: it stays numpy.
-_HOST_KEYS = ("idx", "scene")
+# Host-only bookkeeping a batch carries: it stays numpy. "_cut" marks a
+# batch cut to this rank's rows under a mesh.
+_HOST_KEYS = ("idx", "scene", "_cut")
 
 
 class SkipDataset:
@@ -80,8 +90,46 @@ def _lag1(loader, dispatch):
         yield pending
 
 
-def _staged(loader, device):
-    return prefetch_to_device(loader, size=2, device=device, skip=_HOST_KEYS)
+def _staged(loader, device, mesh=None):
+    return prefetch_to_device(_local_rows(loader, mesh), size=2, device=device,
+                              skip=_HOST_KEYS)
+
+
+def _local_rows(loader, mesh):
+    """Each batch cut to this rank's rows where it divides the mesh's data
+    axis (host bookkeeping stays whole), marked ``_cut``."""
+    if mesh is None:
+        yield from loader
+        return
+    n, i = mesh.axis_size("data"), mesh.coord("data")
+    for batch in loader:
+        b = next(v for k, v in batch.items() if k not in _HOST_KEYS).shape[0]
+        if n == 1 or b % n:
+            yield batch
+            continue
+        m = b // n
+        out = {k: v if k in _HOST_KEYS else v[i * m:(i + 1) * m] for k, v in batch.items()}
+        out["_cut"] = True
+        yield out
+
+
+def _gathered(result: dict, batch, mesh) -> dict:
+    """A batch's per-pair host results of every data rank, concatenated in
+    batch order (as they are where the batch was not cut)."""
+    if not batch.get("_cut"):
+        return result
+    from scream_tpu_torch.parallel.mesh import gather_objects
+
+    parts = gather_objects(result, mesh.group("data"))
+    return {k: np.concatenate([p[k] for p in parts]) for k in result}
+
+
+def _replicated(model, mesh):
+    if mesh is not None:
+        from scream_tpu_torch.parallel.mesh import replicate
+
+        replicate(model, mesh)
+    return model
 
 
 def _metrics_fetch(m):
@@ -105,11 +153,13 @@ def evaluate_registration_per_scene(
     center_mode: str = "trans",
     n_scenes: int = 8,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """The 3DMatch-family benchmark with per-scene aggregation. The loader's
     batches must carry ``idx``, ``covariance`` and ``scene``. Returns the
     overall and per-scene RR / RRE / RTE."""
     dev = resolve_device(device)
+    _replicated(model, mesh)
     scene_re = [[] for _ in range(n_scenes)]
     scene_te = [[] for _ in range(n_scenes)]
     scene_success = np.zeros(n_scenes, dtype=np.int64)
@@ -123,8 +173,8 @@ def evaluate_registration_per_scene(
             model, batch, dis_thresh=dis_thresh, corr=corr, icp_thresh=icp_thresh,
             icp_max_iter=icp_max_iter, center_mode=center_mode, device=dev))
 
-    for fetch, batch in _lag1(_staged(loader, dev), dispatch):
-        m = fetch()
+    for fetch, batch in _lag1(_staged(loader, dev, mesh), dispatch):
+        m = _gathered(fetch(), batch, mesh)
         if "rmse" not in m:
             raise ValueError(
                 "the per-scene protocol scores pairs by redwood RMSE and needs the "
@@ -197,13 +247,15 @@ def evaluate_registration_per_scene(
     return out
 
 
-def evaluate_registration(model, loader, cfg: EvalConfig, device="cuda") -> Dict[str, float]:
+def evaluate_registration(model, loader, cfg: EvalConfig, device="cuda",
+                          mesh=None) -> Dict[str, float]:
     """Config-driven entry (what the CLI calls with ``eval_preset``): every
     :class:`EvalConfig` knob is honoured."""
     return evaluate_registration_per_scene(
         model, loader, dis_thresh=cfg.dis_thresh, corr=cfg.corr,
         icp_thresh=cfg.icp_thresh, icp_max_iter=cfg.icp_max_iter, re_stat=cfg.re_stat,
-        rmse_thresh=cfg.rmse_thresh, center_mode=cfg.center_mode, device=device)
+        rmse_thresh=cfg.rmse_thresh, center_mode=cfg.center_mode, device=device,
+        mesh=mesh)
 
 
 def evaluate_3d_match(model, loader, dis_thresh: float = 0.1, device="cuda"):
@@ -238,6 +290,7 @@ def evaluate_kitti(
     center_mode: str = "neg_rt",
     icp_chunk: int | None = None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """KITTI success-rate protocol (reference ``evaluate_kitti.py:20-111``):
     build the loader over ``SkipDataset(dataset, (124, 142))`` for the
@@ -250,6 +303,7 @@ def evaluate_kitti(
     reading the device from the host.
     """
     dev = resolve_device(device)
+    _replicated(model, mesh)
     total = 0
     succ, succ_re, succ_te = 0, 0.0, 0.0
 
@@ -266,19 +320,19 @@ def evaluate_kitti(
         def solve(batch):
             return _register_solve_stage(model, batch, dis_thresh, "tgt", center_mode)
 
-        for pre, batch in _lag1(_staged(loader, dev), solve):
-            consume(_metrics_fetch(register_batch_requeue(
+        for pre, batch in _lag1(_staged(loader, dev, mesh), solve):
+            consume(_gathered(_metrics_fetch(register_batch_requeue(
                 model, batch, dis_thresh=dis_thresh, corr="tgt", icp_thresh=icp_thresh,
                 icp_max_iter=icp_max_iter, icp_chunk=icp_chunk, center_mode=center_mode,
-                device=dev, presolved=pre))())
+                device=dev, presolved=pre))(), batch, mesh))
     else:
         def dispatch(batch):
             return _metrics_fetch(register_batch(
                 model, batch, dis_thresh=dis_thresh, corr="tgt", icp_thresh=icp_thresh,
                 icp_max_iter=icp_max_iter, center_mode=center_mode, device=dev))
 
-        for fetch, _ in _lag1(_staged(loader, dev), dispatch):
-            consume(fetch())
+        for fetch, batch in _lag1(_staged(loader, dev, mesh), dispatch):
+            consume(_gathered(fetch(), batch, mesh))
     return {
         "success_rate": succ / max(total, 1),
         "success_rre": succ_re / max(succ, 1),
@@ -288,11 +342,12 @@ def evaluate_kitti(
 
 
 @torch.no_grad()
-def evaluate_open_gf(model, loader, device="cuda") -> Dict[str, float]:
+def evaluate_open_gf(model, loader, device="cuda", mesh=None) -> Dict[str, float]:
     """OpenGF DEM-generation metrics x1000 (reference
     ``evaluate_open_gf.py:44-76``): chamfer distance, height MAE and MSE of
     the model's DEM against the ground truth, averaged over patches."""
     dev = resolve_device(device)
+    _replicated(model, mesh)
     tot_cd, tot_mae, tot_mse, n = 0.0, 0.0, 0.0, 0
 
     def dispatch(b):
@@ -304,8 +359,8 @@ def evaluate_open_gf(model, loader, device="cuda") -> Dict[str, float]:
             "mae": height_mae(dem_pred, b["dem"], both),
             "mse": height_mse(dem_pred, b["dem"], both)})
 
-    for fetch, _ in _lag1(_staged(loader, dev), dispatch):
-        m = fetch()
+    for fetch, batch in _lag1(_staged(loader, dev, mesh), dispatch):
+        m = _gathered(fetch(), batch, mesh)
         tot_cd += float(m["cd"].sum())
         tot_mae += float(m["mae"].sum())
         tot_mse += float(m["mse"].sum())

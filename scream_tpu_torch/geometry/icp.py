@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from scream_tpu_torch.geometry.kabsch import kabsch
+from scream_tpu_torch.geometry.kabsch import kabsch, weighted_point_sum
 from scream_tpu_torch.geometry.metrics import transformation_error
 from scream_tpu_torch.ops.nn_cuda import (mask_far, nn_bounded, nn_bounded_single,
                                           nn_tile_boxes)
@@ -123,9 +123,10 @@ def _make_icp_fns(src, tgt, src_mask, tgt_mask, thresh_sq: float,
         nn_dist, corr_tgt = nn(src_t, dst, thresh_sq, dead, boxes=boxes)
         valid = (nn_dist < thresh_sq) & src_mask
         w = valid.float()
-        n_inlier = w.sum(-1)
+        n_inlier = w.sum(-1)  # a count: exact in any order
         fitness = n_inlier / n_valid_src
-        rmse = torch.sqrt((nn_dist * w).sum(-1) / torch.clamp_min(n_inlier, 1.0))
+        d_sum = weighted_point_sum(w, nn_dist[..., None])[..., 0, 0]
+        rmse = torch.sqrt(d_sum / torch.clamp_min(n_inlier, 1.0))
         return corr_tgt, w, n_inlier, fitness, rmse
 
     def step(T, dead=None):

@@ -29,6 +29,18 @@ def _det3(M: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def weighted_point_sum(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``sum_n weights[..., n] * x[..., n, :]`` as ``(..., 1, C)``, with the
+    same bits for a pair in any batch. torch's CUDA reductions pick their
+    summation order by the batch size, so on CUDA this is one batched
+    product (its bits do not depend on the batch); its CPU reductions do
+    not, and there it stays the reduction. So a pair's pose, and the data
+    ranks' results, do not depend on the batch the pair runs in."""
+    if x.is_cuda:
+        return weights[..., None, :] @ x
+    return (x * weights[..., None]).sum(-2, keepdim=True)
+
+
 def kabsch(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -50,9 +62,11 @@ def kabsch(
         weights = weights.float()
     weights = torch.where(weights < weight_threshold, torch.zeros_like(weights), weights)
 
+    # With weights of 0 and 1, as every caller's, the sum is a count: exact
+    # in any order.
     w_sum = weights.sum(-1, keepdim=True)[..., None] + 1e-6
-    centroid_A = (A * weights[..., None]).sum(-2, keepdim=True) / w_sum
-    centroid_B = (B * weights[..., None]).sum(-2, keepdim=True) / w_sum
+    centroid_A = weighted_point_sum(weights, A) / w_sum
+    centroid_B = weighted_point_sum(weights, B) / w_sum
 
     Am = A - centroid_A
     Bm = B - centroid_B

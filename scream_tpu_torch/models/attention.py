@@ -64,12 +64,16 @@ def sinusoidal_pe(
     return pe.to(dtype)
 
 
-def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
+def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6,
+                     kv_reduce=None):
     """O(N) linear attention with the elu+1 feature map.
 
     ``q`` ``(B, L, H, D)``, ``k``/``v`` ``(B, S, H, D)``, masks ``(B, L)`` /
     ``(B, S)``. ``KV = K^T V`` then ``out = Q KV / (Q . sum(K))``, both
-    contractions accumulated in fp32.
+    contractions accumulated in fp32. ``kv_reduce``, if given, is applied to
+    the ``(KV, K_sum)`` pair after the contractions: the sequence-parallel
+    path passes a sum over the ranks that hold the other points
+    (``parallel/sp.py``), so both paths share this body.
     """
     Q = F.elu(q) + 1.0
     K = F.elu(k) + 1.0
@@ -82,6 +86,8 @@ def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
     Kf = K.float()
     KV = torch.einsum("bshd,bshv->bhdv", Kf, v.float())
     K_sum = Kf.sum(1)  # (B, H, D)
+    if kv_reduce is not None:
+        KV, K_sum = kv_reduce((KV, K_sum))
     Qf = Q.float()
     Z = 1.0 / (torch.einsum("blhd,bhd->blh", Qf, K_sum) + eps)
     out = torch.einsum("blhd,bhdv->blhv", Qf, KV) * Z[..., None]
@@ -166,6 +172,11 @@ class AttentionBlock(nn.Module):
     ``fused_attn`` and ``fused_tail``: None = auto, True = the kernel (its
     plain version on CPU tensors), False = plain code; :func:`route_block`
     picks each call's route.
+
+    Two hooks serve the parallel layer: ``kv_reduce`` (None, or the
+    ``linear_attention`` hook the sequence-parallel step sets) and ``tp``
+    (None, or the tensor-parallel forward of ``parallel/tp.py``, which then
+    computes the block from this rank's shards of its weights).
     """
 
     def __init__(self, d_model: int, num_heads: int = 8, ffn_mult: int = 4,
@@ -186,6 +197,8 @@ class AttentionBlock(nn.Module):
         self.ffn_in = _Proj(d_model, hid, generator)
         self.ffn_out = _Proj(hid, d_model, generator)
         self.norm2 = _Norm(d_model)
+        self.kv_reduce = None
+        self.tp = None
 
     def message(self, q, k, v, q_mask=None, kv_mask=None):
         """The unfused attention half: projections and linear attention,
@@ -205,10 +218,13 @@ class AttentionBlock(nn.Module):
         message = linear_attention(
             query.reshape(B, L, self.num_heads, hd),
             key.reshape(B, S, self.num_heads, hd),
-            value.reshape(B, S, self.num_heads, hd), q_mask, kv_mask)
+            value.reshape(B, S, self.num_heads, hd), q_mask, kv_mask,
+            kv_reduce=self.kv_reduce)
         return message.reshape(B, L, self.d_model)
 
     def forward(self, q, k, v, q_mask=None, kv_mask=None):
+        if self.tp is not None:
+            return self.tp(self, q, k, v, q_mask, kv_mask)
         tail = (self.merge.kernel, self.norm1.scale, self.norm1.bias,
                 self.ffn_in.kernel, self.ffn_out.kernel, self.norm2.scale,
                 self.norm2.bias)
@@ -217,6 +233,10 @@ class AttentionBlock(nn.Module):
         route = route_block(self.d_model, self.d_model * self.ffn_mult,
                             self.num_heads, self.dtype, self.fused_attn,
                             self.fused_tail, device_util.on_cuda(q), shared_kv)
+        if route == "fused" and self.kv_reduce is not None:
+            raise ValueError("the fused attention kernels reduce over this rank's "
+                             "points only; a sequence-parallel block needs "
+                             "fused_attention=False")
         if route == "fused":
             return attn_cuda.attention_block_fused(
                 q, k, q_mask, kv_mask, self.q_proj.kernel, self.k_proj.kernel,

@@ -13,7 +13,11 @@ BatchNorm follows flax's ``nn.BatchNorm`` exactly, not torch's
 ``BatchNorm2d``: epsilon 1e-5, running averages updated as
 ``0.9 * running + 0.1 * batch`` (flax's momentum 0.9, torch's 0.1), and the
 running variance takes the *biased* batch variance (``BatchNorm2d`` would
-store the unbiased one). Parameters use torch's names and layout
+store the unbiased one). Under a data mesh the batch statistics are the
+global batch's (:meth:`PatchDiscriminator.sync_batch_stats`): the JAX
+package's SPMD step computes them over the whole sharded batch, so the port
+sums them over the data ranks inside autograd, and every rank folds the
+same global statistics into identical running averages. Parameters use torch's names and layout
 (``conv_k.weight`` ``(out, in, 4, 4)``, ``bn_k.weight/bias/running_mean/
 running_var``); ``utils.convert.discriminator_from_jax`` maps a flax tree.
 """
@@ -41,11 +45,14 @@ class _BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.sync = None  # (group, n): batch statistics summed over n equal shards
 
     def forward(self, x, train: bool, update_stats: bool):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
+        if self.sync is not None:
+            return self._synced(x, update_stats)
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
@@ -54,6 +61,26 @@ class _BatchNorm(nn.Module):
         # Batch statistics, nothing stored: running_mean/var None.
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                             eps=BN_EPS)
+
+    def _synced(self, x, update_stats: bool):
+        """Train mode over the global batch of ``n`` equal shards: the mean,
+        then the biased variance about it, each a sum over the group inside
+        autograd (the backward sums the gradients over it, as a
+        synchronized BatchNorm does)."""
+        from scream_tpu_torch.parallel.mesh import all_reduce_sum
+
+        group, n = self.sync
+        xf = x.float()
+        count = n * xf.numel() // xf.shape[1]
+        mean = all_reduce_sum(xf.sum((0, 2, 3)), group) / count
+        d = xf - mean[None, :, None, None]
+        var = all_reduce_sum((d * d).sum((0, 2, 3)), group) / count
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        scale = torch.rsqrt(var + BN_EPS) * self.weight
+        return (d * scale[None, :, None, None] + self.bias[None, :, None, None]).to(x.dtype)
 
 
 class PatchDiscriminator(nn.Module):
@@ -93,6 +120,13 @@ class PatchDiscriminator(nn.Module):
             nf = nf_next
         self.conv_out = conv(nf, 1, 1, True)
         self.to(dev)
+
+    def sync_batch_stats(self, group=None, n: int = 1) -> None:
+        """Take train-mode batch statistics over ``n`` equal shards of the
+        batch, one a rank of ``group`` (None: this rank's batch alone)."""
+        for m in self.modules():
+            if isinstance(m, _BatchNorm):
+                m.sync = None if group is None else (group, n)
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
         # Spatial floor: n_layers stride-2 convs + two k4/s1/p1 convs each

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from scream_tpu_torch.config import ModelConfig
+from scream_tpu_torch.geometry.kabsch import weighted_point_sum
 from scream_tpu_torch.models.attention import AttentionBlock, sinusoidal_pe
 from scream_tpu_torch.ops.ffn import _ln
 from scream_tpu_torch.pipeline.register import gt_aligned_src
@@ -48,8 +49,14 @@ class _Dense(nn.Module):
                               generator=generator)
 
     def forward(self, x, dtype):
-        """Inputs, kernel and bias promoted to ``dtype``, as flax's Dense."""
-        return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+        """Inputs, kernel and bias promoted to ``dtype``, as flax's Dense. On
+        CUDA a batch ``(B, N, in)`` runs as a batched product of ``B``
+        items: one folded ``(B N, in)`` product lets cuBLAS pick its kernel,
+        and so a row's bits, by the batch size (``weighted_point_sum``)."""
+        W = self.kernel.to(dtype)
+        if x.is_cuda and x.dim() == 3:
+            W = W.expand(x.shape[0], *W.shape)
+        return x.to(dtype) @ W + self.bias.to(dtype)
 
 
 class _Trunk(nn.Module):
@@ -78,18 +85,26 @@ class _Trunk(nn.Module):
         self.head_1 = _Dense(d, d, generator)
         self.head_out = _Dense(d, 3, generator)
 
-    def forward(self, src, tgt, src_mask, tgt_mask, src_center):
-        cfg = self.cfg
-        dt = cfg.compute_dtype
-        d = cfg.d_model
-
-        # PE on raw coords + embedding on centred src coords
-        # (reference models/pointnet.py:43-46).
+    def embed(self, src, tgt, src_center):
+        """PE on raw coords + embedding on centred src coords, then the
+        shared LayerNorm (reference models/pointnet.py:43-46)."""
+        dt, d = self.cfg.compute_dtype, self.cfg.d_model
         src_feats = sinusoidal_pe(src, d, dtype=dt) + self.embedding(src - src_center, dt)
         tgt_feats = sinusoidal_pe(tgt, d, dtype=dt) + self.embedding(tgt, dt)
         norm = lambda x: _ln(x, self.pre_norm.scale, self.pre_norm.bias, 1e-5,
                              torch.float32).to(dt)
-        src_feats, tgt_feats = norm(src_feats), norm(tgt_feats)
+        return norm(src_feats), norm(tgt_feats)
+
+    def head(self, src_feats):
+        """Coordinate head (reference :27-33); fp32 output for the pose solve."""
+        dt = self.cfg.compute_dtype
+        h = torch.relu(self.head_0(src_feats, dt))
+        h = torch.relu(self.head_1(h, dt))
+        return self.head_out(h, torch.float32)
+
+    def forward(self, src, tgt, src_mask, tgt_mask, src_center):
+        cfg = self.cfg
+        src_feats, tgt_feats = self.embed(src, tgt, src_center)
 
         # Self-attention stems: one stack shared by both clouds (reference
         # :18-20, :50-52), or one per cloud in the DEM variant (:113-118).
@@ -110,11 +125,17 @@ class _Trunk(nn.Module):
                 src_feats, src_feats, src_feats, src_mask, src_mask)
             src_feats = getattr(self, f"cross_attn_{i}")(
                 src_feats, tgt_feats, tgt_feats, src_mask, tgt_mask)
+        return self.head(src_feats)
 
-        # Coordinate head (reference :27-33); fp32 output for the pose solve.
-        h = torch.relu(self.head_0(src_feats, dt))
-        h = torch.relu(self.head_1(h, dt))
-        return self.head_out(h, torch.float32)
+
+def masked_centroid(src, src_mask, point_reduce=None):
+    """The masked centroid ``(B, 1, 3)``: the default ``src_center``;
+    ``point_reduce`` sums its sums over the ranks holding the other points."""
+    m = src_mask.to(src.dtype)
+    num, den = weighted_point_sum(m, src), m.sum(1)[:, None, None]
+    if point_reduce is not None:
+        num, den = point_reduce(num), point_reduce(den)
+    return num / torch.clamp_min(den, 1.0)
 
 
 class PointTransformer(nn.Module):
@@ -134,6 +155,7 @@ class PointTransformer(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
         self.trunk = _Trunk(cfg, generator)
+        self.point_reduce = None  # sum over the ranks holding the other points (SP)
         self.to(dev)
 
     def forward(self, src, tgt, src_mask=None, tgt_mask=None, src_center=None):
@@ -142,22 +164,17 @@ class PointTransformer(nn.Module):
         if tgt_mask is None:
             tgt_mask = torch.ones(tgt.shape[:2], dtype=torch.bool, device=tgt.device)
         if src_center is None:
-            m = src_mask[..., None].to(src.dtype)
-            src_center = (src * m).sum(1, keepdim=True) / torch.clamp_min(
-                m.sum(1, keepdim=True), 1.0)
+            src_center = masked_centroid(src, src_mask, self.point_reduce)
         return self.trunk(src, tgt, src_mask, tgt_mask, src_center)
 
     @staticmethod
-    def loss(src_pred, src, rot_gt, trans_gt, src_mask=None):
+    def loss(src_pred, src, rot_gt, trans_gt, src_mask=None, point_reduce=None):
         """Masked mean per-point L1 to the GT-transformed source: sum |.|
         over xyz, mean over valid points, mean over the batch (reference
-        ``models/pointnet.py:93-99``)."""
+        ``models/pointnet.py:93-99``). ``point_reduce`` sums the per-item
+        sums over the ranks holding the other points (SP, with a mask)."""
         l1 = torch.abs(src_pred - gt_aligned_src(src, rot_gt, trans_gt)).sum(-1)  # (B, N)
-        if src_mask is None:
-            return l1.mean()
-        m = src_mask.to(l1.dtype)
-        per_item = (l1 * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
-        return per_item.mean()
+        return _masked_item_mean(l1, src_mask, point_reduce)
 
 
 class DEMTransformer(nn.Module):
@@ -180,6 +197,7 @@ class DEMTransformer(nn.Module):
             cfg = dataclasses.replace(cfg, separate_stems=True)
         self.cfg = cfg
         self.trunk = _Trunk(cfg, generator)
+        self.point_reduce = None  # as PointTransformer's
         self.to(dev)
 
     def forward(self, dsm, dem_coarse, dsm_mask=None, dem_mask=None):
@@ -192,11 +210,21 @@ class DEMTransformer(nn.Module):
         return self.trunk(dsm, dem_coarse, dsm_mask, dem_mask, zero_center)
 
     @staticmethod
-    def loss(dem_pred, dem_gt, mask=None):
-        """Masked mean per-point L1 (reference ``models/pointnet.py:163-167``)."""
+    def loss(dem_pred, dem_gt, mask=None, point_reduce=None):
+        """Masked mean per-point L1 (reference ``models/pointnet.py:163-167``);
+        ``point_reduce`` as in :meth:`PointTransformer.loss`."""
         l1 = torch.abs(dem_pred - dem_gt).sum(-1)
-        if mask is None:
-            return l1.mean()
-        m = mask.to(l1.dtype)
-        per_item = (l1 * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
-        return per_item.mean()
+        return _masked_item_mean(l1, mask, point_reduce)
+
+
+def _masked_item_mean(l1, mask, point_reduce):
+    """Mean over valid points of each item, then over the batch."""
+    if mask is None:
+        if point_reduce is not None:
+            raise ValueError("a sequence-parallel loss needs the point mask")
+        return l1.mean()
+    m = mask.to(l1.dtype)
+    num, den = (l1 * m).sum(1), m.sum(1)
+    if point_reduce is not None:
+        num, den = point_reduce(num), point_reduce(den)
+    return (num / torch.clamp_min(den, 1.0)).mean()

@@ -242,7 +242,7 @@ def register_multiway(
 
     Pairwise poses come from :func:`register_pairs` on ``device``
     (``register_kwargs`` go to it: normalize, thresholds, passes,
-    batch_size, capacity), weighted by their ICP fitness, then synchronized
+    batch_size, capacity, mesh), weighted by their ICP fitness, then synchronized
     (:func:`synchronize_poses`). ``edges`` default to :func:`default_edges`.
     Edges whose fitness is below ``min_fitness`` keep their connectivity but
     weigh (near) nothing. ``refine_rounds`` rounds of :func:`refine_to_map`

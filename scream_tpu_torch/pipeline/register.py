@@ -453,6 +453,7 @@ def register_pairs(
     batch_size: int = 8,
     passes: int = 1,
     device="cuda",
+    mesh=None,
 ) -> list:
     """GT-free registration of MANY raw ``(src, tgt)`` pairs, the serving
     path: ``batch_size`` pairs per forward and per batched ICP, the
@@ -461,9 +462,26 @@ def register_pairs(
     that pair). ``capacity`` defaults to the longest cloud on the bucket
     ladder. Returns :class:`PairRegistration` s in input order, transforms
     in each pair's original frame.
+
+    ``mesh``: a bound ``parallel.Mesh`` whose ranks all call this with the
+    same pairs (serving scale-out): each dispatch's pairs are cut over the
+    data ranks, each rank registers its share with the model (broadcast
+    from rank 0) and the kernels of a single process (the JAX package sends
+    the NN searches to XLA here only because GSPMD cannot partition them),
+    and the results are gathered, so every rank returns every pair's.
+    ``batch_size`` must divide by the data axis; a pair's result does not
+    depend on the rank that registers it.
     """
     if passes < 1:
         raise ValueError(f"passes must be >= 1, got {passes}")
+    if mesh is not None:
+        from scream_tpu_torch.parallel.mesh import replicate
+
+        if batch_size % mesh.axis_size("data") != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by the data axis "
+                f"({mesh.axis_size('data')}) to shard the serving batch")
+        replicate(model, mesh)
     dev = resolve_device(device)
     pairs = [(np.asarray(s, np.float32), np.asarray(t, np.float32)) for s, t in pairs]
     if not pairs:
@@ -477,9 +495,18 @@ def register_pairs(
             chunk = items[lo:lo + batch_size]
             n_real = len(chunk)
             chunk += [chunk[-1]] * (batch_size - n_real)
+            if mesh is not None:
+                m, i = batch_size // mesh.axis_size("data"), mesh.coord("data")
+                chunk = chunk[i * m:(i + 1) * m]
             b = _normalized_batch(chunk, normalize, cap, dev)
             T, fit, rmse, n_corr = (x.cpu().numpy() for x in _register_pairs_batch(
                 model, b, dis_thresh, corr, icp_thresh, icp_max_iter))
+            if mesh is not None and mesh.axis_size("data") > 1:
+                from scream_tpu_torch.parallel.mesh import gather_objects
+
+                parts = gather_objects((T, fit, rmse, n_corr), mesh.group("data"))
+                T, fit, rmse, n_corr = (np.concatenate([p[j] for p in parts])
+                                        for j in range(4))
             out += [PairRegistration(transform=T[k], fitness=float(fit[k]),
                                      inlier_rmse=float(rmse[k]), n_corr=int(n_corr[k]))
                     for k in range(n_real)]

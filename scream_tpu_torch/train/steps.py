@@ -109,8 +109,9 @@ def make_registration_train_step(
         # for KITTI (train_kitti.py:156).
         src_center = gt_center_hint(batch["rot"], batch["trans"], center_mode)
         src_pred = model(src, tgt, src_mask, tgt_mask, src_center).float()
-        point_loss = PointTransformer.loss(src_pred, src, batch["rot"], batch["trans"],
-                                           src_mask)
+        point_loss = PointTransformer.loss(
+            src_pred, src, batch["rot"], batch["trans"], src_mask,
+            point_reduce=getattr(model, "point_reduce", None))
         mark("forward")
         metrics = {"point_loss": point_loss}
         total, fake = point_loss, None
@@ -132,6 +133,7 @@ def make_registration_train_step(
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, metrics, None if fake is None else fake.detach()
 
+    step.model = model
     return step
 
 
@@ -163,7 +165,8 @@ def make_dem_train_step(
         dem_pred = model(batch["dsm"], batch["dem_coarse"], batch["dsm_mask"],
                          batch["dem_coarse_mask"]).float()
         point_loss = DEMTransformer.loss(dem_pred, batch["dem"],
-                                         batch["dsm_mask"] & batch["dem_mask"])
+                                         batch["dsm_mask"] & batch["dem_mask"],
+                                         point_reduce=getattr(model, "point_reduce", None))
         mark("forward")
         metrics = {"point_loss": point_loss}
         total, fake = point_loss, None
@@ -186,6 +189,7 @@ def make_dem_train_step(
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, metrics, None if fake is None else fake.detach()
 
+    step.model = model
     return step
 
 

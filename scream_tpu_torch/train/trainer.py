@@ -15,8 +15,22 @@ init into both). ``RegistrationTrainer`` takes any pair loader, the
 size-bucketed one of ``train --multi-scale`` too (one batch shape a bucket).
 With the GAN, ``sample_img_dir`` dumps the first fake render every
 ``train_cfg.save_img_iter`` steps as a PNG (``utils/viz.py``, no matplotlib
-needed). Multi-chip meshes (``--mesh``, including the pipeline trainer) are
-not ported (ROADMAP.md): asking for one raises.
+needed).
+
+``mesh=`` (a bound ``parallel.Mesh``: the trainer runs on every rank of it,
+``train --mesh``) wraps the steps as the JAX trainer does
+(:func:`_wrap_steps_for_mesh`): data parallelism, data x seq, data x model
+(tensor parallelism) or, for the registration trainer, the pipelined
+flagship forward on ``pipe`` (GAN refused there). The fused kernels stay on
+for data-only meshes, where each rank runs them on its rows, and go off
+otherwise. The GAN's discriminator takes the global batch's BatchNorm
+statistics. Unlike the JAX package, which sends the renderer to XLA under a
+mesh because GSPMD cannot partition the Mosaic splat, every rank keeps the
+splat kernel for its rows: its output is bit for bit its plain version's,
+so nothing changes with the rank that renders a pair. Validation shards
+each batch over the data ranks and gathers the per-pair results, so every
+rank aggregates them as a single process does. Rank 0 alone writes the
+checkpoints (under tensor parallelism from the gathered whole model).
 """
 
 from __future__ import annotations
@@ -25,11 +39,13 @@ import dataclasses
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from scream_tpu_torch.config import EvalConfig, ModelConfig, RenderConfig, TrainConfig
 from scream_tpu_torch.geometry.metrics import chamfer_distance, height_mae
 from scream_tpu_torch.models import DEMTransformer, PatchDiscriminator, PointTransformer
+from scream_tpu_torch.parallel.mesh import batch_size
 from scream_tpu_torch.pipeline.register import gt_center_hint, register_batch, to_device
 from scream_tpu_torch.train.optim import discriminator_optimizer, generator_optimizer
 from scream_tpu_torch.train.steps import (DiscState, init_train_state,
@@ -43,10 +59,64 @@ from scream_tpu_torch.utils.logging import MetricsLogger
 from scream_tpu_torch.utils.profiling import ThroughputMeter, trace
 
 
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh (--mesh) is not ported (ROADMAP.md, multi-GPU)")
+def disable_unpartitionable_fusion(model_cfg: ModelConfig, mesh) -> ModelConfig:
+    """The fused kernels stay on for data-only meshes (each rank runs them
+    on its rows, with no collective); a mesh that shards points, heads or
+    stages takes the unfused blocks, whose reductions the parallel modules
+    place (the JAX package's rule, ``scream_tpu/cli.py``)."""
+    if mesh is None:
+        return model_cfg
+    from scream_tpu_torch.parallel import is_data_only
+
+    if is_data_only(mesh):
+        return model_cfg
+    return dataclasses.replace(model_cfg, fused_block_tail=False, fused_attention=False)
+
+
+def _wrap_steps_for_mesh(trainer, mesh) -> None:
+    """Wrap a trainer's steps for the mesh: the pipelined or plain
+    generator step under DP (``pipe``), 2-D DP x TP (``model``: the blocks
+    cut Megatron column / row over the model ranks, the Adam moments with
+    them), 2-D DP x SP (``seq``) or DP; the discriminator step under DP."""
+    if mesh is None:
+        return
+    from scream_tpu_torch.parallel import (data_parallel_arrays_step, data_parallel_step,
+                                           data_seq_parallel_step,
+                                           shard_params_tensor_parallel,
+                                           tensor_parallel_step)
+    from scream_tpu_torch.parallel.dp import replicate_optimizer
+
+    if mesh.axis_size("model") > 1:
+        replicate_optimizer(trainer.state.optimizer, mesh)
+        shard_params_tensor_parallel(trainer.model, mesh, "model", trainer.state.optimizer)
+        trainer.train_step = tensor_parallel_step(trainer.train_step, mesh)
+    elif mesh.axis_size("seq") > 1:
+        trainer.train_step = data_seq_parallel_step(trainer.train_step, mesh,
+                                                    seq_keys=trainer._seq_keys)
+    else:
+        trainer.train_step = data_parallel_step(trainer.train_step, mesh)
+    if trainer.disc_step is not None:
+        trainer.disc_step = data_parallel_arrays_step(trainer.disc_step, mesh)
+
+
+def _check_mesh(mesh, use_gan: bool) -> None:
+    if mesh is None:
+        return
+    if not mesh.bound:
+        raise ValueError("the trainers take a mesh bound to a running world "
+                         "(parallel.launch runs them on its ranks)")
+    if use_gan and mesh.axis_size("pipe") > 1:
+        raise ValueError("--mesh pipe=N does not combine with GAN training; "
+                         "drop use_gan or use a data/seq/model mesh")
+    if use_gan and mesh.axis_size("seq") > 1:
+        raise NotImplementedError("GAN training on a seq mesh is not ported "
+                                  "(ROADMAP.md); use a data or model mesh")
+
+
+def _rank() -> int:
+    """This process's rank in a running world (0 without one): rank 0
+    alone writes files."""
+    return torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
 
 
 def _maybe_dump_gan_sample(trainer, fake, epoch: int) -> None:
@@ -55,7 +125,7 @@ def _maybe_dump_gan_sample(trainer, fake, epoch: int) -> None:
     the first pair's fake render as ``epoch{E}_step{S}.png`` every
     ``save_img_iter`` steps. The directory gate runs before the step is
     read, as in the JAX trainer, so a run without dumps does no work here."""
-    if not trainer.sample_img_dir:
+    if not trainer.sample_img_dir or _rank() != 0:
         return
     step_no = int(trainer.state.step)
     if step_no % trainer.train_cfg.save_img_iter != 0:
@@ -72,6 +142,46 @@ class _Trainer:
     """What both trainers share: the generator's optimizer and the GAN
     discriminator built in :meth:`_init_optimizers`, the per-epoch loop over
     the step, full-state save and restore, and :meth:`fit`."""
+
+    def _setup_mesh(self, mesh, model_cfg):
+        """Keep the mesh; the model config with the fusion rule applied."""
+        _check_mesh(mesh, self.use_gan)
+        self.mesh = mesh
+        return disable_unpartitionable_fusion(model_cfg, mesh)
+
+    def _tp(self) -> bool:
+        return self.mesh is not None and self.mesh.axis_size("model") > 1
+
+    def _full_state_dict(self):
+        """The whole generator's weights (gathered under tensor parallelism,
+        a collective every rank joins)."""
+        if self._tp():
+            from scream_tpu_torch.parallel.tp import full_state_dict
+
+            return full_state_dict(self.model, self.mesh)
+        return self.model.state_dict()
+
+    def _shard(self, batch):
+        """``batch`` on the device: this rank's rows under a mesh (the whole
+        batch where it does not divide the data axis), and whether it was
+        cut."""
+        if self.mesh is None or batch_size(batch) % self.mesh.axis_size("data"):
+            return to_device(batch, self.device), False
+        from scream_tpu_torch.parallel import to_device_maybe_sharded
+
+        return to_device_maybe_sharded(batch, self.mesh, device=self.device), \
+            self.mesh.axis_size("data") > 1
+
+    def _gathered(self, local, cut: bool):
+        """Per-pair results of every data rank, concatenated in batch order
+        (``local`` a tuple of numpy arrays; unchanged when the batch was not
+        cut)."""
+        if not cut:
+            return local
+        from scream_tpu_torch.parallel.mesh import gather_objects
+
+        parts = gather_objects(local, self.mesh.group("data"))
+        return tuple(np.concatenate([p[i] for p in parts]) for i in range(len(local)))
 
     def _init_optimizers(self, model, step_fn, decay_mode=None):
         self.model = model
@@ -90,6 +200,7 @@ class _Trainer:
             model, use_gan=self.use_gan,
             disc_apply=make_disc_logit_fn() if self.use_gan else None,
             render_cfg=self.render_cfg, gan_weight=self.train_cfg.gan_weight)
+        _wrap_steps_for_mesh(self, self.mesh)
         return self.state
 
     def _train_loop(self, real_keys, count_items: bool, epoch: int) -> Dict[str, float]:
@@ -128,23 +239,49 @@ class _Trainer:
         """Checkpoint the full train state for resuming: the generator's
         weights, its Adam state and LR schedule, the step count, and under
         GAN the discriminator's weights, running averages and Adam state
-        (the reference saves weights only, ``train_3d_match.py:226-230``)."""
-        tree = {"gen": {"params": self.model.state_dict(),
-                        "opt_state": self.state.optimizer.state_dict(),
+        (the reference saves weights only, ``train_3d_match.py:226-230``).
+        Under a mesh every rank calls it and rank 0 writes the whole
+        state."""
+        opt_state = self.state.optimizer.state_dict()
+        if self._tp():
+            from scream_tpu_torch.parallel.tp import full_optimizer_state
+
+            opt_state = full_optimizer_state(self.state.optimizer, self.model, self.mesh)
+        tree = {"gen": {"params": self._full_state_dict(),
+                        "opt_state": opt_state,
                         "scheduler": self.state.scheduler.state_dict(),
                         "step": self.state.step}}
         if self.use_gan:
             tree["disc"] = {"variables": self.disc_state.disc.state_dict(),
                             "opt_state": self.disc_state.optimizer.state_dict()}
-        save_train_state(directory, tree)
+        if _rank() == 0:
+            save_train_state(directory, tree)
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def load_weights(self, state) -> None:
+        """Load whole-model generator weights (a warm start), cut to this
+        rank's shards under tensor parallelism."""
+        if self._tp():
+            from scream_tpu_torch.parallel.tp import shard_state
+
+            state, _ = shard_state(state, {"state": {}}, self.state.optimizer, self.model,
+                                   self.mesh)
+        self.model.load_state_dict(state, strict=True)
 
     def restore_state(self, directory: str) -> None:
         """Load :meth:`save_state`'s checkpoint into this (initialized)
         trainer, in place."""
         tree = load_train_state(directory)
         gen = tree["gen"]
-        self.model.load_state_dict(gen["params"], strict=True)
-        self.state.optimizer.load_state_dict(gen["opt_state"])
+        params, opt_state = gen["params"], gen["opt_state"]
+        if self._tp():
+            from scream_tpu_torch.parallel.tp import shard_state
+
+            params, opt_state = shard_state(params, opt_state, self.state.optimizer,
+                                            self.model, self.mesh)
+        self.model.load_state_dict(params, strict=True)
+        self.state.optimizer.load_state_dict(opt_state)
         self.state.scheduler.load_state_dict(gen["scheduler"])
         self.state.step = int(gen["step"])
         if self.use_gan:
@@ -175,8 +312,9 @@ class _Trainer:
                 f"{k}: {v:.5f}" for k, v in {**train_metrics, **last_val}.items()))
             if self.checkpointer:
                 metric = last_val[self.train_cfg.checkpoint_metric]
-                if self.checkpointer.maybe_save(metric, self.model.state_dict(),
-                                                dataclasses.asdict(self.model.cfg)):
+                weights = self._full_state_dict()
+                if _rank() == 0 and self.checkpointer.maybe_save(
+                        metric, weights, dataclasses.asdict(self.model.cfg)):
                     print("checkpoint saved (new best)")
             if self.checkpoint_dir:
                 self.save_state(os.path.join(self.checkpoint_dir, "state"))
@@ -202,7 +340,8 @@ class RegistrationTrainer(_Trainer):
         mesh=None,
         device="cuda",
     ):
-        _refuse_unported(mesh)
+        self.use_gan = train_cfg.use_gan
+        model_cfg = self._setup_mesh(mesh, model_cfg)
         self.sample_img_dir = sample_img_dir
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -219,7 +358,8 @@ class RegistrationTrainer(_Trainer):
         # False is an opt-out for quick runs.
         self.val_use_icp = val_use_icp
         self.steps_per_epoch = max(len(train_loader), 1)
-        self.use_gan = train_cfg.use_gan
+        # Cloud coordinates and masks: their axis 1 is the point axis.
+        self._seq_keys = ("src", "tgt", "src_mask", "tgt_mask")
         mode = "max" if train_cfg.checkpoint_metric == "success_rate" else "min"
         self.checkpoint_dir = checkpoint_dir
         self.checkpointer = (BestCheckpointer(checkpoint_dir, mode=mode)
@@ -234,6 +374,16 @@ class RegistrationTrainer(_Trainer):
                                  generator=torch.Generator().manual_seed(seed))
         step_fn = lambda m, **kw: make_registration_train_step(
             m, center_mode=self.eval_cfg.center_mode, **kw)
+        pipe = self.mesh.axis_size("pipe") if self.mesh is not None else 1
+        if pipe > 1:
+            # --mesh pipe=N[,data=M]: the flagship's 18 block applications
+            # pipelined over the pipe ranks (parallel/pp_flagship.py), point
+            # loss only, GPipe microbatches.
+            from scream_tpu_torch.parallel.pp_flagship import make_pp_registration_train_step
+
+            n_micro = self.train_cfg.pp_microbatches or 2 * pipe
+            step_fn = lambda m, **kw: make_pp_registration_train_step(
+                m, self.mesh, n_micro, center_mode=self.eval_cfg.center_mode)
         return self._init_optimizers(model, step_fn, self.decay_mode)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -252,7 +402,7 @@ class RegistrationTrainer(_Trainer):
         tot_loss, tot_re, tot_te, n = 0.0, 0.0, 0.0, 0
         succ, succ_re, succ_te = 0, 0.0, 0.0
         for batch in self.val_loader:
-            tb = to_device(batch, self.device)
+            tb, cut = self._shard(batch)
             src_pred = self.model(tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
                                   gt_center_hint(tb["rot"], tb["trans"], ec.center_mode))
             loss = PointTransformer.loss(src_pred.float(), tb["src"], tb["rot"],
@@ -262,8 +412,10 @@ class RegistrationTrainer(_Trainer):
                                use_icp=self.val_use_icp, center_mode=ec.center_mode,
                                device=self.device)
             re, te = m.re_deg.cpu().numpy(), m.te.cpu().numpy()
+            loss_sum, re, te = self._gathered(
+                (np.array([float(loss) * re.shape[0]]), re, te), cut)
             b = re.shape[0]
-            tot_loss += float(loss) * b
+            tot_loss += float(loss_sum.sum())
             tot_re += float(re.sum())
             tot_te += float(te.sum())
             ok = (re <= ec.success_re_deg) & (te <= ec.success_te)
@@ -298,7 +450,8 @@ class DEMTrainer(_Trainer):
         sample_img_dir: Optional[str] = None,
         device="cuda",
     ):
-        _refuse_unported(mesh)
+        self.use_gan = train_cfg.use_gan
+        model_cfg = self._setup_mesh(mesh, model_cfg)
         self.sample_img_dir = sample_img_dir
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -317,7 +470,8 @@ class DEMTrainer(_Trainer):
         self.device = resolve_device(device)
         self.logger = logger or MetricsLogger(print_every=train_cfg.log_every)
         self.steps_per_epoch = max(len(train_loader), 1)
-        self.use_gan = train_cfg.use_gan
+        self._seq_keys = ("dsm", "dem", "dem_coarse", "dsm_mask", "dem_mask",
+                          "dem_coarse_mask")
         self.checkpoint_dir = checkpoint_dir
         self.checkpointer = (BestCheckpointer(checkpoint_dir, mode="min")
                              if checkpoint_dir else None)
@@ -339,11 +493,12 @@ class DEMTrainer(_Trainer):
         averaged over patches (reference ``train_open_gf.py``)."""
         tot_cd, tot_h, n = 0.0, 0.0, 0
         for batch in self.val_loader:
-            tb = to_device(batch, self.device)
+            tb, cut = self._shard(batch)
             dem_pred = self.model(tb["dsm"], tb["dem_coarse"], tb["dsm_mask"],
                                   tb["dem_coarse_mask"]).float()
             cd = chamfer_distance(dem_pred, tb["dem"], tb["dsm_mask"], tb["dem_mask"])
             h = height_mae(dem_pred, tb["dem"], tb["dsm_mask"] & tb["dem_mask"])
+            cd, h = self._gathered((cd.cpu().numpy(), h.cpu().numpy()), cut)
             tot_cd += float(cd.sum())
             tot_h += float(h.sum())
             n += cd.shape[0]

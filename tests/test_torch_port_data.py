@@ -142,7 +142,10 @@ def _port_sources():
     # The card-side scripts; the host-side ones (torch_port_convert_params,
     # torch_port_disc_separation, torch_port_make_fp32_reference,
     # torch_port_open_items) import the JAX package on purpose.
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
+    # The parallel tests' rank bodies run in spawned processes that import
+    # the port only.
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_parallel_cases.py")] + [
         os.path.join(REPO, "scripts", f"torch_port_{n}.py")
         for n in ("make_raw", "make_splits", "run_scale", "measure_gt_free")]
     for root, _, names in os.walk(os.path.join(REPO, "scream_tpu_torch")):
@@ -158,6 +161,8 @@ class TestPackageRules:
         files = _port_sources()
         assert len(files) > 10
         assert os.path.join(REPO, "scream_tpu_torch", "native", "__init__.py") in files
+        for mod in ("mesh", "dp", "sp", "tp", "pp", "pp_flagship", "ep", "dryrun"):
+            assert os.path.join(REPO, "scream_tpu_torch", "parallel", f"{mod}.py") in files
         offenders = []
         for path in files:
             with open(path) as f:

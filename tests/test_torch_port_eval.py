@@ -597,7 +597,7 @@ class TestEvaluateCLI:
     @pytest.mark.parametrize("argv,msg", [
         (["3dmatch", "--experimental-icp-chunk", "4"], "kitti protocol only"),
         (["kitti", "--experimental-icp-chunk", "0"], ">= 1"),
-        (["kitti", "--mesh", "data=2"], "not ported"),
+        (["kitti", "--mesh", "data=2,expert=2"], "unknown mesh axes"),
     ])
     def test_refusals(self, argv, msg):
         with pytest.raises(SystemExit, match=msg):

@@ -113,6 +113,7 @@ def test_train_cli_multi_scale(tmp_path, capsys):
     final = json.loads(out.out.strip().splitlines()[-1])["final_val"]
     assert set(final) == {"point_loss", "rre", "rte", "success_rate", "success_rre",
                           "success_rte"}
-    for flag in (["--mesh", "data=2"], ["--sample-img-dir", "imgs", "--mesh", "data=2"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    for flag, msg in ((["--mesh", "data=2,expert=2"], "unknown mesh axes"),
+                      (["--sample-img-dir", "imgs", "--mesh", "8"], "axis=N")):
+        with pytest.raises(SystemExit, match=msg):
             tcli.main(["train", "3dmatch", "--multi-scale", "--device", "cpu", *flag])

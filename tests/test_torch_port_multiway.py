@@ -306,7 +306,7 @@ class TestScansCLI:
         (["--robust"], "--robust is a single-pair search"),
         (["--src", "S"], "exclusive with --src/--tgt/--manifest"),
         (["--window", "0"], "--window must be >= 1, got 0"),
-        (["--mesh", "data=2"], "not ported"),
+        (["--mesh", "data=2", "--batch-size", "3"], "must divide by the mesh data axis"),
     ])
     def test_validation_errors(self, tmp_path, extra, msg):
         """The JAX command's messages, before any model is built."""

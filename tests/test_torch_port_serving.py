@@ -321,7 +321,8 @@ class TestCLI:
 
         s = str(tmp_path / "s.npy")
         np.save(s, np.zeros((5, 3), np.float32))
-        for argv, msg in ((["--scans", s, s, "--mesh", "data=2"], "not ported"),
+        for argv, msg in ((["--src", s, "--tgt", s, "--mesh", "data=2"],
+                           "--mesh shards the batched manifest/scans paths only"),
                           (["--src", s], "need --src and --tgt"),
                           (["--manifest", s, "--src", s], "exclusive")):
             with pytest.raises(SystemExit, match=msg):

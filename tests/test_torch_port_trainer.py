@@ -233,8 +233,10 @@ def test_dem_trainer_checkpoint_metric(tmp_path):
     with pytest.raises(ValueError, match="checkpoint_metric"):
         DEMTrainer(*loaders, train_cfg=config.TrainConfig(checkpoint_metric="success_rate"),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DEMTrainer(*loaders, device="cpu", mesh="data=2")
+    from scream_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="bound to a running world"):
+        DEMTrainer(*loaders, device="cpu", mesh=make_mesh(n_data=2))
     # The GAN sample dump is ported: the directory is taken, not refused.
     assert RegistrationTrainer(*loaders, device="cpu",
                                sample_img_dir=str(tmp_path)).sample_img_dir == str(tmp_path)
@@ -286,16 +288,16 @@ def test_train_cli_3dmatch_in_process(tmp_path, capsys):
     assert "initialized generator params" in out.err and "epoch 1" in out.out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--multi-scale", "--mesh", "data=2"],
-                                  ["--sample-img-dir", "imgs", "--mesh", "data=2"]])
+# The mesh specs the JAX command refuses, with its messages.
+MESH_REFUSALS = {"data=2,expert=2": "unknown mesh axes", "8": "axis=N",
+                 "seq=2,pipe=2": "pipe= composes with data= only"}
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "data=2,expert=2"], ["--multi-scale", "--mesh", "8"],
+                                  ["--sample-img-dir", "imgs", "--mesh", "seq=2,pipe=2"]])
 def test_train_cli_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match=MESH_REFUSALS[flag[-1]]):
         cli_main(["train", "kitti", *TINY, *flag])
-
-
-# The JAX TrainConfig field the port leaves out: the pipeline trainer's
-# microbatch count (--mesh pipe=N, not ported).
-UNPORTED_FIELDS = {"pp_microbatches"}
 
 
 def test_presets_equal_jax():
@@ -304,8 +306,7 @@ def test_presets_equal_jax():
         theirs = getattr(jconfig, f"{task}_presets")()
         for a, b in zip(mine, theirs):
             fa = {f.name for f in dataclasses.fields(a)}
-            assert fa == {f.name for f in dataclasses.fields(b)} - UNPORTED_FIELDS, \
-                type(a).__name__
+            assert fa == {f.name for f in dataclasses.fields(b)}, type(a).__name__
             for name in fa:
                 assert getattr(a, name) == getattr(b, name), (task, type(a).__name__, name)
     for protocol in ("3dmatch", "3dlomatch", "3dzeromatch", "kitti", "opengf"):
@@ -316,9 +317,7 @@ def test_presets_equal_jax():
     for mine, theirs in ((config.DataConfig(), jconfig.DataConfig()),
                          (config.EvalConfig(), jconfig.EvalConfig()),
                          (config.TrainConfig(), jconfig.TrainConfig())):
-        want = {k: v for k, v in dataclasses.asdict(theirs).items()
-                if k not in UNPORTED_FIELDS}
-        assert dataclasses.asdict(mine) == want
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
 
 
 def test_logging_and_profiling_utils(tmp_path, capsys):
