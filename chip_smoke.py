@@ -147,7 +147,7 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     plain block's; one DEM step on the card and the CPU path; timed
     ``DEMTrainer.train_epoch`` at 8 x 8,192 (patches/s, stage times,
     stats and apply launches); every other (d, heads, dtype) cell of the
-    kernels against its plain version at its path's shape (bf16 d 128 at
+    head-specific kernels against its plain version at its path's shape (bf16 d 128 at
     8 x 512, d 256 at 16 x 4,096, d 384 at 8 x 4,096; fp32 under path 7's
     bars), with its launches in one ``ModelConfig(num_heads=...)``
     forward; then in subprocesses ``train opengf|3dmatch --d-model 384``,
@@ -215,7 +215,24 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     ``--mesh data=2`` in subprocesses; (d) ``parallel/dryrun.py``'s modes
     (DP, DP with the GAN, SP, TP, PP with the flagship, EP) on the card
     against the single process under their bars;
-19. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
+19. path 12, the head-generic attention kernels (``csrc/attn_heads.cu``)
+    at every head count the JAX rule admits beyond the head-specific
+    kernels (bf16 d 128-384, fp32 d 128-256; run after path 8): (a)
+    ``register_batch`` at path 1's 16 x 4,096 with a seeded random-init
+    ``ModelConfig(num_heads=2)`` (2 heads of 128), stats and apply against
+    their plain versions at its first block, the forward against the same
+    weights' plain-body forward (5e-2) with 24 launches of each kernel, two
+    calls' transforms bit for bit, pairs/s (not gated); (b) ``register
+    --params`` in a subprocess on the hint-free weights saved with 16
+    heads (head dim 8), within 1e-5 of the in-process ``register_pair``;
+    (c) an fp32 ``ModelConfig(d_model=256, num_heads=32)`` forward at 16 x
+    4,096 against the CPU path on 2 pairs (1e-4); (d) one DEM step at d 384
+    with 16 heads of 24, card vs CPU path; (e) every cell of the pair at its
+    path's shape (stats bit identical across launches, an all-masked batch
+    exactly 0, the bf16 stats blob bit for bit), the fused block against
+    the plain block and its gradients at head dims 8, 24, 128 and 384, each
+    cell's launches in a ``ModelConfig(num_heads=...)`` forward;
+20. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the result line. A watchdog turns a hang
@@ -232,7 +249,8 @@ path 1's shape (gates included) and at every (d, heads, dtype) cell; both
 also at hidden widths 1-3 x d; ``--only ingest`` runs phases 1-2 and path
 6, ``--only fp32`` path 7, ``--only d384`` path 8, ``--only multiway`` path
 9 (its CPU references' child started with it), ``--only tools`` path 10,
-``--only mesh`` path 11. None prints a result line.
+``--only mesh`` path 11, ``--only heads`` path 12. None prints a result
+line.
 """
 
 import faulthandler
@@ -259,6 +277,8 @@ BF16_BARS = {"stats": 5e-3, "apply": 1e-2, "block": 5e-2}
 FP32_BARS = {"stats": 1e-5, "apply": 2e-5, "block": 2e-5, "tail": 2e-5, "forward": 1e-4}
 PATH1_KERNELS = ("attn_stats", "attn_apply", "nn_exact", "nn_bounded", "nn_tile_boxes")
 PATH2_KERNELS = PATH1_KERNELS + ("nn_bounded_single",)
+# Path 12 (a)'s register_batch: the head-generic pair in place of path 1's.
+PATH12_KERNELS = ("attn_stats_heads", "attn_apply_heads") + PATH1_KERNELS[2:]
 # Path 3: threedmatch_presets() (batch 8, max_points 4,096) with use_gan;
 # KITTI's max_points 8,192 for the KITTI GAN render shape.
 TRAIN_B, TRAIN_CAP, KITTI_CAP = 8, 4096, 8192
@@ -314,9 +334,26 @@ REFERENCE_SCRIPT = os.path.join("scripts", "torch_port_make_fp32_reference.py")
 # layers, 2 x 1,024 points).
 D384, D384_RAGGED = 384, 65536 - 37
 CELL_SHAPES = {128: (SERVE_BATCH, 512), 256: (B, CAP), 384: (8, 4096)}
-CELL_HEADS = {"bfloat16": {128: (8, 4, 2), 256: (16, 8, 4), 384: (24, 12, 8, 6)},
-              "float32": {128: (8, 4, 2), 256: (16, 8, 4)}}
+CELL_HEADS = {"bfloat16": {128: (128, 64, 32, 16, 8, 4, 2, 1),
+                           256: (256, 128, 64, 32, 16, 8, 4, 2, 1),
+                           384: (384, 192, 128, 96, 64, 48, 32, 24, 16, 12, 8, 6, 4, 3, 2, 1)},
+              "float32": {128: (128, 64, 32, 16, 8, 4, 2, 1),
+                          256: (256, 128, 64, 32, 16, 8, 4, 2, 1)}}
 CELL_FORWARD_B, CELL_FORWARD_N = 2, 1024
+# Path 12, the head-generic pair (csrc/attn_heads.cu): (a) register_batch at
+# path 1's shape with ModelConfig(num_heads=2) (d 256, 6 + 6 layers, 2 heads
+# of 128), seeded random init; (b) the register CLI on a checkpoint whose
+# sidecar is the hint-free architecture (d 128, 3 + 3 layers) at 16 heads
+# (head dim 8); (c) an fp32 forward of ModelConfig(d_model=256,
+# num_heads=32) (head dim 8) at 16 x 4,096, its CPU path on HEADS_CPU_PAIRS
+# pairs; (d) one DEM step at d 384 with 16 heads of 24; (e) every cell of
+# the pair at its path's shape, the fused block's gradients at head dims 8,
+# 24, 128 and 384 (HEADS_GRADS). The cells of the PERF.md rows are timed in
+# TIME_ROUNDS rounds (HEADS_TIMED), the rest in one.
+HEADS_MAIN, HEADS_SERVE, HEADS_F32, HEADS_DEM, HEADS_CPU_PAIRS = 2, 16, 32, 16, 2
+HEADS_GRADS = ((128, 16), (384, 16), (256, 2), (384, 1))
+HEADS_TIMED = ((256, 2, "bfloat16"), (128, 16, "bfloat16"), (384, 16, "bfloat16"),
+               (256, 32, "float32"))
 # The tail kernel's rows for --only tail (every width, ragged counts, the
 # DEM path's 65,536 and 8,192 with one-off counts).
 TAIL_ROWS = {128: (300,), 256: (1000, 65536), 384: (777, 8192), 512: (33, 8192, 8192 + 5,
@@ -399,7 +436,7 @@ MS_BUCKETS, MS_CPU_PAIRS, MS_ITERS, MS_CLI_PAIRS = (256, 4096), 2, 5, 8
 EDGE_CPU_DISPATCH, ROBUST_CPU_PAIRS, PATH9_CPU_WAIT_S, VOXEL = 8, 4, 420, 0.05
 OUT_DIR = "chiprun_out"
 ONLY_KERNELS = ("splat", "nn_exact", "tail", "apply")  # kernels --only can check alone
-ONLY_PATHS = ("ingest", "fp32", "d384", "multiway", "tools", "mesh")  # paths --only runs
+ONLY_PATHS = ("ingest", "fp32", "d384", "multiway", "tools", "mesh", "heads")  # paths --only runs
 DEV = "cuda"  # every phase runs on the card
 
 
@@ -492,6 +529,8 @@ def phase_build():
         f.write(_build.build_log)
     log(f"build: {secs:.1f} s, one nvcc process a source at once, then the link -> "
         f"{path.name}")
+    log("build: " + ", ".join(ln[5:] for ln in _build.build_log.splitlines()
+                              if ln.startswith("nvcc ")))
     fn, spills = None, {}
     for ln in _build.build_log.splitlines():
         if "Function properties for" in ln or "Compiling entry function" in ln:
@@ -506,15 +545,20 @@ def phase_build():
     # reads, are counted).
     f32_new = ("attn_stats_f32_kernel", "attn_apply_f32_kernel", "tail_f32_kernel",
                "pack_stats_f32_kernel", "pack_block_f32_kernel")
-    for name in ("max_splat_kernel", "nn_exact_kernel") + f32_new:
+    # The head-generic pair (csrc/attn_heads.cu), both dtypes.
+    heads = ("heads_sum_kernel", "attn_stats_f32_reduce_kernel", "heads_proj_f32_kernel",
+             "attn_apply_heads_kernel", "attn_apply_heads_f32_kernel")
+    for name in ("max_splat_kernel", "nn_exact_kernel") + f32_new + heads:
         hits = {f: v for f, v in spills.items() if name in f}
         check(hits and all(not any(v) for v in hits.values()),
               f"ptxas: {name} spills or is missing from the report: {hits}")
     lines = _build.build_log.splitlines()
-    serial = [ln.strip() for ln in lines if "C7515" in ln and any(n in ln for n in f32_new)]
-    check(not serial, f"ptxas serializes wgmma in the fp32 kernels: {serial[:3]}")
-    log(f"ptxas: no C7515 in the fp32 kernels; {sum('C7519' in ln for ln in lines)} C7519 "
-        f"lines (a wgmma fence added) in all")
+    serial = [ln.strip() for ln in lines
+              if "C7515" in ln and any(n in ln for n in f32_new + heads)]
+    check(not serial, f"ptxas serializes wgmma in the fp32 or head-generic kernels: "
+          f"{serial[:3]}")
+    log(f"ptxas: no spill and no C7515 in the fp32 and head-generic kernels; "
+        f"{sum('C7519' in ln for ln in lines)} C7519 lines (a wgmma fence added) in all")
 
 
 def make_batches(n_batches, seed, batch=B, n_src=N_SRC, n_tgt=N_TGT, cap=CAP):
@@ -632,13 +676,17 @@ def f32_matmul_reference(blk, x):
         f"{a_ms:.4f} ms")
 
 
-def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
+def check_attention(blk, m_bool, suffix="", x=None, dtype=None, rounds=TIME_ROUNDS):
     """Kernels 1 and 2 against their plain versions on the card, for the
     attention block ``blk`` on the input ``x`` (B, L, d), seeded random if
     None, with the mask ``m_bool`` (B, L); and the whole fused block against
     the literal plain block. In bf16 (``csrc/attn.cu``), or with ``dtype``
-    fp32 the fp32 kernels (``csrc/attn_f32.cu``) under the fp32 bars.
-    Returns records."""
+    fp32 the fp32 kernels (``csrc/attn_f32.cu``) under the fp32 bars; at a
+    head count no head-specific kernel takes, the head-generic pair
+    (``csrc/attn_heads.cu``, records ``attn_stats_heads`` and
+    ``attn_apply_heads``; in bf16 also its stats blob, packed at d / 64
+    heads, bit for bit). Stats timed in ``rounds`` rounds. Returns
+    records."""
     import torch
 
     from scream_tpu_torch.ops import attn_cuda
@@ -649,9 +697,14 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     fp32 = cd == f32
     bars = FP32_BARS if fp32 else BF16_BARS
     isz, peak = (4, PEAK_FP32) if fp32 else (2, PEAK_BF16)
-    src = "scream_tpu_torch/csrc/attn_f32.cu" if fp32 else "scream_tpu_torch/csrc/attn.cu"
     records = []
     H, d = blk.num_heads, blk.d_model
+    generic = not attn_cuda.head_cell(d, H, cd)
+    src = "scream_tpu_torch/csrc/" + ("attn_heads.cu" if generic else
+                                      "attn_f32.cu" if fp32 else "attn.cu")
+    src_apply = src if not generic else "scream_tpu_torch/csrc/attn_heads_apply" + (
+        "_f32.cu" if fp32 else ".cu")
+    kname = "_heads" if generic else ""
     hid = d * blk.ffn_mult
     g = torch.Generator(device=dev).manual_seed(0)
     Bx, L = m_bool.shape
@@ -675,7 +728,7 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     torch.cuda.synchronize()
     err = max(rel_err(KV, KVp), rel_err(ks, ksp))
     abs_err = max(float((KV - KVp).abs().max()), float((ks - ksp).abs().max()))
-    check(err <= bars["stats"], f"attn_stats{suffix}: relative error {err:.3g} > "
+    check(err <= bars["stats"], f"attn_stats{kname}{suffix}: relative error {err:.3g} > "
           f"{bars['stats']}")
     KV2, ks2 = attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H)
     same = bool(torch.equal(KV, KV2) and torch.equal(ks, ks2))
@@ -685,17 +738,25 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     zero = bool((KV0[0] == 0).all() and (ks0[0] == 0).all())
     err0 = max(rel_err(KV0[1:], KVp[1:]), rel_err(ks0[1:], ksp[1:])) if Bx > 1 else 0.0
     check(same and zero and err0 <= bars["stats"],
-          f"attn_stats{suffix}: two launches identical {same}, all-masked batch zero "
+          f"attn_stats{kname}{suffix}: two launches identical {same}, all-masked batch zero "
           f"{zero}, the other batches' relative error {err0:.3g}")
-    ms, ms_all = timed(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H))
-    pms, pms_all = timed(lambda: attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H))
+    if generic and not fp32:
+        blob = attn_cuda.pack_stats_weights(Wk, Wv, num_heads=H)
+        same_blob = torch.equal(blob.cpu(), attn_cuda.pack_stats_weights(
+            Wk.cpu(), Wv.cpu(), num_heads=H))
+        check(same_blob, f"pack_stats_weights{suffix}: the card's blob differs from the "
+              "plain pack")
+    ms, ms_all = timed(lambda: attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=H), rounds=rounds)
+    pms, pms_all = timed(lambda: attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=H),
+                         rounds=rounds)
     gate = STATS_GATE_MS.get(suffix)
     if gate is not None:
         check(ms <= gate and (suffix != "_train" or ms < pms),
-              f"attn_stats{suffix}: {ms:.4f} ms (rounds {ms_all}) against the {gate} ms "
+              f"attn_stats{kname}{suffix}: {ms:.4f} ms (rounds {ms_all}) against the {gate} ms "
               f"gate{' and its plain version ' + f'{pms:.4f} ms' if suffix == '_train' else ''}")
-    log(f"kernel attn_stats{suffix} ({Bx} x {L}, d {d}, {attn_cuda.stats_tiles(L)} tiles a "
-        f"batch): two launches bit identical {same}, all-masked batch exactly 0 {zero} | "
+    log(f"kernel attn_stats{kname}{suffix} ({Bx} x {L}, d {d}, {H} heads of {d // H}, "
+        f"{attn_cuda.stats_tiles(L)} tiles a batch): two launches bit identical {same}, "
+        f"all-masked batch exactly 0 {zero} | "
         f"timing rounds {', '.join(f'{t:.4f}' for t in ms_all)} ms, plain "
         f"{', '.join(f'{t:.4f}' for t in pms_all)} ms"
         + (f" (gate {gate} ms on the best)" if gate is not None else ""))
@@ -708,9 +769,9 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     b_ms, b_by = bound(s_bytes, [(TF32_PASSES * s_proj, PEAK_TF32), (s_kv, PEAK_FP32)]
                        if fp32 else [(s_proj + s_kv, peak)])
     if fp32:
-        log(f"kernel attn_stats{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
+        log(f"kernel attn_stats{kname}{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
             f"bound {bound(s_bytes, [(s_proj + s_kv, PEAK_FP32)])[0]:.4f} ms")
-    records.append(dict(name="attn_stats" + suffix, err=err, max_abs_err=abs_err, ms=ms,
+    records.append(dict(name="attn_stats" + kname + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                         bar=f"{bars['stats']} rel", route="cuda", source=src,
                         replaces="scream_tpu/ops/attn_pallas.py:117"))
@@ -729,23 +790,24 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     abs_err = float((out.float() - outp.float())[m_bool].abs().max())
     # bf16: one ulp at the output's largest values is 2^-8..2^-7 of them, so a
     # single final-rounding flip reaches 4e-3..8e-3.
-    check(err <= bars["apply"], f"attn_apply{suffix}: relative error {err:.3g} > "
+    check(err <= bars["apply"], f"attn_apply{kname}{suffix}: relative error {err:.3g} > "
           f"{bars['apply']}")
     if fp32:  # no float atomics: a second launch gives the same bits
         same = bool(torch.equal(out, attn_cuda.attn_apply(*args, **kw)))
-        check(same, f"attn_apply{suffix}: two launches differ")
-        log(f"kernel attn_apply{suffix}: two launches bit identical {same}")
+        check(same, f"attn_apply{kname}{suffix}: two launches differ")
+        log(f"kernel attn_apply{kname}{suffix}: two launches bit identical {same}")
     gate = APPLY_GATE_MS.get(suffix)
-    if gate is None:
+    if gate is None and not (generic and rounds > 1):
         ms = cuda_ms(lambda: attn_cuda.attn_apply(*args, **kw))
         pms = cuda_ms(lambda: attn_cuda.attn_apply_plain(*args, **kw))
-    else:
-        ms, ms_all = timed(lambda: attn_cuda.attn_apply(*args, **kw))
-        pms, pms_all = timed(lambda: attn_cuda.attn_apply_plain(*args, **kw))
-        check(ms <= gate, f"attn_apply{suffix}: {ms:.4f} ms (rounds {ms_all}) against the "
-              f"{gate} ms gate")
-        log(f"kernel attn_apply{suffix} ({Bx} x {L}, d {d}): timing rounds "
-            f"{', '.join(f'{t:.4f}' for t in ms_all)} ms (gate {gate} ms on the best), plain "
+    else:  # gated, or a head-generic cell timed in rounds (best of them)
+        ms, ms_all = timed(lambda: attn_cuda.attn_apply(*args, **kw), rounds=rounds)
+        pms, pms_all = timed(lambda: attn_cuda.attn_apply_plain(*args, **kw), rounds=rounds)
+        check(gate is None or ms <= gate, f"attn_apply{kname}{suffix}: {ms:.4f} ms (rounds "
+              f"{ms_all}) against the {gate} ms gate")
+        log(f"kernel attn_apply{kname}{suffix} ({Bx} x {L}, d {d}): timing rounds "
+            f"{', '.join(f'{t:.4f}' for t in ms_all)} ms"
+            f"{f' (gate {gate} ms on the best)' if gate is not None else ''}, plain "
             f"{', '.join(f'{t:.4f}' for t in pms_all)} ms")
     a_bytes = 2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz \
         + Bx * (H * hd * hd + d) * 4 + 4 * d * 4
@@ -753,11 +815,11 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None):
     b_ms, b_by = bound(a_bytes, [(TF32_PASSES * a_prod, PEAK_TF32) if fp32 else (a_prod, peak),
                                  (a_att, PEAK_FP32)])
     if fp32:
-        log(f"kernel attn_apply{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
+        log(f"kernel attn_apply{kname}{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
             f"bound {bound(a_bytes, [(a_prod + a_att, PEAK_FP32)])[0]:.4f} ms")
-    records.append(dict(name="attn_apply" + suffix, err=err, max_abs_err=abs_err, ms=ms,
+    records.append(dict(name="attn_apply" + kname + suffix, err=err, max_abs_err=abs_err, ms=ms,
                         plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                        bar=f"{bars['apply']} rel", route="cuda", source=src,
+                        bar=f"{bars['apply']} rel", route="cuda", source=src_apply,
                         replaces="scream_tpu/ops/attn_pallas.py:147"))
 
     # The whole fused block against the literal plain block; in bf16 the
@@ -1102,9 +1164,10 @@ def phase_forward(model, batch):
         f"{err:.3e} (bar 5e-2)")
 
 
-def run_path(model, batches, icp_subsample, label="trained point-generator"):
-    """register_batch over distinct batches; returns (pairs/s, launch
-    counts, median RE in degrees)."""
+def run_path(model, batches, icp_subsample, label="trained point-generator",
+             kernels=PATH1_KERNELS):
+    """register_batch over distinct batches, each of ``kernels`` launched;
+    returns (pairs/s, launch counts, median RE in degrees)."""
     import torch
 
     from scream_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1129,7 +1192,7 @@ def run_path(model, batches, icp_subsample, label="trained point-generator"):
     finite = all(bool(torch.isfinite(x).all()) for m in outs
                  for x in (m.transform, m.re_deg, m.te))
     check(finite, "register_batch: non-finite output")
-    check(all(counts[k] > 0 for k in PATH1_KERNELS), f"a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in kernels), f"a kernel was not launched: {counts}")
     check(all(m.transform.shape == (B, 4, 4) for m in outs), "bad output shape")
     re = torch.cat([m.re_deg for m in outs])
     log(f"main path register_batch B={B} cap={CAP} icp_iters={ICP_ITERS} "
@@ -1977,15 +2040,15 @@ def phase_training(model, disc, batches):
                         train_launches_per_iteration_gan=per_iter)
 
 
-def dem_config(d=DEM_D):
-    """``opengf_presets()`` at d_model ``d`` (8 heads): the model config and
-    the train config (batch 8, GAN off)."""
+def dem_config(d=DEM_D, heads=8):
+    """``opengf_presets()`` at d_model ``d`` (8 heads, or ``heads``): the
+    model config and the train config (batch 8, GAN off)."""
     import dataclasses
 
     from scream_tpu_torch.config import opengf_presets
 
     model_cfg, train_cfg, _, _ = opengf_presets()
-    return dataclasses.replace(model_cfg, d_model=d), train_cfg
+    return dataclasses.replace(model_cfg, d_model=d, num_heads=heads), train_cfg
 
 
 def make_dem_items(n_batches, seed, batch=DEM_B, points=DEM_CAP):
@@ -2197,9 +2260,10 @@ def phase_dem_forward(model, batch):
         f"rel_err {err:.3e} (bar 5e-2)")
 
 
-def dem_step(device, init_state, batch, d=DEM_D):
-    """One ``make_dem_train_step`` (GAN off) at d_model ``d`` on ``device``
-    from the weights ``init_state``: (point_loss, gradient norm)."""
+def dem_step(device, init_state, batch, d=DEM_D, heads=8):
+    """One ``make_dem_train_step`` (GAN off) at d_model ``d`` (``heads``
+    heads) on ``device`` from the weights ``init_state``: (point_loss,
+    gradient norm)."""
     import torch
 
     from scream_tpu_torch.models import DEMTransformer
@@ -2207,7 +2271,7 @@ def dem_step(device, init_state, batch, d=DEM_D):
     from scream_tpu_torch.train import (generator_optimizer, init_train_state,
                                         make_dem_train_step)
 
-    model_cfg, tcfg = dem_config(d)
+    model_cfg, tcfg = dem_config(d, heads)
     model = DEMTransformer(model_cfg, device=device)
     model.load_state_dict(init_state)
     opt, sched = generator_optimizer(model.parameters(), tcfg, steps_per_epoch=1000)
@@ -2217,23 +2281,28 @@ def dem_step(device, init_state, batch, d=DEM_D):
     return float(metrics["point_loss"]), float(gnorm)
 
 
-def phase_dem_card_vs_cpu(init_state, batch, d=DEM_D, label="path 4"):
+def phase_dem_card_vs_cpu(init_state, batch, d=DEM_D, label="path 4", heads=8):
     """A DEM path on the card against the port's CPU path (plain bodies,
-    bf16): one DEM step at full depth, d_model ``d``, 2 x 1,024 (coarse
-    128). Bars, path 3's: point_loss 2e-2 relative, the gradient norm 5e-2
-    relative."""
+    bf16): one DEM step at full depth, d_model ``d`` (``heads`` heads), 2 x
+    1,024 (coarse 128). Bars, path 3's: point_loss 2e-2 relative, the
+    gradient norm 5e-2 relative. Returns the card step's launch counts."""
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+
     t0 = time.perf_counter()
-    card = dem_step(DEV, init_state, batch, d)
-    cpu = dem_step("cpu", init_state, batch, d)
+    reset_launch_counts()
+    card = dem_step(DEV, init_state, batch, d, heads)
+    counts = launch_counts()
+    cpu = dem_step("cpu", init_state, batch, d, heads)
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     e_loss, e_grad = rel(card[0], cpu[0]), rel(card[1], cpu[1])
     check(all(math.isfinite(v) for v in card + cpu) and e_loss <= 2e-2 and e_grad <= 5e-2,
           f"{label} card vs CPU path: point_loss {card[0]} / {cpu[0]}, grad norm "
           f"{card[1]} / {cpu[1]}")
-    log(f"{label} DEM step card vs CPU path (d {d}, 2 x 1,024, coarse 128): point_loss "
-        f"{card[0]:.6f} / {cpu[0]:.6f} (rel {e_loss:.2e}, bar 2e-2), grad norm "
+    log(f"{label} DEM step card vs CPU path (d {d}, {heads} heads, 2 x 1,024, coarse 128): "
+        f"point_loss {card[0]:.6f} / {cpu[0]:.6f} (rel {e_loss:.2e}, bar 2e-2), grad norm "
         f"{card[1]:.6f} / {cpu[1]:.6f} (rel {e_grad:.2e}, bar 5e-2) "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s) | card launches {json.dumps(counts)}")
+    return counts
 
 
 class ListData:
@@ -3459,28 +3528,43 @@ def cell_suffix(d, heads, dtype):
     return f"_d{d}_h{heads}" + ("_f32" if dtype == "float32" else "")
 
 
-def attention_cells(new_only):
-    """Every (d, heads, dtype) cell the attention kernels take, or only
-    those beyond d 128 / 256 with 8 heads and bf16 d 384 with 8 (which
-    paths 1-3, 7 and path 8's DEM phase check on real inputs)."""
-    return [(d, h, dt) for dt, widths in CELL_HEADS.items() for d, heads in widths.items()
-            for h in heads
-            if not new_only or not (h == 8 and (d < 384 or dt == "bfloat16"))]
+def attention_cells(kind):
+    """The (d, heads, dtype) cells of ``CELL_HEADS``: ``"all"``; the
+    head-specific kernels' beyond d 128 / 256 with 8 heads and bf16 d 384
+    with 8 (which paths 1-3, 7 and path 8's DEM phase check on real inputs),
+    ``"specific"``; or the head-generic pair's, ``"generic"`` (path 12)."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    cells = [(d, h, dt) for dt, widths in CELL_HEADS.items() for d, heads in widths.items()
+             for h in heads]
+    if kind == "all":
+        return cells
+    generic = lambda d, h, dt: not attn_cuda.head_cell(d, h, getattr(torch, dt))
+    if kind == "generic":
+        return [c for c in cells if generic(*c)]
+    return [(d, h, dt) for d, h, dt in cells if not generic(d, h, dt)
+            and not (h == 8 and (d < 384 or dt == "bfloat16"))]
 
 
-def phase_attention_cells(cells):
+def phase_attention_cells(cells, grads=(), timed_cells=None):
     """Kernels 1 and 2 against their plain versions at each (d, heads,
     dtype) of ``cells`` (check_attention, under that dtype's bars), on a
     seeded random-init block and input at the cell's shape, the first
-    batch's last 37 rows masked; then the kernels' launches in one forward
-    of a ``ModelConfig(d_model=d, num_heads=heads)`` PointTransformer (1 + 1
-    layers) at 2 x 1,024 points, the model route a user reaches the cell
-    by. Returns (records, launches by record name)."""
+    batch's last 37 rows masked; the fused block's gradients against the
+    plain block's at the bf16 (d, heads) of ``grads``; then the kernels'
+    launches in one forward of a ``ModelConfig(d_model=d, num_heads=heads)``
+    PointTransformer (1 + 1 layers) at 2 x 1,024 points, the model route a
+    user reaches the cell by (at a head-generic cell the head-generic
+    kernels' own counts). Stats are timed in TIME_ROUNDS rounds at the cells
+    of ``timed_cells`` (all if None), else one. Returns (records, launches
+    by record name)."""
     import torch
 
     from scream_tpu_torch.config import ModelConfig
     from scream_tpu_torch.models import AttentionBlock, PointTransformer
-    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.ops import attn_cuda, launch_counts, reset_launch_counts
 
     records, launches = [], {}
     g = torch.Generator(device=DEV).manual_seed(21)
@@ -3493,7 +3577,10 @@ def phase_attention_cells(cells):
         m[0, L - 37:] = False
         x = torch.randn((Bc, L, d), generator=g, device=DEV)
         suffix = cell_suffix(d, heads, dt)
-        records += check_attention(blk, m, suffix=suffix, x=x, dtype=cd)
+        rounds = TIME_ROUNDS if timed_cells is None or (d, heads, dt) in timed_cells else 1
+        records += check_attention(blk, m, suffix=suffix, x=x, dtype=cd, rounds=rounds)
+        if dt == "bfloat16" and (d, heads) in grads:
+            check_block_grads(blk, x, m, suffix)
         model = PointTransformer(ModelConfig(d_model=d, num_heads=heads, self_layers=1,
                                              cross_layers=1, dtype=dt), device=DEV,
                                  generator=torch.Generator().manual_seed(heads))
@@ -3504,15 +3591,19 @@ def phase_attention_cells(cells):
         with torch.no_grad():
             out = model(pts(), pts(), mask, mask)
         counts = launch_counts()
-        check(counts["attn_stats"] > 0 and counts["attn_apply"] > 0
+        kname = "" if attn_cuda.head_cell(d, heads, cd) else "_heads"
+        ks, ka = "attn_stats" + kname, "attn_apply" + kname
+        other = ("attn_stats_heads", "attn_apply_heads") if not kname else ("attn_stats",
+                                                                           "attn_apply")
+        check(counts[ks] > 0 and counts[ka] > 0 and all(counts[k] == 0 for k in other)
               and bool(torch.isfinite(out.float()).all()),
               f"ModelConfig(d_model={d}, num_heads={heads}, dtype={dt}) forward: launches "
               f"{counts}")
-        for k in ("attn_stats", "attn_apply"):
+        for k in (ks, ka):
             launches[k + suffix] = counts[k]
         log(f"cell d {d}, {heads} heads of {d // heads}, {dt}: one ModelConfig(d_model={d}, "
             f"num_heads={heads}) forward ({CELL_FORWARD_B} x {CELL_FORWARD_N}, 1 + 1 layers) "
-            f"launched stats {counts['attn_stats']}, apply {counts['attn_apply']}")
+            f"launched {ks} {counts[ks]}, {ka} {counts[ka]}")
         del blk, model
     log_records(records)
     return records, launches
@@ -3668,7 +3759,7 @@ def path8(smi):
                                          kernels=("attn_stats", "attn_apply"))
     del trainer
     torch.cuda.empty_cache()
-    cell_records, launches = phase_attention_cells(attention_cells(new_only=True))
+    cell_records, launches = phase_attention_cells(attention_cells("specific"))
     launches.update(attn_stats_d384=counts["attn_stats"], attn_apply_d384=counts["attn_apply"])
     cli_counts = phase_cli_d384()
     log(f"path 8 took {time.perf_counter() - t0:.1f} s")
@@ -3677,6 +3768,189 @@ def path8(smi):
         "d384_train_stage_ms": results["dem_train_stage_ms"],
         "d384_train_launches_per_iteration": results["dem_train_launches_per_iteration"],
         "d384_cli_launches": cli_counts}
+
+
+def path12_register(smi):
+    """Path 12 (a): ``register_batch`` at path 1's 16 x 4,096 with a seeded
+    random-init ``ModelConfig(num_heads=2)`` (d 256, 6 + 6 layers, bf16):
+    the forward against the same weights' plain-body forward (5e-2), 24
+    launches of each head-generic kernel a forward, two calls' transforms
+    bit for bit, pairs/s (not gated); (e) checks the kernels at this shape.
+    Returns (the timed calls' launch counts, results)."""
+    import dataclasses
+
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import gt_center_hint, register_batch, to_device
+
+    cfg = ModelConfig(num_heads=HEADS_MAIN)
+    model = PointTransformer(cfg, device=DEV,
+                             generator=torch.Generator().manual_seed(1200)).eval()
+    batches = make_batches(TIMED_BATCHES + 2, seed=1200)
+    tb = to_device(batches[-1], DEV)
+    plain = PointTransformer(dataclasses.replace(cfg, fused_attention=False,
+                                                 fused_block_tail=False), device=DEV).eval()
+    plain.load_state_dict(model.state_dict())
+    args = (tb["src"], tb["tgt"], tb["src_mask"], tb["tgt_mask"],
+            gt_center_hint(tb["rot"], tb["trans"]))
+    reset_launch_counts()
+    with torch.no_grad():
+        a = model(*args)
+        counts = launch_counts()
+        b = plain(*args)
+    err = rel_err(a, b, rows=tb["src_mask"])
+    del plain
+    check(math.isfinite(err) and err <= 5e-2 and counts["attn_stats_heads"] == 24
+          and counts["attn_apply_heads"] == 24 and counts["attn_stats"] == 0
+          and counts["attn_apply"] == 0,
+          f"path 12 forward ({HEADS_MAIN} heads): fused vs plain body {err:.3g} (bar 5e-2), "
+          f"launches {counts}")
+    log(f"path 12 forward ({B} x {CAP}, d 256, {HEADS_MAIN} heads of {256 // HEADS_MAIN}, "
+        f"6 + 6 layers): head-generic kernels vs plain body rel_err {err:.3e} (bar 5e-2) | "
+        f"launches {json.dumps(counts)}")
+    kw = dict(icp_max_iter=ICP_ITERS, device=DEV)
+    t1, t2 = (register_batch(model, batches[-1], **kw).transform.cpu() for _ in range(2))
+    check(torch.equal(t1, t2), "path 12 register_batch: two calls' transforms differ")
+    pps, run_counts, _ = run_path(model, batches[:TIMED_BATCHES + 1], None,
+                                  label=f"random init, {HEADS_MAIN} heads",
+                                  kernels=PATH12_KERNELS)
+    log(f"path 12 register_batch at {HEADS_MAIN} heads: two calls' transforms bit for bit "
+        f"True | {pps:.2f} pairs/s (not gated) on {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return run_counts, {"heads2_register_pairs_per_s": pps, "heads2_forward_vs_plain": err}
+
+
+def path12_cli():
+    """Path 12 (b): the hint-free weights saved (``save_params``) under
+    WORK_DIR with the sidecar's architecture at 16 heads (head dim 8; the
+    weights do not depend on the head count), ``python -m scream_tpu_torch
+    register --params`` on one pair in a subprocess, its transform within
+    1e-5 of the in-process ``register_pair``, the head-generic kernels
+    launched. Returns the CLI's launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from scream_tpu_torch.pipeline import register_pair
+    from scream_tpu_torch.utils.checkpoint import load_params, save_params
+
+    cfg, normalize, state = load_params(HINTFREE)
+    ck = os.path.join(WORK_DIR, f"hintfree_heads{HEADS_SERVE}")
+    save_params(ck, state, dict(d_model=cfg.d_model, num_heads=HEADS_SERVE,
+                                self_layers=cfg.self_layers, cross_layers=cfg.cross_layers,
+                                normalize=normalize))
+    try:
+        model, normalize = load_weights(ck, DEV)
+        check(model.cfg.num_heads == HEADS_SERVE, f"sidecar heads {model.cfg.num_heads}")
+        pair = make_gt_free_pairs(1, GT_FREE_POINTS, 1201)[0]
+        src, tgt = (os.path.join(ck, f"{k}.npy") for k in ("src", "tgt"))
+        np.save(src, pair["src"])
+        np.save(tgt, pair["tgt"])
+        stdout, stderr, wall = run_parallel({"register": [
+            "-c", CLI_COUNTED, "register", "--src", src, "--tgt", tgt, "--params", ck,
+            "--device", DEV]}, timeout=300)["register"]
+        out = json.loads(stdout.strip().splitlines()[-1])
+        counts = cli_launches(stderr, "path 12 register")
+        ref = register_pair(model, pair["src"], pair["tgt"], normalize=normalize, passes=2,
+                            device=DEV)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    err = float(np.abs(np.asarray(out["transform"], np.float32) - ref.transform).max())
+    check(err <= 1e-5 and out["n_corr"] == ref.n_corr and counts["attn_stats_heads"] > 0
+          and counts["attn_apply_heads"] > 0,
+          f"path 12 register CLI at {HEADS_SERVE} heads: transform error {err:.3g}, n_corr "
+          f"{out['n_corr']} vs {ref.n_corr}, launches {counts}")
+    log(f"path 12 cli: register --params (hint-free architecture, {HEADS_SERVE} heads of "
+        f"{cfg.d_model // HEADS_SERVE}) ({wall:.1f} s, subprocess): transform vs in-process max "
+        f"err {err:.2e} (bar 1e-5), n_corr equal | launches {json.dumps(counts)}")
+    return counts
+
+
+def path12_f32():
+    """Path 12 (c): a seeded random-init ``ModelConfig(d_model=256,
+    num_heads=32, dtype="float32")`` (head dim 8, 6 + 6 layers) forward at
+    16 x 4,096 on the card, its first HEADS_CPU_PAIRS pairs against the
+    port's CPU path (1e-4). Returns the forward's launch counts."""
+    import torch
+
+    from scream_tpu_torch.config import ModelConfig
+    from scream_tpu_torch.models import PointTransformer
+    from scream_tpu_torch.ops import launch_counts, reset_launch_counts
+    from scream_tpu_torch.pipeline.register import gt_center_hint, to_device
+
+    cfg = ModelConfig(d_model=256, num_heads=HEADS_F32, dtype="float32")
+    model = PointTransformer(cfg, device=DEV,
+                             generator=torch.Generator().manual_seed(1202)).eval()
+    batch = make_batches(1, seed=1202)[0]
+    tb = to_device(batch, DEV)
+    args = lambda t: (t["src"], t["tgt"], t["src_mask"], t["tgt_mask"],
+                      gt_center_hint(t["rot"], t["trans"]))
+    reset_launch_counts()
+    with torch.no_grad():
+        card = model(*args(tb))
+    counts = launch_counts()
+    cpu_model = PointTransformer(cfg, device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    n = HEADS_CPU_PAIRS
+    tc = to_device({k: v[:n] for k, v in batch.items()}, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = cpu_model(*args(tc))
+    err = rel_err(card[:n].cpu(), cpu, rows=tc["src_mask"])
+    check(math.isfinite(err) and err <= FP32_BARS["forward"] and counts["attn_stats_heads"] == 24
+          and counts["attn_apply_heads"] == 24,
+          f"path 12 fp32 forward ({HEADS_F32} heads): card vs CPU path {err:.3g} (bar "
+          f"{FP32_BARS['forward']}), launches {counts}")
+    log(f"path 12 fp32 forward ({B} x {CAP}, d 256, {HEADS_F32} heads of {256 // HEADS_F32}, "
+        f"6 + 6 layers): card vs CPU path on {n} pairs rel_err {err:.3e} (bar "
+        f"{FP32_BARS['forward']}; CPU {time.perf_counter() - t0:.1f} s) | launches "
+        f"{json.dumps(counts)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return counts, err
+
+
+def path12(smi):
+    """Path 12: the head-generic pair at every head count the JAX rule
+    admits (csrc/attn_heads.cu). Returns (records, launches by record name,
+    results)."""
+    import torch
+
+    from scream_tpu_torch.models import DEMTransformer
+
+    t0 = time.perf_counter()
+    log(f"path 12 (the head-generic attention kernels, every head count) on {smi}")
+    reg_counts, results = path12_register(smi)
+    cli_counts = path12_cli()
+    f32_counts, f32_err = path12_f32()
+    # (d) one DEM step at d 384, 16 heads of 24, card vs CPU path.
+    model_cfg, _ = dem_config(D384, HEADS_DEM)
+    init = DEMTransformer(model_cfg, device="cpu", generator=torch.Generator().manual_seed(1203))
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    small = dem_batch(make_dem_items(1, seed=1000, batch=2, points=1024)[0], cap=1024,
+                      coarse=128)
+    dem_counts = phase_dem_card_vs_cpu(init_state, small, d=D384, label="path 12",
+                                       heads=HEADS_DEM)
+    check(dem_counts["attn_stats_heads"] > 0 and dem_counts["attn_apply_heads"] > 0,
+          f"path 12 DEM step: the head-generic kernels were not launched: {dem_counts}")
+    # (e) every cell; launches of the PERF.md rows' cells from (b)-(d).
+    cell_records, cell_launches = phase_attention_cells(
+        attention_cells("generic"), grads=HEADS_GRADS, timed_cells=HEADS_TIMED)
+    for suffix, counts in ((cell_suffix(256, HEADS_MAIN, "bfloat16"), reg_counts),
+                           (cell_suffix(128, HEADS_SERVE, "bfloat16"), cli_counts),
+                           (cell_suffix(256, HEADS_F32, "float32"), f32_counts),
+                           (cell_suffix(D384, HEADS_DEM, "bfloat16"), dem_counts)):
+        for k in ("attn_stats_heads", "attn_apply_heads"):
+            cell_launches[k + suffix] = counts[k]
+    secs = time.perf_counter() - t0
+    log(f"path 12 took {secs:.1f} s: {len(cell_records) // 2} cells within their bars")
+    results.update(path12_s=secs, heads_f32_forward_vs_cpu=f32_err,
+                   heads_cli_launches=cli_counts, heads_dem_step_launches=dem_counts)
+    return cell_records, cell_launches, results
 
 
 def phase_tail_widths():
@@ -3773,7 +4047,7 @@ def phase_apply_cells():
     batch = make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1]
     log_records(check_attention(model.trunk.stem_0, to_device(batch, DEV)["tgt_mask"]))
     del model
-    phase_attention_cells(attention_cells(new_only=False))
+    phase_attention_cells(attention_cells("all"))
 
 
 def make_scans():
@@ -5015,7 +5289,8 @@ def run_only(names, smi):
     included, and at every (d, heads, dtype) cell (``apply``); or path 6
     (``ingest``), path 7 (``fp32``), path 8 (``d384``), path 9
     (``multiway``, with its CPU references' child process), path 10
-    (``tools``) or path 11 (``mesh``) whole. No result line is printed."""
+    (``tools``), path 11 (``mesh``) or path 12 (``heads``) whole. No result
+    line is printed."""
     if "nn_exact" in names:
         rec = check_exact_path1(make_batches(2 * (TIMED_BATCHES + 1) + 1, seed=0)[-1])
         log("kernels on exact ties: "
@@ -5033,6 +5308,8 @@ def run_only(names, smi):
         phase_ffn_mult_cells(("apply",))
     if "d384" in names:
         path8(smi)
+    if "heads" in names:
+        path12(smi)
     if "multiway" in names:
         child = start_path9_cpu()
         try:
@@ -5158,6 +5435,10 @@ def main():
         d384_records, d384_launches, d384_results = path8(smi)
         records += d384_records
 
+        # Path 12: the head-generic kernels at every other head count.
+        heads_records, heads_launches, heads_results = path12(smi)
+        records += heads_records
+
         # Path 9: multiway, the robust measurement, multi-scale training,
         # the geometry library; then the comparisons with the CPU references.
         mw_records, mw_launches, mw_results = path9(smi, child)
@@ -5192,7 +5473,7 @@ def main():
         "block_tail_f32": f32_counts["train_cli"]["block_tail"],
         # launched by the fp32 tail's own C call, once before each tail
         "pack_tail_f32": f32_counts["train_cli"]["block_tail"], **d384_launches,
-        **mw_launches}
+        **heads_launches, **mw_launches}
     kernels = []
     for r in records:
         if r["name"] not in launches_of:
@@ -5214,7 +5495,7 @@ def main():
                     "launches_evaluate": eval_counts, **evaluation,
                     "launches_ingest_evaluate": ingest_eval_counts,
                     "launches_raw_kitti_refinement": raw_counts, **ingestion,
-                    **f32_results, **d384_results, **mw_results, **tools,
+                    **f32_results, **d384_results, **heads_results, **mw_results, **tools,
                     **mesh_results}, default=float))
     log(json.dumps({"kernels": kernels}))
     log(smi)

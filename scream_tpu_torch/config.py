@@ -51,7 +51,8 @@ class ModelConfig:
     # Fused attention-block kernels (ops/attn_cuda.py). None = auto: on
     # CUDA tensors the kernels run wherever the JAX rule
     # (``ops.attn_cuda.jax_fusable_block``) admits the fused block, and a
-    # shape the kernels do not take (fp32, other head dims) raises
+    # shape the kernels do not take (bf16 d 512 at ffn_mult 1-2, fp32 d 384
+    # at ffn_mult 1-3; every head count dividing d is taken) raises
     # NotImplementedError; False asks for the plain attention and leaves
     # the tail to fused_block_tail, as in the JAX package. When it fires it
     # subsumes the tail kernel.

@@ -79,6 +79,11 @@
 // head dim, so each attends its own heads with no exchange. In the apply
 // kernel a row's head dims lie in one quad of lanes at every width.
 //
+// The other head counts go to the head-generic kernels (attn_heads.cu,
+// attn_heads_apply.cu), whose stats run this file's projection at head dim
+// 64 (launch_projection64): [Wk|Wv] in 64-column groups, whatever the head
+// count.
+//
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py):
 // (d, heads) a cell of ATTN_CELLS, hidden a multiple of 128, all tensors
 // contiguous, bf16 activations and weights ((in, out) row-major, packed by
@@ -507,9 +512,10 @@ attn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+// Stats, pass 1 alone: the projection into the workspace kvw.
 template <int D, int HD>
-int launch_stats(const void* x, const void* mask, const void* wpack, void* kvw, void* kv,
-                 void* ksum, int B, int S, cudaStream_t stream) {
+int launch_projection(const void* x, const void* mask, const void* wpack, void* kvw, int B,
+                      int S, cudaStream_t stream) {
   using C = Stats<D, HD>;
   const int nitems = B * ((S + TM - 1) / TM);
   cudaError_t err = cudaFuncSetAttribute(
@@ -518,7 +524,14 @@ int launch_stats(const void* x, const void* mask, const void* wpack, void* kvw, 
   const int grid = nitems < tail::num_sms() ? nitems : tail::num_sms();
   attn_stats_kernel<D, HD><<<grid, tail::kThreads, C::BYTES, stream>>>(
       (const bf16*)x, (const float*)mask, (const unsigned char*)wpack, (bf16*)kvw, S, nitems);
-  err = cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+template <int D, int HD>
+int launch_stats(const void* x, const void* mask, const void* wpack, void* kvw, void* kv,
+                 void* ksum, int B, int S, cudaStream_t stream) {
+  using C = Stats<D, HD>;
+  cudaError_t err = (cudaError_t)launch_projection<D, HD>(x, mask, wpack, kvw, B, S, stream);
   if (err != cudaSuccess) return (int)err;
   constexpr int smem = C::SUM_ST * C::SUM_TILE;
   err = cudaFuncSetAttribute(attn_stats_reduce_kernel<D, HD>,
@@ -560,6 +573,26 @@ bool attn_cell(int d, int heads) {
 }
 
 }  // namespace
+
+// The projection of the stats at head dim 64 alone, for the head-generic
+// stats of attn_heads.cu: x (B, S, d) bf16, d 128, 256 or 384, wpack from
+// scream_pack_stats at d / 64 heads ([Wk|Wv] in 64-column groups [k_g |
+// v_g]) -> kvw (B, d / 64, Sp, 128) bf16, group g's rows K'[:, 64 g ..
+// 64 g + 63] | V[:, 64 g .. 64 g + 63], Sp = S rounded up to 128, rows at
+// or past S zero. Whatever the model's head count: the projection does not
+// depend on it. One launch.
+namespace scream {
+namespace attn {
+int launch_projection64(const void* x, const void* mask, const void* wpack, void* kvw, int B,
+                        int S, int d, cudaStream_t stream) {
+  if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (d == 128) return launch_projection<128, 64>(x, mask, wpack, kvw, B, S, stream);
+  if (d == 256) return launch_projection<256, 64>(x, mask, wpack, kvw, B, S, stream);
+  if (d == 384) return launch_projection<384, 64>(x, mask, wpack, kvw, B, S, stream);
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace attn
+}  // namespace scream
 
 extern "C" {
 

@@ -110,8 +110,9 @@ struct Stats {
   static constexpr int X = 0, P = X + TM * D * 4, MS = P + TM * LDP * 4;
   using S = Smem<MS + TM * 4>;
   static constexpr int JT = HPG * HD * HD / 256;      // KV outputs a thread, per group
-  static_assert(HPG * 2 * HD == GC && JT % 4 == 0 && HD % JT == 0 && KS_G * GC == 4096,
-                "stats: whole heads a group, a thread's KV outputs in one row");
+  static_assert(HPG * 2 * HD == GC && JT % 4 == 0 && HD % JT == 0 && KS_G == 32 && GC == 128,
+                "stats: whole heads a group, a thread's KV outputs in one row, "
+                "tf32_tile.cuh:project_kv's stages");
 };
 
 // Apply at width D, head dim HD: the tail's geometry (tf32_tail.cuh:Block;
@@ -149,14 +150,7 @@ attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
 
   if (threadIdx.x >= 128 * tail::kConsumers) {
     hopper::setmaxnreg_dec<tail::kProducerRegs>();
-    if (threadIdx.x == 128 * tail::kConsumers) {
-      typename C::S::Ring ring = ring0;
-      for (int it = blockIdx.x; it < nitems; it += gridDim.x)
-        for (int st = 0; st < C::NS; ++st) {
-          ring.fill(wpack + (size_t)st * (kStage / 4));
-          ring.advance();
-        }
-    }
+    if (threadIdx.x == 128 * tail::kConsumers) tf32::fill_items(ring0, wpack, C::NS, nitems);
     return;
   }
   hopper::setmaxnreg_inc<tail::kConsumerRegs>();
@@ -175,32 +169,19 @@ attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
   for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
     const int b = it / nt, tile = it % nt, row0 = tile * TM;
     const int nvalid = S - row0 < TM ? S - row0 : TM;
-    hopper::named_sync(1, 256);  // the last item's reads of X, P and ms are done
-    tf32::load_tile<D>(X, x + ((size_t)b * S + row0) * D, nvalid, tid, 256);
-    if (tid < TM) ms[tid] = tid < nvalid ? mask[(size_t)b * S + row0 + tid] : 0.f;
-    hopper::named_sync(1, 256);
-    const float m[2] = {ms[r0], ms[r0 + 8]};
     float* slot = ws + ((size_t)b * nt + tile) * PER;
-#pragma unroll 1
-    for (int grp = 0; grp < C::G; ++grp) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-      tf32::ring_mma3<64, KS_G, D, GC>(acc, c, ring, C::SP, X, 32 * 64 * cp, wt);
-      // acc[4 j + 2 hh + e]: row r0 + 8 hh, group column 64 cp + 8 j + 2 t + e.
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bool is_k = (64 * cp + 8 * j) % (2 * HD) < HD;
-#pragma unroll
-        for (int i = 4 * j; i < 4 * j + 4; ++i)
-          acc[i] = (is_k ? tf32::elu1(acc[i]) : acc[i]) * m[(i >> 1) & 1];
-      }
+    // Per group the tile's K' | V (tf32_tile.cuh:project_kv), then its
+    // partial sums over the tile's rows.
+    tf32::project_kv<D, HD>(acc, c, ring, X, ms, x + ((size_t)b * S + row0) * D,
+                            mask + (size_t)b * S + row0, nvalid, tid,
+                            [&](int grp, const float(&a)[32]) {
       hopper::named_sync(1, 256);  // every read of P for the last group is done
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           *reinterpret_cast<float2*>(P + (r0 + 8 * hh) * LDP + 64 * cp + 8 * j + 2 * t) =
-              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+              make_float2(a[4 * j + 2 * hh], a[4 * j + 2 * hh + 1]);
       hopper::named_sync(1, 256);
       // The tile's partial sums over its rows, in row order.
       {
@@ -235,11 +216,12 @@ attn_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ mas
         for (int r = 0; r < TM; ++r) s += kcol[r * LDP];
         slot[H * HD * HD + (grp * HPG + sh) * HD + si] = s;
       }
-    }
+    });
   }
 }
 
-// out[b][e] = sum over the tiles t = 0, 1, ... of ws[b][t][e], in tile order.
+// out[b][e] = sum over the slots t = 0, 1, ... of ws[b][t][e], in slot order
+// (tf32_tile.cuh:launch_reduce_slots).
 __global__ void attn_stats_f32_reduce_kernel(const float* __restrict__ ws, float* __restrict__ kv,
                                              float* __restrict__ ksum, int B, int nt, int per,
                                              int nkv) {
@@ -483,10 +465,8 @@ int launch_stats(const void* x, const void* mask, const void* wpack, void* ws, v
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  const int n = B * C::PER;
-  attn_stats_f32_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      (const float*)ws, (float*)kv, (float*)ksum, B, nt, C::PER, C::H * HD * HD);
-  return (int)cudaGetLastError();
+  return tf32::launch_reduce_slots((const float*)ws, (float*)kv, (float*)ksum, B, nt, C::PER,
+                                   C::H * HD * HD, stream);
 }
 
 template <int D, int HD>
@@ -534,6 +514,20 @@ int scream::tf32::launch_pack_block(const void* wq, const void* wm, const void* 
       (unsigned)d, (unsigned)hid, g);
   return (int)cudaGetLastError();
 }
+
+namespace scream {
+namespace tf32 {
+
+int launch_reduce_slots(const float* part, float* kv, float* ksum, int B, int nslots, int per,
+                        int nkv, cudaStream_t stream) {
+  const int n = B * per;
+  attn_stats_f32_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, kv, ksum, B, nslots,
+                                                                     per, nkv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
+}  // namespace scream
 
 extern "C" {
 

@@ -252,5 +252,62 @@ __device__ __forceinline__ void ring_mma3(float (&m)[MN], float (&c)[CN], RingT&
   }
 }
 
+// The fp32 stats projections (attn_f32.cu's attn_stats_f32_kernel and
+// attn_heads.cu's heads_proj_f32_kernel) share the two halves below. Each
+// item is a 64-row tile times the packed [Wk|Wv] of pack_stats_f32_kernel:
+// per 128-column group, D / 32 stages of 32 k-rows.
+
+// attn_f32.cu (attn_stats_f32_reduce_kernel), the last launch of the fp32
+// stats and of attn_heads.cu's stats: out[b][e] = the sum over the slots s
+// = 0 .. nslots - 1 of part[b][s][e] in slot order, e < nkv into kv (B nkv
+// floats), the rest into ksum.
+int launch_reduce_slots(const float* part, float* kv, float* ksum, int B, int nslots, int per,
+                        int nkv, cudaStream_t stream);
+
+// The producer thread: the ns stages of wpack in order, item after item.
+template <class RingT>
+__device__ __forceinline__ void fill_items(RingT ring, const float* wpack, int ns, int nitems) {
+  for (int it = blockIdx.x; it < nitems; it += gridDim.x)
+    for (int st = 0; st < ns; ++st) {
+      ring.fill(wpack + (size_t)st * (kStage / 4));
+      ring.advance();
+    }
+}
+
+// The two consumer warpgroups (thread tid of 256) on one item: the tile's
+// nvalid rows of x (the rest zero) into X and their mask into ms, then per
+// group the tile times the group's columns on ring_mma3, elu1 where a
+// column is a K' column (group column n, n mod 2 HD < HD), times the row's
+// mask, and out(grp, acc): acc[4 j + 2 hh + e] is row r0 + 8 hh and group
+// column 64 cp + 8 j + 2 t + e of warpgroup cp. Its first sync waits for
+// the last item's reads of X and ms; out syncs around what else it shares.
+template <int D, int HD, class RingT, class Out>
+__device__ __forceinline__ void project_kv(float (&acc)[32], float (&c)[32], RingT& ring,
+                                           float* X, float* ms, const float* __restrict__ x,
+                                           const float* __restrict__ mask, int nvalid, int tid,
+                                           Out out) {
+  const int cp = tid >> 7, wt = tid & 127;
+  const int r0 = 16 * (wt >> 5) + ((wt & 31) >> 2);
+  hopper::named_sync(1, 256);
+  load_tile<D>(X, x, nvalid, tid, 256);
+  if (tid < 64) ms[tid] = tid < nvalid ? mask[tid] : 0.f;
+  hopper::named_sync(1, 256);
+  const float m[2] = {ms[r0], ms[r0 + 8]};
+#pragma unroll 1
+  for (int grp = 0; grp < 2 * D / 128; ++grp) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    ring_mma3<64, 32, D, 128>(acc, c, ring, D / 32, X, 32 * 64 * cp, wt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool is_k = (64 * cp + 8 * j) % (2 * HD) < HD;
+#pragma unroll
+      for (int i = 4 * j; i < 4 * j + 4; ++i)
+        acc[i] = (is_k ? elu1(acc[i]) : acc[i]) * m[(i >> 1) & 1];
+    }
+    out(grp, acc);
+  }
+}
+
 }  // namespace tf32
 }  // namespace scream

@@ -118,13 +118,12 @@ def route_block(d: int, hid: int, num_heads: int, dtype: torch.dtype,
         if on_cuda and not attn_cuda.kernels_take(d, hid, num_heads, dtype):
             raise NotImplementedError(
                 f"fused attention block at d_model {d}, hidden {hid}, {num_heads} heads "
-                f"(head dim {d // num_heads}), {dtype}: the CUDA kernels take d_model -> "
-                f"head dims {attn_cuda.KERNEL_CELLS.get(dtype, {})} at a hidden width "
-                "a multiple of 128; the cells the JAX rule admits beyond them (bf16 "
-                "d_model 512 at ffn_mult 1-2, fp32 d_model 384 at ffn_mult 1-3, and "
-                "head dims below 16, above 64, or 24) are queued in ROADMAP.md (TPU "
-                "kernels still to port); pass fused_attention=False for the plain "
-                "attention")
+                f"(head dim {d // num_heads}), {dtype}: the CUDA kernels take d_model "
+                f"{attn_cuda.HEADS_WIDTHS.get(dtype, ())} at any head count dividing it "
+                "and a hidden width a multiple of 128; the cells the JAX rule admits "
+                "beyond them (bf16 d_model 512 at ffn_mult 1-2, fp32 d_model 384 at "
+                "ffn_mult 1-3) are queued in ROADMAP.md (TPU kernels still to port); "
+                "pass fused_attention=False for the plain attention")
         return "fused"
     tail = fused_tail if fused_tail is not None else (
         on_cuda and jax_fusable_tail(d, hid, dtype))

@@ -73,15 +73,30 @@ def library_path() -> Path:
 
 
 def _run_all(cmds, timeout=900):
-    """Run the commands at once; (return code, output) of each, in order.
-    Every process still running when this returns or raises is killed."""
-    procs = []
+    """Run the commands at once; (return code, output, wall seconds) of
+    each, in order. Every process still running when this returns or raises
+    is killed."""
+    procs, done = [], {}
+
+    def wait(i, p, t0):
+        try:
+            out = p.communicate(timeout=timeout)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0]
+        done[i] = (p.returncode, out, time.perf_counter() - t0)
+
+    threads = []
     try:
-        for cmd in cmds:
+        for i, cmd in enumerate(cmds):
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-        return [(p.returncode, o) for p, o in zip(procs, outs)]
+            threads.append(threading.Thread(target=wait, daemon=True,
+                                            args=(i, procs[-1], time.perf_counter())))
+            threads[-1].start()
+        for th in threads:
+            th.join()
+        return [done[i] for i in range(len(cmds))]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -92,7 +107,8 @@ def _run_all(cmds, timeout=900):
 def build() -> Path:
     """Compile the sources if this exact tree has no library yet: one nvcc
     process a source, all at once, then the link. nvcc's reports, in source
-    order, are kept beside the library and read back with it."""
+    order, each after a line ``nvcc <source>: <seconds> s``, are kept beside
+    the library and read back with it."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
@@ -110,8 +126,8 @@ def build() -> Path:
         link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
         logs = []
         for cmds in (compiles, [link]):
-            for cmd, (rc, log) in zip(cmds, _run_all(cmds)):
-                logs.append(log)
+            for cmd, (rc, log, secs) in zip(cmds, _run_all(cmds)):
+                logs.append(f"nvcc {Path(cmd[-1]).name}: {secs:.1f} s\n{log}")
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{log}")
     finally:
@@ -143,6 +159,10 @@ SIGNATURES = {
     "scream_attn_apply_f32": [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
     "scream_pack_block_f32": [_P] * 5 + [_I, _I, _P],
     "scream_block_tail_f32": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    "scream_attn_stats_heads": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "scream_attn_stats_heads_f32": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "scream_attn_apply_heads": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _F, _P],
+    "scream_attn_apply_heads_f32": [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
 }
 
 

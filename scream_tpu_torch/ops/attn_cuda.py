@@ -19,11 +19,14 @@ hand-written kernels (``csrc/attn.cu``), port of ``scream_tpu/ops/attn_pallas.py
   (``csrc/tail_tile.cuh``); its weights stream through a shared-memory ring,
   packed by ``ops/tail_cuda.py:pack_weights``.
 
-The kernels take the cells of ``KERNEL_CELLS`` (:func:`kernels_take`): in
-bf16, d_model 128 and 256 with head dim 16, 32 or 64 and d_model 384 with
-head dim 16, 32, 48 or 64 (8 heads of 48 at ``--d-model 384``); in fp32,
-d_model 128 and 256 with head dim 16, 32 or 64. The fp32 configuration has
-its own pair, ``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
+The kernels take every head count dividing d_model at the widths of
+``HEADS_WIDTHS`` (:func:`kernels_take`, ``KERNEL_CELLS``): bf16 at d_model
+128, 256 and 384, fp32 at 128 and 256. The head-specific kernels take the
+cells of ``HEAD_CELLS`` (templates on (d, head dim)): in bf16, d_model 128
+and 256 with head dim 16, 32 or 64 and d_model 384 with head dim 16, 32, 48
+or 64 (8 heads of 48 at ``--d-model 384``); in fp32, d_model 128 and 256
+with head dim 16, 32 or 64. The fp32 configuration has its own pair,
+``csrc/attn_f32.cu`` (``attn_stats_f32_kernel`` with
 ``attn_stats_f32_reduce_kernel``, and ``attn_apply_f32_kernel``): every
 product on the tensor cores as split-TF32 ("3xTF32") wgmma, each operand
 ``hi + lo`` (:func:`split_tf32`) and each product ``lo hi + hi lo + hi hi``
@@ -31,12 +34,24 @@ into an accumulator promoted into an fp32 master sum every
 ``F32_PROMOTE_K`` k values; the weights split and packed once per call
 (:func:`pack_stats_weights_f32`, :func:`pack_block_weights_f32`, the
 latter the fp32 tail kernel's too, without ``Wq``), the stats summed per
-64-row tile and then over the tiles in tile order. Each
-wrapper dispatches on
-the compute dtype, launches its kernel for CUDA tensors (raising on what the
-kernel does not take) and runs its plain PyTorch version, defined beside it,
-only for CPU tensors. The stats are kept per head, ``(B, H, hd, hd)``: the
-TPU kernel's full ``d x d`` KV has zeros outside those diagonal blocks.
+64-row tile and then over the tiles in tile order. Every other head count
+(head dim 1-12, 24, 96-384) goes to the head-generic pair, templated on
+d_model only (:func:`attn_stats_heads`, ``csrc/attn_heads.cu``;
+:func:`attn_apply_heads`, ``csrc/attn_heads_apply.cu`` and
+``csrc/attn_heads_apply_f32.cu``): the stats project ``[k|v]`` on the
+head-specific kernels' wgmma pipelines in 64-column groups, whatever the
+head count, and sum each head's ``K'^T V`` on fp32 FMA per chunk of
+``HEADS_CHUNK`` rows in row order, then the chunks in chunk order (a CPU
+model of that order is ``tests/test_torch_port_heads_any.py``'s); apply
+attends on fp32 FMA with the KV streamed through shared memory 32 rows a
+pass, then runs the head-specific kernels' tail.
+Each wrapper dispatches on the compute dtype and the cell, launches its
+kernel for CUDA tensors (raising on what no kernel takes) and runs its
+plain PyTorch version, defined beside it, only for CPU tensors. Its
+``launches`` counts its own kernel's launches alone: a cell that
+:func:`attn_stats` hands to :func:`attn_stats_heads` counts there. The stats
+are kept per head, ``(B, H, hd, hd)``: the TPU kernel's full ``d x d`` KV
+has zeros outside those diagonal blocks.
 
 The backward of :func:`attention_block_fused` recomputes the plain unfused
 block (:func:`block_plain`) and differentiates it, as the JAX package's
@@ -51,14 +66,24 @@ from scream_tpu_torch.ops import _build
 from scream_tpu_torch.ops.ffn import _TILE_R, _VMEM_BUDGET, tail_plain
 from scream_tpu_torch.ops.tail_cuda import KERNEL_WIDTHS_F32, pack_weights
 
-# What the CUDA kernels take: per compute dtype, d_model -> the head dims
-# (d_model / heads) of its instantiations (csrc/attn.cu ATTN_CELLS,
-# csrc/attn_f32.cu ATTN_F32_CELLS), with a hidden width in 128-column
-# chunks. Every other cell the JAX rule admits is still to port (ROADMAP.md).
-KERNEL_CELLS = {
+# The head-specific kernels' cells: per compute dtype, d_model -> the head
+# dims (d_model / heads) of their instantiations (csrc/attn.cu ATTN_CELLS,
+# csrc/attn_f32.cu ATTN_F32_CELLS); their bits are the ones path 2's GT-free
+# gate was set on (PERF.md).
+HEAD_CELLS = {
     torch.bfloat16: {128: (16, 32, 64), 256: (16, 32, 64), 384: (16, 32, 48, 64)},
     torch.float32: {128: (16, 32, 64), 256: (16, 32, 64)},
 }
+# The widths of the head-generic pair (csrc/attn_heads.cu), which takes every
+# head count; with a hidden width in 128-column chunks. KERNEL_CELLS: every
+# (d_model, head dim) the CUDA kernels take. The widths the JAX rule admits
+# beyond them are still to port (ROADMAP.md).
+HEADS_WIDTHS = {torch.bfloat16: (128, 256, 384), torch.float32: (128, 256)}
+KERNEL_CELLS = {dt: {d: tuple(hd for hd in range(1, d + 1) if d % hd == 0) for d in widths}
+                for dt, widths in HEADS_WIDTHS.items()}
+# The head-generic stats' chunk of rows (csrc/attn_heads.cuh kChunk): each
+# chunk's partial sums in row order, then the chunks in chunk order.
+HEADS_CHUNK = 512
 KERNEL_HID_CHUNK = 128
 # The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
 # (batch, tile) items, and the workspace holds S rounded up to it.
@@ -98,11 +123,18 @@ def kernels_take(d: int, hid: int, num_heads: int, dtype: torch.dtype) -> bool:
             and hid % KERNEL_HID_CHUNK == 0)
 
 
+def head_cell(d: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether a head-specific kernel (``HEAD_CELLS``) takes this cell; the
+    head-generic pair takes the rest of ``KERNEL_CELLS``."""
+    return num_heads > 0 and d % num_heads == 0 and \
+        d // num_heads in HEAD_CELLS.get(dtype, {}).get(d, ())
+
+
 def _require_cell(name, d, num_heads, dtype):
     if not kernels_take(d, KERNEL_HID_CHUNK, num_heads, dtype):
-        raise ValueError(f"{name} kernel takes (d_model, head dim) in "
-                         f"{KERNEL_CELLS.get(dtype)} for {dtype}; got d={d}, "
-                         f"heads={num_heads}")
+        raise ValueError(f"{name} kernel takes d_model in {HEADS_WIDTHS.get(dtype, ())} for "
+                         f"{dtype}, any head count dividing it; got d={d}, heads={num_heads} "
+                         f"(head dim {d / num_heads if num_heads else None})")
 
 
 def _elu1(x):
@@ -186,12 +218,22 @@ def stats_stage(d: int, num_heads: int) -> tuple:
     return cols, (d if cols * d * 2 <= 32768 else 128)
 
 
+def stats_layout_heads(d: int, num_heads: int, dtype: torch.dtype) -> int:
+    """The head count whose ``[k_h | v_h]`` grouping the stats kernel of this
+    cell reads its packed ``[Wk|Wv]`` in: the cell's own at a head-specific
+    cell, ``d / 64`` (64-column groups) at the head-generic stats'."""
+    return num_heads if head_cell(d, num_heads, dtype) else d // 64
+
+
 def pack_stats_weights(Wk, Wv, *, num_heads) -> torch.Tensor:
     """``Wk``, ``Wv`` ``(d, d)`` (``(in, out)``) as the stats kernel's ring
     blob, flat bf16 of ``2 d^2``: ``[Wk|Wv]`` with its columns regrouped per
     head as ``[k_h | v_h]``, then cut into stages (:func:`stats_stage`):
     column group ``g``'s k-row parts in order, stage ``g * (d / ks) + p``,
-    each in the wgmma operand layout of ``csrc/hopper_tile.cuh``. On the
+    each in the wgmma operand layout of ``csrc/hopper_tile.cuh``. At a cell
+    of the head-generic stats the blob of ``d / 64`` heads
+    (:func:`stats_layout_heads`): ``[Wk|Wv]`` in 64-column groups ``[k_g |
+    v_g]``, which that kernel projects whatever the head count. On the
     card one launch of ``stats_pack_kernel`` (bf16 weights); for CPU
     weights the permuted copy below, which defines the layout."""
     if Wk.dim() != 2 or tuple(Wk.shape) != tuple(Wv.shape) or Wk.shape[0] != Wk.shape[1]:
@@ -199,6 +241,7 @@ def pack_stats_weights(Wk, Wv, *, num_heads) -> torch.Tensor:
                          f"{tuple(Wv.shape)} must be one square shape")
     d = Wk.shape[0]
     _require_cell("pack_stats_weights: the stats", d, num_heads, torch.bfloat16)
+    num_heads = stats_layout_heads(d, num_heads, torch.bfloat16)
     if _build.route(Wk):
         for name, w in (("Wk", Wk), ("Wv", Wv)):
             _check(w, name, torch.bfloat16, (d, d))
@@ -225,6 +268,8 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
         return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)
     B, S, d = x.shape
     _require_cell("attn_stats", d, num_heads, x.dtype)
+    if not head_cell(d, num_heads, x.dtype):
+        return attn_stats_heads(x, mask, Wk, Wv, num_heads=num_heads)
     if x.dtype == torch.float32:
         return _attn_stats_f32(x, mask, Wk, Wv, num_heads=num_heads)
     _check(x, "x", torch.bfloat16, (B, S, d))
@@ -246,6 +291,54 @@ def attn_stats(x, mask, Wk, Wv, *, num_heads):
 
 
 attn_stats.launches = 0
+
+
+def attn_stats_heads(x, mask, Wk, Wv, *, num_heads):
+    """The head-generic stats kernel (``csrc/attn_heads.cu``) at any head
+    count of ``HEADS_WIDTHS``; :func:`attn_stats` sends it the cells no
+    head-specific kernel takes. Three or four launches in one C call: bf16
+    ``[Wk|Wv]`` packed at ``d / 64`` heads (:func:`pack_stats_weights`, its
+    own call), ``csrc/attn.cu``'s projection into a bf16 ``K' | V``
+    workspace; fp32 the pack and ``heads_proj_f32_kernel`` into an fp32 one;
+    then the partial sums per ``HEADS_CHUNK`` rows and their reduce.
+    ``(KV (B, H, hd, hd), K_sum (B, d))`` fp32."""
+    if not _build.route(x):
+        return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)
+    B, S, d = x.shape
+    _require_cell("attn_stats_heads", d, num_heads, x.dtype)
+    hd = d // num_heads
+    nkv, per, nch = d * hd, d * hd + d, -(-S // HEADS_CHUNK)
+    _check(mask, "mask", torch.float32, (B, S))
+    lib, stream = _build.kernels(), _build.stream_ptr(x)
+    if x.dtype == torch.float32:
+        for name, t, shape in (("x", x, (B, S, d)), ("Wk", Wk, (d, d)), ("Wv", Wv, (d, d))):
+            _check(t, name, torch.float32, shape)
+        sp = -(-S // STATS_F32_TILE) * STATS_F32_TILE
+        # One allocation: KV, K_sum, the chunk partials, the packed weights,
+        # the K' | V workspace (B, d / 64, sp, 128).
+        buf = x.new_empty(B * per * (1 + nch) + 4 * d * d + B * sp * 2 * d)
+        p, wpack = buf.data_ptr(), B * per * (1 + nch)
+        err = lib.scream_attn_stats_heads_f32(
+            x.data_ptr(), mask.data_ptr(), Wk.data_ptr(), Wv.data_ptr(), p + 4 * wpack,
+            p + 4 * (wpack + 4 * d * d), p + 4 * B * per, p, p + 4 * B * nkv, B, S, d,
+            num_heads, stream)
+    else:
+        _check(x, "x", torch.bfloat16, (B, S, d))
+        wpack = pack_stats_weights(Wk, Wv, num_heads=d // 64)
+        sp = stats_tiles(S) * STATS_TILE
+        # KV, K_sum, the chunk partials, the bf16 workspace (B sp 2 d bf16).
+        buf = torch.empty(B * per * (1 + nch) + B * sp * d, device=x.device,
+                          dtype=torch.float32)
+        p = buf.data_ptr()
+        err = lib.scream_attn_stats_heads(
+            x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), p + 4 * B * per * (1 + nch),
+            p + 4 * B * per, p, p + 4 * B * nkv, B, S, d, num_heads, stream)
+    _build.check(err, "attn_stats_heads")
+    attn_stats_heads.launches += 1
+    return buf[:B * nkv].view(B, num_heads, hd, hd), buf[B * nkv:B * per].view(B, d)
+
+
+attn_stats_heads.launches = 0
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -283,7 +376,9 @@ def pack_stats_weights_f32(Wk, Wv, *, num_heads) -> torch.Tensor:
     kernel's ring blob, flat fp32 of ``4 d^2``: ``[Wk|Wv]`` with its columns
     regrouped per head as ``[k_h | v_h]``, cut into 128-column groups of 32
     k-row stages (stage ``g (d / 32) + p``), each split hi then lo
-    (:func:`f32_stage_layout`). On the card one launch of
+    (:func:`f32_stage_layout`); at a cell of the head-generic stats the
+    blob of ``d / 64`` heads (:func:`stats_layout_heads`). On the card one
+    launch of
     ``pack_stats_f32_kernel`` (which the fp32 stats also launch, in their own
     C call); for CPU weights the permuted copies below, which define the
     layout."""
@@ -292,6 +387,7 @@ def pack_stats_weights_f32(Wk, Wv, *, num_heads) -> torch.Tensor:
         raise ValueError(f"pack_stats_weights_f32: Wk {tuple(Wk.shape)} and Wv "
                          f"{tuple(Wv.shape)} must be one square shape")
     _require_cell("pack_stats_weights_f32: the fp32 stats", d, num_heads, torch.float32)
+    num_heads = stats_layout_heads(d, num_heads, torch.float32)
     f32 = torch.float32
     if _build.route(Wk):
         _check(Wk, "Wk", f32, (d, d))
@@ -429,6 +525,9 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
                          f"{KERNEL_HID_CHUNK}; got {hid}")
     if norm_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attn_apply kernel: norm dtype {norm_dtype} unsupported")
+    if not head_cell(d, H, x.dtype):
+        return attn_apply_heads(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2,
+                                attn_eps=attn_eps, ln_eps=ln_eps, norm_dtype=norm_dtype)
     if x.dtype == torch.float32:
         return _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2,
                                attn_eps=attn_eps, ln_eps=ln_eps, norm_dtype=norm_dtype)
@@ -461,6 +560,59 @@ def attn_apply(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
 
 
 attn_apply.launches = 0
+
+
+def attn_apply_heads(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
+                     attn_eps, ln_eps, norm_dtype):
+    """The head-generic apply kernel (``csrc/attn_heads_apply.cu``, fp32
+    ``csrc/attn_heads_apply_f32.cu``) at any head count of
+    ``HEADS_WIDTHS``; :func:`attn_apply` sends it the cells no
+    head-specific kernel takes. bf16: ``Wq, Wm, W1, W2`` packed by
+    ``tail_cuda.pack_weights`` (its own call), then one launch; fp32: one C
+    call, the pack (``pack_block_f32_kernel``) and the block."""
+    if not _build.route(x):
+        return attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2,
+                                attn_eps=attn_eps, ln_eps=ln_eps, norm_dtype=norm_dtype)
+    B, L, d = x.shape
+    hid, H = W1.shape[1], KV.shape[1]
+    _require_cell("attn_apply_heads", d, H, x.dtype)
+    if hid % KERNEL_HID_CHUNK:
+        raise ValueError(f"attn_apply_heads kernel takes a hidden multiple of "
+                         f"{KERNEL_HID_CHUNK}; got {hid}")
+    if norm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attn_apply_heads kernel: norm dtype {norm_dtype} unsupported")
+    cd, f32, hd = x.dtype, torch.float32, d // H
+    for name, t, shape, dt in (("x", x, (B, L, d), cd), ("mask", mask, (B, L), f32),
+                               ("KV", KV, (B, H, hd, hd), f32), ("ksum", ksum, (B, d), f32),
+                               ("Wq", Wq, (d, d), cd), ("Wm", Wm, (d, d), cd),
+                               ("W1", W1, (d, hid), cd), ("W2", W2, (hid, d), cd),
+                               ("g1", g1, (d,), f32), ("b1", b1, (d,), f32),
+                               ("g2", g2, (d,), f32), ("b2", b2, (d,), f32)):
+        _check(t, name, dt, shape)
+    out = x.new_empty((B, L, d))
+    if B * L == 0:
+        return out
+    lib, stream = _build.kernels(), _build.stream_ptr(x)
+    if cd == f32:
+        wpack = x.new_empty(2 * (2 * d * d + 2 * d * hid))
+        err = lib.scream_attn_apply_heads_f32(
+            x.data_ptr(), mask.data_ptr(), Wq.data_ptr(), Wm.data_ptr(), W1.data_ptr(),
+            W2.data_ptr(), wpack.data_ptr(), KV.data_ptr(), ksum.data_ptr(), g1.data_ptr(),
+            b1.data_ptr(), g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L, d, H, hid,
+            float(attn_eps), float(ln_eps), int(norm_dtype == torch.bfloat16), stream)
+    else:
+        wpack = pack_weights(Wm, W1, W2, Wq=Wq)
+        _check(wpack, "packed weights", torch.bfloat16, (2 * d * d + 2 * d * hid,))
+        err = lib.scream_attn_apply_heads(
+            x.data_ptr(), mask.data_ptr(), wpack.data_ptr(), KV.data_ptr(), ksum.data_ptr(),
+            g1.data_ptr(), b1.data_ptr(), g2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, L,
+            d, H, hid, float(attn_eps), float(ln_eps), stream)
+    _build.check(err, "attn_apply_heads")
+    attn_apply_heads.launches += 1
+    return out
+
+
+attn_apply_heads.launches = 0
 
 
 def _attn_apply_f32(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,

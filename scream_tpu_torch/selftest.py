@@ -15,8 +15,9 @@ The checks: the exact NN (masked and unmasked), the bounded NN (exact within
 the threshold), ICP on the bounded kernel against the same ICP on the CPU
 path (the plain version), chunked against continuous batched ICP and each
 batched lane against the single-pair loop, the splat forward and its VJP,
-the bf16 tail and fused block with their gradients, and the fp32 stats,
-apply and tail.
+the bf16 tail and fused block with their gradients, the fp32 stats, apply
+and tail, and the head-generic pair (``csrc/attn_heads*.cu``): the bf16
+block at 2 heads of 128, the fp32 stats and apply at 32 heads of 8.
 """
 
 from __future__ import annotations
@@ -142,7 +143,8 @@ def _splat_checks(out: Dict, rng, dev) -> None:
 
 def _block_checks(out: Dict, rng, dev) -> None:
     """The bf16 tail and fused block against their plain versions, forward
-    and gradients; then the fp32 stats, apply and tail."""
+    and gradients; then the fp32 stats, apply and tail; then the
+    head-generic pair at head counts no head-specific kernel takes."""
     import torch
 
     from scream_tpu_torch.ops import attn_cuda, tail_cuda
@@ -184,11 +186,11 @@ def _block_checks(out: Dict, rng, dev) -> None:
     aw = (t(rng.standard_normal((d, d)) / 16), t(rng.standard_normal((d, d)) / 16),
           t(rng.standard_normal((d, d)) / 16)) + wargs
 
-    def block(x, fused, cd=bf):
+    def block(x, fused, cd=bf, heads=8):
         if fused:
-            return attn_cuda.attention_block_fused(x, xb, qm, km, *aw, num_heads=8,
+            return attn_cuda.attention_block_fused(x, xb, qm, km, *aw, num_heads=heads,
                                                    dtype=cd, norm_dtype=f32)
-        return attn_cuda.block_plain(x, xb, qm, km, *aw, num_heads=8, cd=cd, nd=f32,
+        return attn_cuda.block_plain(x, xb, qm, km, *aw, num_heads=heads, cd=cd, nd=f32,
                                      attn_eps=1e-6, ln_eps=1e-5)
 
     with torch.no_grad():
@@ -221,6 +223,18 @@ def _block_checks(out: Dict, rng, dev) -> None:
         out["f32_tail_rel_err"] = _rel(kern(xt.float(), qt.float()),
                                        plain(xt.float(), qt.float()))
 
+    # The head-generic pair: the bf16 block at 2 heads of 128; the fp32
+    # stats and apply at 32 heads of 8.
+    with torch.no_grad():
+        out["heads_attn_rel_err"] = _rel(block(xa, True, heads=2), block(xa, False, heads=2),
+                                         rows=qm)
+    KV, ks = attn_cuda.attn_stats(xb, mkv, Wk, Wv, num_heads=32)
+    KVp, ksp = attn_cuda.attn_stats_plain(xb, mkv, Wk, Wv, num_heads=32)
+    out["heads_f32_stats_rel_err"] = max(_rel(KV, KVp), _rel(ks, ksp))
+    args = (xa, mq, KVp, ksp, Wq, Wm, g1, b1, W1, W2, g2, b2)
+    out["heads_f32_apply_rel_err"] = _rel(attn_cuda.attn_apply(*args, **kw),
+                                          attn_cuda.attn_apply_plain(*args, **kw), rows=qm)
+
 
 # Each check's bar: SELFTEST_TPU.json's (the JAX selftest's), and the fp32
 # kernels' bars of the port's card checks (chip_smoke.py FP32_BARS).
@@ -234,6 +248,8 @@ BARS = {
     "fused_tail_rel_err": 3e-2, "fused_tail_grad_rel_err": 3e-2,
     "fused_attn_rel_err": 5e-2, "fused_attn_grad_rel_err": 5e-2,
     "f32_stats_rel_err": 1e-5, "f32_apply_rel_err": 2e-5, "f32_tail_rel_err": 2e-5,
+    "heads_attn_rel_err": 5e-2, "heads_f32_stats_rel_err": 1e-5,
+    "heads_f32_apply_rel_err": 2e-5,
 }
 # Counts that meet their bar at equality; errors must stay below theirs.
 _AT_MOST = ("nn_idx_mismatches", "nn_unmasked_idx_mismatches", "chunked_icp_iter_max_diff",

@@ -260,7 +260,9 @@ class TestBuild:
         assert p == _build.library_path()
         assert p.parent == _build.BUILD_DIR
         assert "build" in p.parts and p.suffix == ".so"
-        assert {s.name for s in _build._sources()} == {"attn.cu", "attn_f32.cu", "nn.cu",
+        assert {s.name for s in _build._sources()} == {"attn.cu", "attn_f32.cu",
+                                                        "attn_heads.cu", "attn_heads_apply.cu",
+                                                        "attn_heads_apply_f32.cu", "nn.cu",
                                                         "splat.cu", "tail.cu", "tail_f32.cu"}
 
     def test_launch_counters_reset(self):
@@ -271,8 +273,8 @@ class TestBuild:
             w.launches = 3
         ops.reset_launch_counts()
         assert set(ops.launch_counts().values()) == {0}
-        assert sorted(ops.launch_counts()) == ["attn_apply", "attn_stats",
-                                               "block_tail", "max_splat", "nn_bounded",
+        assert sorted(ops.launch_counts()) == ["attn_apply", "attn_apply_heads", "attn_stats",
+                                               "attn_stats_heads", "block_tail", "max_splat", "nn_bounded",
                                                "nn_bounded_single", "nn_exact",
                                                "nn_tile_boxes"]
         for w in (nn_cuda.nn_bounded, nn_cuda.nn_bounded_single):

@@ -22,10 +22,15 @@ the tail kernel). On the CPU, where the kernels cannot run:
   8 heads of 48) from JAX parameters through ``params_from_jax``, fp32,
   the port's blocks on the fused route's plain versions: 1e-5 of JAX's;
 * the routing of every (d in {128, 256, 384, 512}, heads dividing d, dtype)
-  on CUDA against the JAX rules, raising exactly where the head dim is
-  below 16, above 64, or 24;
-* the wrappers hand the head count to the C entry points and refuse the
-  cells no kernel is written for.
+  on CUDA against the JAX rules: the fused kernels at every head count the
+  rule admits, raising only at the widths no kernel takes (bf16 d 512 at
+  ffn_mult 1-2, fp32 d 384 at ffn_mult 1-3);
+* the wrappers hand the head count to the C entry points (the head-specific
+  ones at their cells, the head-generic ones of ``csrc/attn_heads.cu`` at
+  the rest) and refuse the widths no kernel is written for.
+
+``test_torch_port_heads_any.py`` holds the head-generic kernels' own
+arithmetic and layouts.
 """
 
 from functools import partial
@@ -390,10 +395,11 @@ def test_dem_transformer_d384_matches_jax():
 
 # ---- routing and the wrappers' checks ----
 
-def refused(d, heads):
-    """Head dims the JAX rule admits but no kernel is written for."""
-    hd = d // heads
-    return hd < 16 or hd > 64 or hd == 24
+def refused(d, dtype, ffn_mult=4):
+    """Cells the JAX rule admits but no kernel is written for: widths, at
+    any head count (bf16 d 512 at ffn_mult 1-2, fp32 d 384 at 1-3)."""
+    return (dtype, d) in {("bfloat16", 512), ("float32", 384)} and \
+        ffn_mult <= {"bfloat16": 2, "float32": 3}[dtype]
 
 
 ROUTES = [(d, h, dt) for d in (128, 256, 384, 512) for h in range(1, d + 1) if d % h == 0
@@ -404,13 +410,13 @@ ROUTES = [(d, h, dt) for d in (128, 256, 384, 512) for h in range(1, d + 1) if d
 def test_cuda_route_follows_the_jax_rules(monkeypatch, d, heads, dtype):
     """A self-attention block on CUDA (``cuda_like``): where the JAX package
     runs its fused kernels the port runs its own or raises naming ROADMAP,
-    exactly on the refused head dims; elsewhere the JAX route (its tail
-    kernel where that rule holds, else the plain body)."""
+    exactly on the refused cells (none at hidden 4 d); elsewhere the JAX
+    route (its tail kernel where that rule holds, else the plain body)."""
     from scream_tpu_torch.utils import device as device_util
 
     jdt = jnp.dtype(dtype)
     if jattn.fusable_block(d, 4 * d, heads, jdt):
-        want = "raise" if refused(d, heads) else "fused"
+        want = "raise" if refused(d, dtype) else "fused"
     else:
         want = "tail" if ffn_pallas.fusable(d, 4 * d, jdt) else "plain"
     assert attn_cuda.kernels_take(d, 4 * d, heads, getattr(torch, dtype)) == (want == "fused")
@@ -457,45 +463,61 @@ def fake_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("d,heads,dtype", [(384, 8, torch.bfloat16), (256, 16, torch.bfloat16),
-                                           (128, 2, torch.float32), (256, 4, torch.float32)])
+                                           (128, 2, torch.float32), (256, 4, torch.float32),
+                                           (384, 16, torch.bfloat16), (256, 2, torch.bfloat16),
+                                           (128, 16, torch.bfloat16), (256, 32, torch.float32)])
 def test_wrappers_pass_the_head_count(fake_cuda, d, heads, dtype):
+    """The head-specific entry points at their cells; the head-generic ones
+    (``csrc/attn_heads.cu``) at the rest, the bf16 stats blob packed at d / 64
+    heads (the 64-column groups that kernel projects)."""
     B, L = 2, 100
     xq, xkv, qm, km, W = block_inputs(d, 1, B=B, L=L, S=L)
     Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2 = (t(w).to(dtype) if w.ndim == 2 else t(w)
                                               for w in W)
     x, m = t(xq).to(dtype), t(qm).float()
+    wrappers = (attn_cuda.attn_stats, attn_cuda.attn_apply, attn_cuda.attn_stats_heads,
+                attn_cuda.attn_apply_heads)
+    n0 = [w.launches for w in wrappers]
     KV, ks = attn_cuda.attn_stats(x, m, Wk, Wv, num_heads=heads)
     assert KV.shape == (B, heads, d // heads, d // heads) and ks.shape == (B, d)
     attn_cuda.attn_apply(x, m, KV, ks, Wq, Wm, g1, b1, W1, W2, g2, b2, attn_eps=1e-6,
                          ln_eps=1e-5, norm_dtype=torch.float32)
     names = [c[0] for c in fake_cuda.calls]
     ints = dict(fake_cuda.calls)
+    generic = not attn_cuda.head_cell(d, heads, dtype)
+    assert generic == ((d, heads) in {(384, 16), (256, 2), (128, 16), (256, 32)})
+    # Each wrapper counts only its own kernel's launches.
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == \
+        ([0, 0, 1, 1] if generic else [1, 1, 0, 0])
     if dtype == torch.float32:
-        assert names == ["scream_attn_stats_f32", "scream_attn_apply_f32"]
-        assert ints["scream_attn_stats_f32"][-5:] == [B, L, d, heads, 0]
+        stats, apply = ("scream_attn_stats_heads_f32", "scream_attn_apply_heads_f32") if generic \
+            else ("scream_attn_stats_f32", "scream_attn_apply_f32")
+        assert names == [stats, apply]
+        assert ints[stats][-5:] == [B, L, d, heads, 0]
         # ... hidden, norm_bf16 (fp32 norm: 0), stream
-        assert ints["scream_attn_apply_f32"][-7:] == [B, L, d, heads, 4 * d, 0, 0]
+        assert ints[apply][-7:] == [B, L, d, heads, 4 * d, 0, 0]
     else:
-        assert names == ["scream_pack_stats", "scream_attn_stats", "scream_pack_weights",
-                         "scream_attn_apply"]
-        assert ints["scream_pack_stats"][-3:] == [d, heads, 0]
-        assert ints["scream_attn_stats"][-5:] == [B, L, d, heads, 0]
-        assert ints["scream_attn_apply"][-6:] == [B, L, d, heads, 4 * d, 0]
+        stats, apply = ("scream_attn_stats_heads", "scream_attn_apply_heads") if generic \
+            else ("scream_attn_stats", "scream_attn_apply")
+        assert names == ["scream_pack_stats", stats, "scream_pack_weights", apply]
+        assert ints["scream_pack_stats"][-3:] == [d, d // 64 if generic else heads, 0]
+        assert ints[stats][-5:] == [B, L, d, heads, 0]
+        assert ints[apply][-6:] == [B, L, d, heads, 4 * d, 0]
 
 
-@pytest.mark.parametrize("d,heads,dtype", [(384, 16, torch.bfloat16), (256, 2, torch.bfloat16),
-                                           (128, 16, torch.bfloat16), (384, 8, torch.float32),
-                                           (256, 32, torch.float32)])
-def test_wrappers_refuse_cells_without_a_kernel(fake_cuda, d, heads, dtype):
+@pytest.mark.parametrize("d,heads,dtype,ffn_mult", [(384, 8, torch.float32, 4),
+                                                    (512, 8, torch.bfloat16, 2)])
+def test_wrappers_refuse_cells_without_a_kernel(fake_cuda, d, heads, dtype, ffn_mult):
     x = torch.zeros((1, 8, d), dtype=dtype)
     m, W = torch.ones((1, 8)), torch.zeros((d, d), dtype=dtype)
+    hid = ffn_mult * d
     with pytest.raises(ValueError, match="head dim"):
         attn_cuda.attn_stats(x, m, W, W, num_heads=heads)
     hd = d // heads
     KV, ks, p = torch.zeros((1, heads, hd, hd)), torch.zeros((1, d)), torch.ones(d)
     with pytest.raises(ValueError, match="head dim"):
-        attn_cuda.attn_apply(x, m, KV, ks, W, W, p, p, torch.zeros((d, 4 * d), dtype=dtype),
-                             torch.zeros((4 * d, d), dtype=dtype), p, p, attn_eps=1e-6,
+        attn_cuda.attn_apply(x, m, KV, ks, W, W, p, p, torch.zeros((d, hid), dtype=dtype),
+                             torch.zeros((hid, d), dtype=dtype), p, p, attn_eps=1e-6,
                              ln_eps=1e-5, norm_dtype=torch.float32)
     if dtype == torch.bfloat16:
         with pytest.raises(ValueError, match="head dim"):
@@ -507,24 +529,25 @@ def test_wrappers_refuse_cells_without_a_kernel(fake_cuda, d, heads, dtype):
 def test_cuda_route_follows_the_jax_rules_at_other_ffn_widths(ffn_mult):
     """``route_block`` for every (d, heads, dtype) cell of ``ROUTES`` at hidden
     = ffn_mult x d on CUDA: the fused kernels where the JAX rule admits its
-    kernels and the port has them (the head dims and widths of
-    ``KERNEL_CELLS``), a refusal naming the head dim where it has not, else the
-    JAX route (the tail kernel where that rule holds and a kernel takes the
-    width, a refusal where none does, else plain)."""
+    kernels and the port has them (every head count at the widths of
+    ``HEADS_WIDTHS``), a refusal naming the cell where it has not (the
+    widths of ``refused``), else the JAX route (the tail kernel where that
+    rule holds and a kernel takes the width, a refusal where none does,
+    else plain)."""
     from scream_tpu_torch.models.attention import route_block
 
-    cells = {"bfloat16": {128: (16, 32, 64), 256: (16, 32, 64), 384: (16, 32, 48, 64)},
-             "float32": {128: (16, 32, 64), 256: (16, 32, 64)}}
+    widths = {"bfloat16": (128, 256, 384), "float32": (128, 256)}
     tails = {"bfloat16": (128, 256, 384, 512), "float32": (128, 256, 384)}
     for d, heads, dtype in ROUTES:
         hid, jdt, tdt = ffn_mult * d, jnp.dtype(dtype), getattr(torch, dtype)
         if jattn.fusable_block(d, hid, heads, jdt):
-            want = "fused" if d // heads in cells[dtype].get(d, ()) else "raise"
+            want = "fused" if d in widths[dtype] else "raise"
+            assert (want == "raise") == refused(d, dtype, ffn_mult), (d, heads, dtype)
         elif ffn_pallas.fusable(d, hid, jdt):
             want = "tail" if d in tails[dtype] else "raise"
         else:
             want = "plain"
-        assert attn_cuda.kernels_take(d, hid, heads, tdt) == (d // heads in cells[dtype].get(d, ()))
+        assert attn_cuda.kernels_take(d, hid, heads, tdt) == (d in widths[dtype])
         try:
             got = route_block(d, hid, heads, tdt, None, None, True, True)
         except NotImplementedError as e:

@@ -1,0 +1,355 @@
+"""The head-generic fused attention kernels (``csrc/attn_heads.cu``, stats;
+``csrc/attn_heads_apply.cu`` and ``_apply_f32.cu``, apply): every
+head count at bf16 d 128-384 and fp32 d 128-256 that the head-specific
+kernels (``attn_cuda.HEAD_CELLS``: head dim 16, 32, 48, 64) do not take.
+On the CPU, where the kernels cannot run:
+
+* the plain versions and ``attention_block_fused`` against the JAX
+  package's Pallas stats and apply kernels in interpret mode, fp32, at
+  ragged row counts over three stats chunks with an all-masked batch, at
+  head dim 8 (d 128, 16 heads), 24 (d 384, 16), 128 (d 256, 2), 192 (d
+  384, 2) and 3 (d 384, 128): 1e-5 of the largest value;
+* a numpy model of the kernels' arithmetic at those cells, held to the same
+  Pallas kernels within the same 1e-5: the stats summed per chunk of
+  ``HEADS_CHUNK`` rows in row order, then the chunks in chunk order; apply's
+  attend one chain per output column over its head's KV rows in order, the
+  normalizer one chain per head; and the stats model on bf16 inputs within
+  the card's 5e-3 of the plain version, an all-masked batch exactly 0;
+* the sum kernel's work split restated from the source (each KV entry and
+  K_sum column written by one thread, from columns its block stages), at
+  every (d, head dim) of the pair, and each kernel's shared memory within
+  the card's 232,448 bytes;
+* the stats blob at a head-generic cell walked back to Wk and Wv (the
+  64-column groups ``[k_g | v_g]`` the projection reads), bf16 and fp32;
+* PointTransformer forwards at d 384 / 16 heads and d 256 / 2 heads from
+  JAX parameters, fp32, the blocks on the fused route's plain versions:
+  1e-5 of JAX's;
+* the constants the wrappers mirror equal the source's.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scream_tpu.config import ModelConfig as JModelConfig
+from scream_tpu.models.point_transformer import PointTransformer as JPointTransformer
+from scream_tpu.ops import attn_pallas as jattn
+from scream_tpu_torch.config import ModelConfig
+from scream_tpu_torch.models import PointTransformer
+from scream_tpu_torch.ops import attn_cuda
+from scream_tpu_torch.ops.ffn import tail_plain
+from scream_tpu_torch.utils.convert import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(REPO, "scream_tpu_torch", "csrc", "attn_heads.cuh")
+SMEM = 232448  # dynamic shared memory a block on the H100
+BAR = 1e-5
+# (d_model, heads): head dim 8, 24, 128, 192, 3.
+PALLAS_CELLS = [(128, 16), (384, 16), (256, 2), (384, 2), (384, 128)]
+# Every (d_model, head dim) the head-generic pair takes beyond the
+# head-specific kernels, bf16 (fp32: those at d <= 256).
+GENERIC = sorted({(d, hd) for dt, widths in attn_cuda.KERNEL_CELLS.items()
+                  for d, hds in widths.items() for hd in hds
+                  if not attn_cuda.head_cell(d, d // hd, dt)})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def rel(got, want, rows=None):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if rows is not None:
+        m = np.asarray(rows)[..., None]
+        got, want = got * m, want * m
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def block_inputs(d, seed, B=2, L=100, S=1100):
+    """Ragged rows over three stats chunks (S = 1,100), masked rows, and a
+    second batch whose key/value rows are all masked."""
+    rng = np.random.default_rng(seed)
+    hid = 4 * d
+    a = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)
+    xq, xkv = a(B, L, d), a(B, S, d)
+    qm, km = rng.random((B, L)) > 0.2, rng.random((B, S)) > 0.2
+    km[1] = False
+    W = (a(d, d), a(d, d), a(d, d), a(d, d), 1 + a(d), a(d), a(d, hid), a(hid, d),
+         1 + a(d), a(d))
+    return xq, xkv, qm, km, W
+
+
+@pytest.fixture(scope="module")
+def pallas_blocks():
+    """Per cell of PALLAS_CELLS: its inputs and the JAX package's fused block
+    through the Pallas kernels in interpret mode, fp32 (one compile each,
+    shared by the tests below)."""
+    out = {}
+    for d, heads in PALLAS_CELLS:
+        xq, xkv, qm, km, W = block_inputs(d, d + heads)
+        want = jattn.attention_block(
+            jnp.asarray(xq), jnp.asarray(xkv), jnp.asarray(qm), jnp.asarray(km),
+            *map(jnp.asarray, W), num_heads=heads, dtype=jnp.float32,
+            norm_dtype=jnp.float32, use_pallas=True, interpret=True)
+        out[(d, heads)] = (xq, xkv, qm, km, W, np.asarray(want))
+    return out
+
+
+# ---- the plain versions and the fused block against the Pallas kernels ----
+
+@pytest.mark.parametrize("d,heads", PALLAS_CELLS)
+def test_fused_block_and_plain_versions_match_pallas(pallas_blocks, d, heads):
+    assert not attn_cuda.head_cell(d, heads, torch.bfloat16)
+    assert attn_cuda.kernels_take(d, 4 * d, heads, torch.bfloat16)
+    xq, xkv, qm, km, W, want = pallas_blocks[(d, heads)]
+    f32 = torch.float32
+    got = attn_cuda.attention_block_fused(t(xq), t(xkv), t(qm), t(km), *map(t, W),
+                                          num_heads=heads, dtype=f32, norm_dtype=f32)
+    assert got.shape == xq.shape and rel(got.numpy(), want, rows=qm) <= BAR
+    Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2 = map(t, W)
+    KV, ks = attn_cuda.attn_stats_heads(t(xkv), t(km).float(), Wk, Wv, num_heads=heads)
+    assert KV.shape == (2, heads, d // heads, d // heads) and (KV[1] == 0).all()
+    out = attn_cuda.attn_apply_heads(t(xq), t(qm).float(), KV, ks, Wq, Wm, g1, b1, W1, W2,
+                                     g2, b2, attn_eps=1e-6, ln_eps=1e-5, norm_dtype=f32)
+    assert rel(out.numpy(), want, rows=qm) <= BAR
+
+
+# ---- a model of the kernels' arithmetic ----
+
+def model_stats(x, mask, Wk, Wv, heads, bf):
+    """The head-generic stats in numpy: ``[k|v]`` rounded to bf16 (``bf``;
+    else fp32), ``K' = elu1(k)`` rounded again, times the mask, ``V = v m``;
+    then per chunk of HEADS_CHUNK rows each head's K'^T V and K_sum added
+    row by row in fp32 (``heads_sum_kernel``), the chunks added in chunk
+    order (``attn_f32.cu``'s slot reduce, ``attn_stats_f32_reduce_kernel``)."""
+    B, S, d = x.shape
+    hd = d // heads
+    r = bf16 if bf else (lambda a: np.asarray(a, np.float32))
+    x64 = x.astype(np.float64)
+    k, v = r(x64 @ Wk), r(x64 @ Wv)
+    m = (bf16(mask) if bf else mask.astype(np.float32))[..., None]
+    kp = (r(np.where(k > 0, k + 1, np.exp(k))) * m).reshape(B, S, heads, hd)
+    vm = (v * m).reshape(B, S, heads, hd).astype(np.float32)
+    KV = np.zeros((B, heads, hd, hd), np.float32)
+    ks = np.zeros((B, heads, hd), np.float32)
+    for c0 in range(0, S, attn_cuda.HEADS_CHUNK):
+        part = np.zeros_like(KV)
+        pks = np.zeros_like(ks)
+        for row in range(c0, min(S, c0 + attn_cuda.HEADS_CHUNK)):
+            part = part + kp[:, row, :, :, None] * vm[:, row, :, None, :]
+            pks = pks + kp[:, row]
+        KV, ks = KV + part, ks + pks
+    return KV, ks.reshape(B, d)
+
+
+def model_apply(x, mask, KV, ks, Wq, Wm, g1, b1, W1, W2, g2, b2, eps=1e-6):
+    """The head-generic apply's attention in numpy, fp32: ``Q' = elu1(x @ Wq)
+    m``; each output column ``c`` of head ``h`` the chain over i = 0 .. hd -
+    1 of ``Q'[base + i] KV[h][i][c - base]`` (``attend_pass``, its passes of
+    KV rows in order), ``z`` the chain of ``Q'[base + i]
+    K_sum[base + i]`` (``normalize``), the message ``att (1 / (z + eps))``;
+    then the plain tail."""
+    B, L, d = x.shape
+    H, hd = KV.shape[1], KV.shape[2]
+    q = (x.astype(np.float64) @ Wq).astype(np.float32)
+    qp = (np.where(q > 0, q + 1, np.exp(q)) * mask[..., None]).astype(np.float32)
+    cols = np.arange(d)
+    head, base = cols // hd, cols // hd * hd
+    att = np.zeros((B, L, d), np.float32)
+    z = np.zeros((B, L, d), np.float32)
+    for i in range(hd):
+        qi = qp[:, :, base + i]
+        att = att + qi * KV[:, head, i, cols - base][:, None, :]
+        z = z + qi * ks[:, base + i][:, None, :]
+    msg = att * (np.float32(1) / (z + np.float32(eps)))
+    f32 = torch.float32
+    return tail_plain(t(msg), t(x), t(Wm), t(g1), t(b1), t(W1), t(W2), t(g2), t(b2), cd=f32,
+                      nd=f32, eps=1e-5).numpy()
+
+
+@pytest.mark.parametrize("d,heads", PALLAS_CELLS)
+def test_model_of_the_kernels_meets_pallas(pallas_blocks, d, heads):
+    """fp32: the model's stats against the plain stats (which meet the
+    Pallas kernel's diagonal blocks), its whole block against the Pallas
+    block, both within 1e-5."""
+    xq, xkv, qm, km, W, want = pallas_blocks[(d, heads)]
+    Wq, Wk, Wv, Wm, g1, b1, W1, W2, g2, b2 = W
+    KV, ks = model_stats(xkv, km, Wk, Wv, heads, bf=False)
+    KVp, ksp = attn_cuda.attn_stats_plain(t(xkv), t(km).float(), t(Wk), t(Wv),
+                                          num_heads=heads)
+    assert rel(KV, KVp.numpy()) <= BAR and rel(ks, ksp.numpy()) <= BAR
+    assert (KV[1] == 0).all() and (ks[1] == 0).all()
+    got = model_apply(xq, qm, KV, ks, Wq, Wm, g1, b1, W1, W2, g2, b2)
+    assert rel(got, want, rows=qm) <= BAR
+
+
+@pytest.mark.parametrize("d,heads", [(128, 128), (256, 1), (384, 16), (384, 128)])
+def test_model_stats_bf16_meets_plain(d, heads):
+    """bf16 inputs, three chunks: within the card's bar (5e-3 of the largest
+    value) of the plain version; an all-masked batch gives exact zeros."""
+    rng = np.random.default_rng(d + heads)
+    B, S = 2, 1100
+    x = bf16(rng.standard_normal((B, S, d)))
+    Wk, Wv = (bf16(rng.standard_normal((d, d)) / np.sqrt(d)) for _ in range(2))
+    mask = (rng.random((B, S)) > 0.2).astype(np.float32)
+    mask[-1] = 0.0
+    KV, ks = model_stats(x, mask, Wk, Wv, heads, bf=True)
+    assert (KV[-1] == 0).all() and (ks[-1] == 0).all()
+    bf = torch.bfloat16
+    KVp, ksp = attn_cuda.attn_stats_plain(t(x).to(bf), t(mask), t(Wk).to(bf), t(Wv).to(bf),
+                                          num_heads=heads)
+    for got, want in ((KV, KVp.numpy()), (ks, ksp.numpy())):
+        assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max()
+
+
+# ---- work split and layouts, restated from csrc/attn_heads*.cu ----
+
+def constant(name):
+    with open(SOURCE) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert len(found) == 1, name
+    return int(found[0])
+
+
+def test_wrapper_constants_are_the_sources():
+    """The chunk the wrappers and the model above sum in is the kernel's;
+    the workspace groups are the 64 columns the packs lay out."""
+    assert attn_cuda.HEADS_CHUNK == constant("kChunk")
+    assert constant("kGroup") == 64 and constant("kSumThreads") == 256
+
+
+@pytest.mark.parametrize("d,hd", GENERIC)
+def test_sum_writes_each_output_once_from_staged_columns(d, hd):
+    """``heads_sum_kernel``: thread t of the batch's nt owns the TT x TT
+    block (c0, j0) of the (d, hd) view of KV (TT 8 where 8 divides hd, else
+    1), within one head; its block of 256 threads stages K' columns [ka, kb)
+    and V columns [va, vb) (TT 1: all), a whole number of 8-column units
+    within 2 d floats a row; every KV entry is written once, every K_sum
+    column once (by the threads with j0 = 0)."""
+    tt = 8 if hd % 8 == 0 else 1
+    jt, threads = hd // tt, constant("kSumThreads")
+    nt = d // tt * jt
+    kv, ksum = np.zeros((d, hd), np.int64), np.zeros(d, np.int64)
+    for t_first in range(0, nt, threads):
+        t_last = min(nt, t_first + threads) - 1
+        ka, kb, va, vb = 0, d, 0, d
+        if tt > 1:
+            ka, kb = t_first // jt * tt, t_last // jt * tt + tt
+            va, vb = ka // hd * hd, (kb - 1) // hd * hd + hd
+        assert (kb - ka) % 8 == 0 and (vb - va) % 8 == 0 and kb - ka + vb - va <= 2 * d
+        for t_ in range(t_first, t_last + 1):
+            c0, j0 = t_ // jt * tt, t_ % jt * tt
+            h = c0 // hd
+            assert (c0 + tt - 1) // hd == h and j0 + tt <= hd
+            assert ka <= c0 and c0 + tt <= kb and va <= h * hd + j0 and h * hd + j0 + tt <= vb
+            kv[c0:c0 + tt, j0:j0 + tt] += 1
+            if j0 == 0:
+                ksum[c0:c0 + tt] += 1
+    assert (kv == 1).all() and (ksum == 1).all()
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_kernel_layouts_fit_shared_memory(d):
+    """The sum block's stage (kSub rows of at most 2 d floats); the bf16
+    apply block (``tail::Layout<D, EXTRA>``: ring stages of 64 d bytes, the
+    row tile, hidden chunks, a pass of KV rows (d kIC fp32), K_sum, the
+    first half of each of the 256 consumer threads' message (d / 4 bf16 at
+    d <= 256, d / 8 at 384), row statistics, barriers) with at least 2
+    stages; in fp32 (d <= 256) the projection block (ring of 32 KB stages,
+    the 64-row x tile, mask) and the apply block with a pass of KV rows
+    inside its hidden buffers."""
+    ic, sub = constant("kIC"), constant("kSub")
+    assert sub * 2 * d * 4 <= SMEM
+    cols = 2 if d > 256 else 1
+    park = (d // cols) // 4 * 2 * 256
+    rest = (128 // cols) * d * 2 + 2 * 64 * 64 * cols * 2 + d * ic * 4 + d * 4 + park \
+        + 2 * 64 * 8
+    nst = min(8, (SMEM - rest - 16 * 8) // (64 * d))
+    assert nst >= 2 and nst * 64 * d + rest + 16 * nst <= SMEM
+    assert (d // cols) % 8 == 0  # a warpgroup's columns: whole 8-column groups
+    if d <= 256:
+        for rest in (64 * d * 4 + 64 * 4,  # projection
+                     64 * d * 4 + 2 * 64 * 128 * 4 + d * 4 + 2 * 64 * 8 + 64 * 4):  # apply
+            nst = min(8, (SMEM - rest - 16 * 8) // 32768)
+            assert nst >= 2 and nst * 32768 + rest + 16 * nst <= SMEM
+        assert d * ic * 4 <= 2 * 64 * 128 * 4
+
+
+def walk_stats_blob(blob, d, heads):
+    """(Wk, Wv) read from the bf16 stats blob as the projection's consumers
+    read it (``test_torch_port_heads.py``'s walk): stage s = g KP + p at s 2
+    cols ks bytes, k16 step j at 32 cols j bytes on, element (k-row kk,
+    column n) at (n // 8) 256 + (kk // 8) 128 + (n % 8) 16 + (kk % 8) 2;
+    packed column g cols + n is k_h or v_h column c % (2 hd) of head c //
+    (2 hd)."""
+    flat = blob.float().numpy()
+    cols, ks = attn_cuda.stats_stage(d, heads)
+    kp, hd = d // ks, d // heads
+    W = np.zeros((d, 2 * d), np.float32)
+    j, kk, n = np.ix_(np.arange(ks // 16), np.arange(16), np.arange(cols))
+    off = j * 32 * cols + (n // 8) * 256 + (kk // 8) * 128 + (n % 8) * 16 + (kk % 8) * 2
+    for s in range(2 * d // cols * kp):
+        g, p = divmod(s, kp)
+        el = ((s * 2 * cols * ks + off) // 2).reshape(ks, cols)
+        W[p * ks:(p + 1) * ks, g * cols:(g + 1) * cols] = flat[el]
+    W = W.reshape(d, heads, 2, hd)
+    return W[:, :, 0].reshape(d, d), W[:, :, 1].reshape(d, d)
+
+
+@pytest.mark.parametrize("d,heads", [(128, 16), (256, 2), (384, 16), (384, 384)])
+def test_generic_stats_blob_walks_back_to_wk_wv(d, heads):
+    """At a head-generic cell the blob is that of d / 64 heads: [Wk|Wv] in
+    64-column groups [k_g | v_g], whatever the model's head count; fp32 the
+    same grouping, split hi / lo."""
+    rng = np.random.default_rng(d * heads)
+    Wk, Wv = (t(rng.standard_normal((d, d)).astype(np.float32)) for _ in range(2))
+    assert attn_cuda.stats_layout_heads(d, heads, torch.bfloat16) == d // 64
+    blob = attn_cuda.pack_stats_weights(Wk, Wv, num_heads=heads)
+    assert blob.dtype == torch.bfloat16 and blob.shape == (2 * d * d,)
+    got_k, got_v = walk_stats_blob(blob, d, d // 64)
+    np.testing.assert_array_equal(got_k, bf16(Wk))
+    np.testing.assert_array_equal(got_v, bf16(Wv))
+    if d <= 256:
+        f32 = attn_cuda.pack_stats_weights_f32(Wk, Wv, num_heads=heads)
+        assert torch.equal(f32, attn_cuda.pack_stats_weights_f32(Wk, Wv, num_heads=d // 64))
+
+
+# ---- models at the new head counts from JAX parameters ----
+
+@pytest.mark.parametrize("d,heads", [(384, 16), (256, 2)])
+def test_point_transformer_matches_jax(d, heads):
+    cfg = dict(d_model=d, num_heads=heads, self_layers=1, cross_layers=1, dtype="float32")
+    rng = np.random.default_rng(d + heads)
+    B, N, M = 2, 40, 48
+    args = (rng.uniform(-1, 1, (B, N, 3)).astype(np.float32),
+            rng.uniform(-1, 1, (B, M, 3)).astype(np.float32),
+            rng.random((B, N)) > 0.1, rng.random((B, M)) > 0.1,
+            rng.uniform(-0.2, 0.2, (B, 1, 3)).astype(np.float32))
+    jmodel = JPointTransformer(JModelConfig(**cfg))
+    params = jmodel.init(jax.random.PRNGKey(0), *map(jnp.asarray, args))["params"]
+    want = jmodel.apply({"params": params}, *map(jnp.asarray, args))
+    model = PointTransformer(ModelConfig(fused_attention=True, **cfg), device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)),
+                          strict=True)
+    with torch.no_grad():
+        got = model(*map(t, args))
+    assert got.dtype == torch.float32 and got.shape == (B, N, 3)
+    assert rel(got.numpy(), want, rows=args[2]) <= BAR

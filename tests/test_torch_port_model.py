@@ -181,12 +181,13 @@ class TestAttentionBlock:
         assert fusable(256, 1024, 16, torch.bfloat16)
         assert fusable(384, 1536, 8, torch.bfloat16)
         assert not fusable(512, 2048, 16, torch.bfloat16)
-        # The JAX rule alone admits head dims the kernels lack (24 at d 384,
-        # 128 at d 256), and fp32 at d 384 is out of its budget.
-        assert attn_cuda.jax_fusable_block(384, 1536, 16, torch.bfloat16)
-        assert not attn_cuda.kernels_take(384, 1536, 16, torch.bfloat16)
-        assert attn_cuda.jax_fusable_block(256, 1024, 2, torch.bfloat16)
-        assert not attn_cuda.kernels_take(256, 1024, 2, torch.bfloat16)
+        # Head dims the head-specific kernels lack (24 at d 384, 128 at d 256)
+        # go to the head-generic pair; fp32 at d 384 is out of the JAX rule's
+        # budget at hidden 4 d.
+        assert fusable(384, 1536, 16, torch.bfloat16)
+        assert not attn_cuda.head_cell(384, 16, torch.bfloat16)
+        assert fusable(256, 1024, 2, torch.bfloat16)
+        assert not attn_cuda.head_cell(256, 2, torch.bfloat16)
         assert not attn_cuda.jax_fusable_block(384, 1536, 8, torch.float32)
         assert not attn_cuda.jax_fusable_block(512, 2048, 16, torch.bfloat16)
 
@@ -256,8 +257,8 @@ class TestCudaRouting:
         return calls
 
     @staticmethod
-    def _run(d, heads, dtype=torch.bfloat16, **kw):
-        blk = AttentionBlock(d, heads, 4, dtype=dtype, **kw)
+    def _run(d, heads, dtype=torch.bfloat16, ffn_mult=4, **kw):
+        blk = AttentionBlock(d, heads, ffn_mult, dtype=dtype, **kw)
         x = torch.zeros((1, 4, d))
         return blk(x, x, x)
 
@@ -267,12 +268,21 @@ class TestCudaRouting:
         self._run(d, 8, dtype)
         assert cuda_like == [8]
 
-    @pytest.mark.parametrize("d,heads,dtype", [(256, 2, torch.bfloat16),
-                                               (384, 16, torch.bfloat16)])
+    @pytest.mark.parametrize("d,heads", [(256, 2), (384, 16)])
+    def test_head_generic_shapes_run_the_fused_kernels(self, cuda_like, d, heads):
+        """Head dims no head-specific kernel takes (128 at d 256, 24 at d 384)
+        run the head-generic pair."""
+        self._run(d, heads)
+        assert cuda_like == [heads]
+
+    @pytest.mark.parametrize("d,heads,dtype,ffn_mult", [(512, 8, torch.bfloat16, 2),
+                                                        (384, 8, torch.float32, 1)])
     def test_admitted_shapes_the_kernels_do_not_take_raise(self, cuda_like, d, heads,
-                                                           dtype):
+                                                           dtype, ffn_mult):
+        """The width cells: the JAX rule fuses the block (its smaller hidden
+        width fits the VMEM budget) and no CUDA kernel takes the width."""
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            self._run(d, heads, dtype)
+            self._run(d, heads, dtype, ffn_mult=ffn_mult)
         assert not cuda_like
 
     def test_tail_kernel_shapes_raise(self, cuda_like):

@@ -20,7 +20,8 @@ and tail kernels (``csrc/attn_f32.cu``, ``csrc/tail_f32.cu``,
   quarter of the fp32 bars (stats 1e-5, apply 2e-5), once with
   round-to-nearest adds and once with every add truncated toward zero (the
   published behaviour of NVIDIA tensor cores' fp32 accumulation, taken at
-  its worst), at every ``ATTN_F32_CELLS`` cell and on the first attention
+  its worst), at every fp32 cell of ``attn_cuda.KERNEL_CELLS`` (the
+  head-specific kernels' and the head-generic pair's) and on the first attention
   block's input of the two fp32 reference forwards
   (``tests/data/torch_port_fp32_reference.npz``). The tail's model, in its
   d-wide passes and hidden chunks, against ``_tail_kernel`` within a
