@@ -229,7 +229,12 @@ imports nothing of JAX or of the JAX package. Phases, one line each:
     4,096 against the CPU path on 2 pairs (1e-4); (d) one DEM step at d 384
     with 16 heads of 24, card vs CPU path; (e) every cell of the pair at its
     path's shape (stats bit identical across launches, an all-masked batch
-    exactly 0, the bf16 stats blob bit for bit), the fused block against
+    exactly 0, the bf16 stats blob bit for bit; the bf16 apply's output on
+    average nearer the plain version's than the plain version's with KV
+    rounded to bf16, which shows the attend's lo pass; each apply's time
+    beside its bound with the attend on the tensor cores, gated at 2 heads
+    of 128 and fp32 32 heads of 8 at the first version's 1.2879 / 1.3066
+    ms), the fused block against
     the plain block and its gradients at head dims 8, 24, 128 and 384, each
     cell's launches in a ``ModelConfig(num_heads=...)`` forward;
 20. the kernel list (JSON), the ``nvidia-smi`` line, and last the result
@@ -399,7 +404,11 @@ STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12, "_f32": 0.7397,
                  "_f32_d128": 0.0561, "_f32_robust60": 0.1181}
 # Apply at path 1's 16 x 4,096, d 256: above the runs of PRs 8-13
 # (0.3918-0.4418 ms), so that generalizing the kernel cannot slow it unseen.
-APPLY_GATE_MS = {"": 0.50, "_f32": 2.4090, "_f32_d128": 0.0950, "_f32_robust60": 0.3640}
+# The head-generic apply (attend on wgmma) at path 12's 2 heads of 128 and
+# fp32 32 heads of 8, 16 x 4,096: its first version's times (the FMA
+# attend, PERF.md), so that the redesign cannot lose to it unseen.
+APPLY_GATE_MS = {"": 0.50, "_f32": 2.4090, "_f32_d128": 0.0950, "_f32_robust60": 0.3640,
+                 "_d256_h2": 1.2879, "_d256_h32_f32": 1.3066}
 # The fp32 tail (split-TF32 wgmma) at d 384, 8 x 4,096 (path 7's first DSM
 # stem block) and at d 256, 16 x 4,096 (fused_attention=False): the FMA
 # kernel's times it replaced (PERF.md).
@@ -554,10 +563,10 @@ def phase_build():
               f"ptxas: {name} spills or is missing from the report: {hits}")
     lines = _build.build_log.splitlines()
     serial = [ln.strip() for ln in lines
-              if "C7515" in ln and any(n in ln for n in f32_new + heads)]
+              if ("C7515" in ln or "C7520" in ln) and any(n in ln for n in f32_new + heads)]
     check(not serial, f"ptxas serializes wgmma in the fp32 or head-generic kernels: "
           f"{serial[:3]}")
-    log(f"ptxas: no spill and no C7515 in the fp32 and head-generic kernels; "
+    log(f"ptxas: no spill and no C7515 / C7520 in the fp32 and head-generic kernels; "
         f"{sum('C7519' in ln for ln in lines)} C7519 lines (a wgmma fence added) in all")
 
 
@@ -792,6 +801,18 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None, rounds=TIME_ROUN
     # single final-rounding flip reaches 4e-3..8e-3.
     check(err <= bars["apply"], f"attn_apply{kname}{suffix}: relative error {err:.3g} > "
           f"{bars['apply']}")
+    if generic and not fp32:
+        # The attend carries KV as bf16 hi + lo: on average the output lies
+        # nearer the plain version's (fp32 KV) than the plain version's with
+        # KV rounded once to bf16, which a hi pass alone would match.
+        outh = attn_cuda.attn_apply_plain(x, m, KVp.to(bf).float(), *args[3:], **kw)
+        rows = m_bool[..., None].expand_as(out)
+        mean_p = float((out.float() - outp.float())[rows].abs().mean())
+        mean_h = float((out.float() - outh.float())[rows].abs().mean())
+        check(mean_p < mean_h, f"attn_apply{kname}{suffix}: mean error {mean_p:.3e} against the "
+              f"plain version, {mean_h:.3e} against it with KV in bf16 (the lo pass is lost)")
+        log(f"kernel attn_apply{kname}{suffix}: mean abs error {mean_p:.3e} against the plain "
+            f"version, {mean_h:.3e} against it with KV rounded to bf16")
     if fp32:  # no float atomics: a second launch gives the same bits
         same = bool(torch.equal(out, attn_cuda.attn_apply(*args, **kw)))
         check(same, f"attn_apply{kname}{suffix}: two launches differ")
@@ -812,8 +833,19 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None, rounds=TIME_ROUN
     a_bytes = 2 * Bx * L * d * isz + Bx * L * 4 + (2 * d * d + 2 * d * hid) * isz \
         + Bx * (H * hd * hd + d) * 4 + 4 * d * 4
     a_prod, a_att = 2 * Bx * L * d * (2 * d + 2 * hid), 2 * Bx * L * H * hd * hd
-    b_ms, b_by = bound(a_bytes, [(TF32_PASSES * a_prod, PEAK_TF32) if fp32 else (a_prod, peak),
-                                 (a_att, PEAK_FP32)])
+    fma_ms = bound(a_bytes, [(TF32_PASSES * a_prod, PEAK_TF32) if fp32 else (a_prod, peak),
+                             (a_att, PEAK_FP32)])
+    if generic:
+        # The head-generic attend runs on the tensor cores: its useful 2 R d
+        # hd operations at the rate of the other products (fp32: three TF32
+        # passes), not the zeros of its bands.
+        tc = a_prod + a_att
+        b_ms, b_by = bound(a_bytes, [(TF32_PASSES * tc, PEAK_TF32) if fp32 else (tc, peak)])
+        log(f"kernel attn_apply{kname}{suffix} ({Bx} x {L}, d {d}, {H} heads of {hd}): "
+            f"{ms:.4f} ms beside its bound {b_ms:.4f} ms ({b_by}; the attend's 2 R d hd on the "
+            f"tensor cores), {fma_ms[0]:.4f} ms with the attend on fp32 FMA")
+    else:
+        b_ms, b_by = fma_ms
     if fp32:
         log(f"kernel attn_apply{kname}{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
             f"bound {bound(a_bytes, [(a_prod + a_att, PEAK_FP32)])[0]:.4f} ms")

@@ -53,13 +53,20 @@
 //   * apply: the head-specific kernels' pipeline unchanged (bf16: the Q
 //     projection on wgmma and tail_tile.cuh's tail; fp32: tf32_tail.cuh's
 //     products and tail), only the attend differs. Q' goes to the row tile
-//     in shared memory; then for each output column of the thread (its
-//     accumulator layout) att = sum over the head's rows i of Q'[row][base
-//     + i] KV[h][i][column] on fp32 FMA, the KV of all heads streamed
-//     through shared memory kIC rows i a pass (the whole KV is d hd fp32:
-//     576 KB at d 384, head dim 384); the normalizer per head from Q' and
-//     K_sum, once a head a thread; the message overwrites the tile. Head
-//     dims that are even take a column pair a step (one KV float2).
+//     in shared memory, which is the attend's wgmma A operand as it is the
+//     merge's; att = Q' . blockdiag(KV) on wgmma, each warpgroup's columns
+//     in slices (bf16 32 columns, fp32 64) over the band of KV rows of the
+//     heads a slice touches (the rows of its own heads, plus the
+//     neighbours' where a head straddles a slice edge, staged as zeros off
+//     the diagonal blocks), the band staged from the fp32 KV in chunks:
+//     bf16 hi + lo in two passes (the TPU kernel's split_kv), fp32 as
+//     split-TF32 promoted every 64 k. So the attend runs on the tensor
+//     cores: 2 R d hd useful operations, issued as 2 R d x (band rows),
+//     which is (slice / hd) times that at a head dim dividing the slice
+//     (zeros off the diagonal blocks) and about 1x from the slice up. The
+//     normalizer per head from Q' and K_sum on FMA, its chain split over a
+//     quad of lanes where the head dim is a multiple of 8; the message
+//     overwrites the tile (attn_heads.cuh).
 //
 // Layout contract (checked by the Python wrapper, ops/attn_cuda.py): d
 // 128, 256, 384 (bf16) or 128, 256 (fp32), heads dividing d, hidden a

@@ -7,12 +7,16 @@
 // design answers.
 //
 // Per 64-row tile: q = x @ Wq (the two consumer warpgroups split its
-// columns); Q' = elu1(q) * mask into the fp32 row tile; then for each of the
-// thread's output columns att = sum over its head's rows i of Q'[row][base
-// + i] KV[h][i][column] on fp32 FMA, the KV of all heads streamed kIC rows i
-// a pass through the hidden buffers (idle until the FFN); z = Q'.K_sum per
-// head; the message att / (z + eps) overwrites the tile and the tail runs
-// on it.
+// columns); Q' = elu1(q) * mask into the fp32 row tile; then att = Q' .
+// blockdiag(KV) as split-TF32 wgmma, the products' arithmetic
+// (tf32_tile.cuh): each warpgroup makes its NW columns in m64n64 slices,
+// each over its band of KV rows (attn_heads.cuh:band) in chunks of
+// kPromoteK k-rows, a chunk's three passes a k8 step into a fresh
+// accumulator then added into the fp32 master (a promotion); the band is
+// split hi / lo and staged by the warpgroup into its half of the hidden
+// buffers (idle until the FFN). z = Q'.K_sum per head on fp32 FMA
+// (attn_heads.cuh:normalize); the message att / (z + eps) overwrites the
+// tile and the tail runs on it.
 //
 // Layout contract (ops/attn_cuda.py:attn_apply_heads): every tensor fp32;
 // Wq, Wm (d, d), W1 (d, hid), W2 (hid, d) (in, out), split and packed by
@@ -30,11 +34,13 @@ template <int D>
 struct HeadsApplyF32 {
   using G = tf32::Block<D>;
   static constexpr int TM = tf32::TM, NW = G::NW;
+  static constexpr int KC = tf32::kPromoteK;  // k-rows of a band chunk
   static constexpr int A = 0, HID = A + TM * D * 4, KSUM = HID + 2 * TM * G::HC * 4,
                        ST = KSUM + D * 4, MS = ST + 2 * TM * 8;
   using S = tf32::Smem<MS + TM * 4>;
-  static_assert(G::PASSES == 1 && D * kIC * 4 <= 2 * TM * G::HC * 4,
-                "apply: one pass, a pass of KV rows fits the hidden buffers");
+  static_assert(G::PASSES == 1 && NW % kSliceF32 == 0 && KC % kStepF32 == 0 &&
+                    2 * KC * kSliceF32 * 8 <= 2 * TM * G::HC * 4,
+                "apply: one pass, slices, a band chunk of each warpgroup in the hidden buffers");
   static __host__ __device__ constexpr int stages(int hid) { return G::stages(2, hid); }
 };
 
@@ -47,7 +53,7 @@ attn_apply_heads_f32_kernel(const float* __restrict__ x, const float* __restrict
                             const float* __restrict__ b2, float* __restrict__ out, int B, int L,
                             int hid, int hd, float attn_eps, float ln_eps, int norm_bf16) {
   using C = HeadsApplyF32<D>;
-  constexpr int NW = C::NW, NJ = NW / 8, TM = C::TM;
+  constexpr int NW = C::NW, NJ = NW / 8, TM = C::TM, KC = C::KC;
   extern __shared__ __align__(128) unsigned char smem[];
   const typename C::S::Ring ring0(hopper::smem_u32(smem));
   const int tpb = (L + TM - 1) / TM, ntiles = B * tpb;
@@ -81,6 +87,9 @@ attn_apply_heads_f32_kernel(const float* __restrict__ x, const float* __restrict
   float* kss = reinterpret_cast<float*>(base + C::KSUM);
   float2* stats = reinterpret_cast<float2*>(base + C::ST);
   float* ms = reinterpret_cast<float*>(base + C::MS);
+  // The warpgroup's band chunk: its half of the hidden buffers.
+  float* buf = Hs + w.cp * (2 * KC * kSliceF32);
+  const uint32_t bs = hopper::smem_u32(buf);
   const bool nbf = norm_bf16 != 0;
   // Q'(hh, col): row r0 + 8 hh of the tile (tf32_tile.cuh layout; rows r0
   // and r0 + 8 share r0 & 3).
@@ -111,16 +120,28 @@ attn_apply_heads_f32_kernel(const float* __restrict__ x, const float* __restrict
     for (int i = 0; i < NW / 2; ++i) acc[i] = tf32::elu1(acc[i]) * m[(i >> 1) & 1];
     hopper::named_sync(1, 256);  // both warpgroups' reads of x in the tile are done
     tf32::store_tile<NW, D>(acc, At, w, false);  // Q'
+    hopper::named_sync(1, 256);  // Q' is in: the attend's A
 #pragma unroll
     for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-    for (int i0 = 0; i0 < hd; i0 += kIC) {
-      const int n = hd - i0 < kIC ? hd - i0 : kIC;
-      hopper::named_sync(1, 256);  // Q' is in; every read of the last pass's rows is done
-      stage_kv(Hs, kv + (size_t)b * D * hd, D, hd, i0, n, tid, 256);
-      hopper::named_sync(1, 256);
-      attend_pass<0, NJ>(acc, col, q, Hs, i0, n, hd);
-    }
-    normalize<0, NJ>(acc, col, q, kss, hd, attn_eps);
+    const float* kvb = kv + (size_t)b * D * hd;
+    for_slices<0, NW / kSliceF32>([&](auto sl) {
+      constexpr int s = decltype(sl)::value;
+      const int c0 = w.cp * NW + s * kSliceF32;
+      int k0, k1;
+      band<kSliceF32>(c0, hd, D, kStepF32, k0, k1);
+#pragma unroll 1
+      for (int kc = k0; kc < k1; kc += KC) {
+        const int nk = k1 - kc < KC ? k1 - kc : KC;
+        hopper::named_sync(2 + w.cp, 128);  // every wgmma on the last chunk has completed
+        stage_band_tf32(buf, KC, kvb, hd, c0, kc, nk, wt, 128);
+        hopper::fence_proxy_async();
+        hopper::named_sync(2 + w.cp, 128);
+        attend_tf32<D, s>(acc, c, At, kc, nk, bs, KC, w.r0, w.t);
+      }
+    });
+    int zh = -1;
+    float inv[2];
+    normalize<0, NJ>(acc, col, q, kss, hd, attn_eps, zh, inv);
     hopper::named_sync(1, 256);  // every read of Q' in the tile is done
     tf32::store_tile<NW, D>(acc, At, w, false);  // the message
     hopper::named_sync(1, 256);

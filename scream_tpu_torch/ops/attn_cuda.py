@@ -43,8 +43,11 @@ head-specific kernels' wgmma pipelines in 64-column groups, whatever the
 head count, and sum each head's ``K'^T V`` on fp32 FMA per chunk of
 ``HEADS_CHUNK`` rows in row order, then the chunks in chunk order (a CPU
 model of that order is ``tests/test_torch_port_heads_any.py``'s); apply
-attends on fp32 FMA with the KV streamed through shared memory 32 rows a
-pass, then runs the head-specific kernels' tail.
+forms the attend as ``Q' . blockdiag(KV)`` on the tensor cores, as the TPU
+kernel does: each ``HEADS_SLICE`` output columns against the band of KV
+rows of their heads (:func:`heads_band`), KV split bf16 hi + lo in bf16
+and split-TF32 in fp32, then runs the head-specific kernels' tail (a CPU
+model is ``tests/test_torch_port_heads_tc.py``'s).
 Each wrapper dispatches on the compute dtype and the cell, launches its
 kernel for CUDA tensors (raising on what no kernel takes) and runs its
 plain PyTorch version, defined beside it, only for CPU tensors. Its
@@ -84,6 +87,14 @@ KERNEL_CELLS = {dt: {d: tuple(hd for hd in range(1, d + 1) if d % hd == 0) for d
 # The head-generic stats' chunk of rows (csrc/attn_heads.cuh kChunk): each
 # chunk's partial sums in row order, then the chunks in chunk order.
 HEADS_CHUNK = 512
+# The head-generic apply's attend (csrc/attn_heads.cuh kSliceBf16,
+# kSliceF32, kStepBf16, kStepF32): output columns a product, and the step
+# its band of KV rows is rounded out to, by compute dtype. A bf16 band goes
+# through shared memory whole at d <= 256 (in chunks of d / 2 rows at d 384,
+# one a warpgroup), an fp32 band in chunks of F32_PROMOTE_K rows, one a
+# promotion.
+HEADS_SLICE = {torch.bfloat16: 32, torch.float32: 64}
+HEADS_BAND_STEP = {torch.bfloat16: 32, torch.float32: 16}
 KERNEL_HID_CHUNK = 128
 # The stats projection's row tile (csrc/attn.cu TM): the blocks walk the
 # (batch, tile) items, and the workspace holds S rounded up to it.
@@ -128,6 +139,28 @@ def head_cell(d: int, num_heads: int, dtype: torch.dtype) -> bool:
     head-generic pair takes the rest of ``KERNEL_CELLS``."""
     return num_heads > 0 and d % num_heads == 0 and \
         d // num_heads in HEAD_CELLS.get(dtype, {}).get(d, ())
+
+
+def heads_band(d: int, hd: int, c0: int, dtype: torch.dtype) -> tuple:
+    """``(k0, k1)``: the rows of ``blockdiag(KV)`` that the head-generic
+    apply's product for output columns ``[c0, c0 + HEADS_SLICE[dtype])``
+    reads (``csrc/attn_heads.cuh:band``): every head those columns touch,
+    clipped to ``d``, rounded out to the dtype's step; entries off the
+    diagonal blocks are staged as zeros."""
+    step = HEADS_BAND_STEP[dtype]
+    k0 = c0 // hd * hd // step * step
+    k1 = min(d, -(-(c0 + HEADS_SLICE[dtype]) // hd) * hd)
+    return k0, -(-k1 // step) * step
+
+
+def heads_band_chunk(d: int, dtype: torch.dtype) -> int:
+    """Rows of a band chunk in shared memory: bf16 ``d`` at d <= 256 (any
+    band), ``d / 2`` at d 384 (where each warpgroup stages its own columns'
+    band); fp32 ``F32_PROMOTE_K`` (``HeadsApply::KC``,
+    ``HeadsApplyF32::KC``)."""
+    if dtype == torch.float32:
+        return F32_PROMOTE_K
+    return d if d <= 256 else d // 2
 
 
 def _require_cell(name, d, num_heads, dtype):
@@ -567,9 +600,11 @@ def attn_apply_heads(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2, *,
     """The head-generic apply kernel (``csrc/attn_heads_apply.cu``, fp32
     ``csrc/attn_heads_apply_f32.cu``) at any head count of
     ``HEADS_WIDTHS``; :func:`attn_apply` sends it the cells no
-    head-specific kernel takes. bf16: ``Wq, Wm, W1, W2`` packed by
-    ``tail_cuda.pack_weights`` (its own call), then one launch; fp32: one C
-    call, the pack (``pack_block_f32_kernel``) and the block."""
+    head-specific kernel takes. The attend runs on the tensor cores as
+    ``Q' . blockdiag(KV)`` over each slice's band (:func:`heads_band`).
+    bf16: ``Wq, Wm, W1, W2`` packed by ``tail_cuda.pack_weights`` (its own
+    call), then one launch; fp32: one C call, the pack
+    (``pack_block_f32_kernel``) and the block."""
     if not _build.route(x):
         return attn_apply_plain(x, mask, KV, ksum, Wq, Wm, g1, b1, W1, W2, g2, b2,
                                 attn_eps=attn_eps, ln_eps=ln_eps, norm_dtype=norm_dtype)

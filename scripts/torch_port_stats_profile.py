@@ -4,7 +4,7 @@ a digest of their output bits, their time and each kernel's device time.
 
 Usage, on a machine with an NVIDIA GPU:
 
-    python3 scripts/torch_port_stats_profile.py [TREE] [--f32]
+    python3 scripts/torch_port_stats_profile.py [TREE] [--f32 | --heads]
 
 ``TREE`` (default: this checkout) is the root of the tree whose
 ``scream_tpu_torch`` is imported, for example an unpacked ``git archive``
@@ -18,7 +18,12 @@ kernels instead (``csrc/attn_f32.cu``) at path 7's and path 9's shapes,
 stats and then apply (8 heads, hidden 4 d, fed the plain stats), then the
 tail (``csrc/tail_f32.cu``, hidden 4 d) at d 384, 8 x 4,096 and d 256, 16 x
 4,096, each with a digest of its output and its weight pack's launch among
-its kernels. It gates nothing:
+its kernels. Without a flag, after the stats: the bf16 apply (8 heads, fed
+the plain stats) at 16 x 4,096 (d 256) and 8 x 512 (d 128), and the bf16
+tail at d 512, 8 x 8,192 and d 256, 16 x 4,096 (``csrc/tail.cu``).
+``--heads``: the head-generic pair (``csrc/attn_heads*.cu``) at the cells of
+``chip_smoke.py`` path 12 (bf16 2 heads of 128 and 16 heads of 8 and 24, fp32
+32 heads of 8), stats and then apply fed the plain stats. It gates nothing:
 ``chip_smoke.py`` holds the kernels to their plain versions.
 """
 
@@ -30,6 +35,11 @@ SHAPES = [(16, 4096, 256), (8, 4096, 256), (8, 4000, 256), (8, 512, 128), (3, 12
           (1, 448, 128), (2, 1, 256)]
 SHAPES_F32 = [(16, 4096, 256), (60, 512, 128), (8, 512, 128)]
 TAIL_SHAPES_F32 = [(8, 4096, 384), (16, 4096, 256)]
+APPLY_SHAPES = [(16, 4096, 256), (8, 512, 128)]
+TAIL_SHAPES = [(8, 8192, 512), (16, 4096, 256)]
+# chip_smoke.py path 12's timed cells: (B, S, d, heads, dtype).
+HEADS_CELLS = [(16, 4096, 256, 2, "bfloat16"), (8, 512, 128, 16, "bfloat16"),
+               (8, 4096, 384, 16, "bfloat16"), (16, 4096, 256, 32, "float32")]
 
 
 def profile_call(name, shape, call, digest=None):
@@ -98,8 +108,69 @@ def f32_shapes():
         profile_call("fp32 tail ", (B, S, d), tail, digest.hexdigest())
 
 
+def block_inputs(B, S, d, dtype):
+    """x, mask and block weights (hidden 4 d) on the card from a seed of the
+    shape; LayerNorm params fp32."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
+    x = torch.randn((B, S, d), generator=g, device="cuda").to(dtype)
+    m = (torch.rand((B, S), generator=g, device="cuda") > 0.2).float()
+    w = lambda *s: (torch.randn(s, generator=g, device="cuda") / s[0] ** 0.5).to(dtype)
+    ln = [torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")] * 2
+    return x, m, (w(d, d), w(d, d), w(d, d), w(d, d), w(d, 4 * d), w(4 * d, d)), ln
+
+
+def apply_call(x, m, W, ln, heads):
+    """The apply kernel fed the plain stats: (call, digest of its output)."""
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    Wq, Wk, Wv, Wm, W1, W2 = W
+    KVp, ksp = attn_cuda.attn_stats_plain(x, m, Wk, Wv, num_heads=heads)
+    call = lambda: attn_cuda.attn_apply(x, m, KVp, ksp, Wq, Wm, ln[0], ln[1], W1, W2, ln[2],
+                                        ln[3], attn_eps=1e-6, ln_eps=1e-5,
+                                        norm_dtype=torch.float32)
+    return call, hashlib.sha256(call().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def bf16_apply_tail():
+    import torch
+
+    from scream_tpu_torch.ops import tail_cuda
+
+    bf = torch.bfloat16
+    for B, S, d in APPLY_SHAPES:
+        x, m, W, ln = block_inputs(B, S, d, bf)
+        call, digest = apply_call(x, m, W, ln, 8)
+        profile_call("apply ", (B, S, d), call, digest)
+    for B, S, d in TAIL_SHAPES:
+        x, m, W, ln = block_inputs(B, S, d, bf)
+        tail = lambda: tail_cuda.block_tail(x, x, W[3], ln[0], ln[1], W[4], W[5], ln[2], ln[3],
+                                            dtype=bf, norm_dtype=torch.float32)
+        digest = hashlib.sha256(tail().float().cpu().numpy().tobytes()).hexdigest()
+        profile_call("tail ", (B, S, d), tail, digest)
+
+
+def heads_cells():
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    for B, S, d, heads, dt in HEADS_CELLS:
+        x, m, W, ln = block_inputs(B, S, d, getattr(torch, dt))
+        stats = lambda: attn_cuda.attn_stats(x, m, W[1], W[2], num_heads=heads)
+        KV, ks = stats()
+        digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
+        label = f"{dt} {heads} heads "
+        profile_call(label + "stats ", (B, S, d), stats, digest.hexdigest())
+        call, digest = apply_call(x, m, W, ln, heads)
+        profile_call(label + "apply ", (B, S, d), call, digest)
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != "--f32"]
+    args = [a for a in sys.argv[1:] if a not in ("--f32", "--heads")]
     root = os.path.abspath(args[0] if args else
                            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
@@ -112,6 +183,8 @@ def main():
         raise SystemExit("torch_port_stats_profile: needs a CUDA GPU")
     if "--f32" in sys.argv[1:]:
         return f32_shapes()
+    if "--heads" in sys.argv[1:]:
+        return heads_cells()
     for B, S, d in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
         x = torch.randn((B, S, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -122,6 +195,7 @@ def main():
         KV, ks = call()
         digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
         profile_call("", (B, S, d), call, digest.hexdigest())
+    bf16_apply_tail()
 
 
 if __name__ == "__main__":

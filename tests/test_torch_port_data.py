@@ -147,7 +147,7 @@ def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tests", "torch_parallel_cases.py")] + [
         os.path.join(REPO, "scripts", f"torch_port_{n}.py")
-        for n in ("make_raw", "make_splits", "run_scale", "measure_gt_free")]
+        for n in ("make_raw", "make_splits", "run_scale", "measure_gt_free", "heads_probe")]
     for root, _, names in os.walk(os.path.join(REPO, "scream_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -12,8 +12,9 @@ On the CPU, where the kernels cannot run:
 * a numpy model of the kernels' arithmetic at those cells, held to the same
   Pallas kernels within the same 1e-5: the stats summed per chunk of
   ``HEADS_CHUNK`` rows in row order, then the chunks in chunk order; apply's
-  attend one chain per output column over its head's KV rows in order, the
-  normalizer one chain per head; and the stats model on bf16 inputs within
+  attend as ``Q' . blockdiag(KV)`` over each slice's band of KV rows in
+  split-TF32 (``test_torch_port_heads_tc.py``'s model), the normalizer one
+  chain per head; and the stats model on bf16 inputs within
   the card's 5e-3 of the plain version, an all-masked batch exactly 0;
 * the sum kernel's work split restated from the source (each KV entry and
   K_sum column written by one thread, from columns its block stages), at
@@ -44,6 +45,7 @@ from scream_tpu_torch.models import PointTransformer
 from scream_tpu_torch.ops import attn_cuda
 from scream_tpu_torch.ops.ffn import tail_plain
 from scream_tpu_torch.utils.convert import params_from_jax
+from test_torch_port_heads_tc import model_attend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, "scream_tpu_torch", "csrc", "attn_heads.cuh")
@@ -161,24 +163,23 @@ def model_stats(x, mask, Wk, Wv, heads, bf):
 
 
 def model_apply(x, mask, KV, ks, Wq, Wm, g1, b1, W1, W2, g2, b2, eps=1e-6):
-    """The head-generic apply's attention in numpy, fp32: ``Q' = elu1(x @ Wq)
-    m``; each output column ``c`` of head ``h`` the chain over i = 0 .. hd -
-    1 of ``Q'[base + i] KV[h][i][c - base]`` (``attend_pass``, its passes of
-    KV rows in order), ``z`` the chain of ``Q'[base + i]
-    K_sum[base + i]`` (``normalize``), the message ``att (1 / (z + eps))``;
-    then the plain tail."""
+    """The head-generic apply's attention, fp32: ``Q' = elu1(x @ Wq) m``;
+    ``att = Q' . blockdiag(KV)`` as the fp32 kernel forms it on the tensor
+    cores (``test_torch_port_heads_tc.py``'s model: split-TF32 over each
+    64-column fp32 slice's band of KV rows, promoted every 64 k), ``z`` the
+    chain of ``Q'[base + i] K_sum[base + i]`` over the column's head
+    (``normalize``), the message ``att (1 / (z + eps))``; then the plain
+    tail."""
     B, L, d = x.shape
     H, hd = KV.shape[1], KV.shape[2]
     q = (x.astype(np.float64) @ Wq).astype(np.float32)
     qp = (np.where(q > 0, q + 1, np.exp(q)) * mask[..., None]).astype(np.float32)
     cols = np.arange(d)
-    head, base = cols // hd, cols // hd * hd
-    att = np.zeros((B, L, d), np.float32)
+    base = cols // hd * hd
+    att = model_attend(t(qp), t(KV), torch.float32).numpy()
     z = np.zeros((B, L, d), np.float32)
     for i in range(hd):
-        qi = qp[:, :, base + i]
-        att = att + qi * KV[:, head, i, cols - base][:, None, :]
-        z = z + qi * ks[:, base + i][:, None, :]
+        z = z + qp[:, :, base + i] * ks[:, base + i][:, None, :]
     msg = att * (np.float32(1) / (z + np.float32(eps)))
     f32 = torch.float32
     return tail_plain(t(msg), t(x), t(Wm), t(g1), t(b1), t(W1), t(W2), t(g2), t(b2), cd=f32,
@@ -231,9 +232,15 @@ def constant(name):
 
 def test_wrapper_constants_are_the_sources():
     """The chunk the wrappers and the model above sum in is the kernel's;
-    the workspace groups are the 64 columns the packs lay out."""
+    the workspace groups are the 64 columns the packs lay out; the apply's
+    slice and band steps are the attend's."""
     assert attn_cuda.HEADS_CHUNK == constant("kChunk")
     assert constant("kGroup") == 64 and constant("kSumThreads") == 256
+    # apply: the attend's slices and band steps (test_torch_port_heads_tc.py's model).
+    assert attn_cuda.HEADS_SLICE == {torch.bfloat16: constant("kSliceBf16"),
+                                     torch.float32: constant("kSliceF32")}
+    assert attn_cuda.HEADS_BAND_STEP == {torch.bfloat16: constant("kStepBf16"),
+                                         torch.float32: constant("kStepF32")}
 
 
 @pytest.mark.parametrize("d,hd", GENERIC)
@@ -270,27 +277,31 @@ def test_sum_writes_each_output_once_from_staged_columns(d, hd):
 def test_kernel_layouts_fit_shared_memory(d):
     """The sum block's stage (kSub rows of at most 2 d floats); the bf16
     apply block (``tail::Layout<D, EXTRA>``: ring stages of 64 d bytes, the
-    row tile, hidden chunks, a pass of KV rows (d kIC fp32), K_sum, the
-    first half of each of the 256 consumer threads' message (d / 4 bf16 at
-    d <= 256, d / 8 at 384), row statistics, barriers) with at least 2
-    stages; in fp32 (d <= 256) the projection block (ring of 32 KB stages,
-    the 64-row x tile, mask) and the apply block with a pass of KV rows
-    inside its hidden buffers."""
-    ic, sub = constant("kIC"), constant("kSub")
+    row tile, hidden chunks, the attend's band chunks (one of the two
+    warpgroups' shared columns at d <= 256, d k-rows; one a warpgroup at d
+    384, d / 2 k-rows: x 32 columns of bf16 hi and lo each, ``HeadsApply``),
+    K_sum, row
+    statistics, barriers) with at least 2 stages; in fp32 (d <= 256) the
+    projection block (ring of 32 KB stages, the 64-row x tile, mask) and
+    the apply block with each warpgroup's band chunk (64 k-rows x 64
+    columns, fp32 hi and lo) inside its half of the hidden buffers."""
+    sub, sl, sl32 = constant("kSub"), constant("kSliceBf16"), constant("kSliceF32")
     assert sub * 2 * d * 4 <= SMEM
     cols = 2 if d > 256 else 1
-    park = (d // cols) // 4 * 2 * 256
-    rest = (128 // cols) * d * 2 + 2 * 64 * 64 * cols * 2 + d * ic * 4 + d * 4 + park \
-        + 2 * 64 * 8
+    kc = attn_cuda.heads_band_chunk(d, torch.bfloat16)
+    assert kc == (d if cols == 1 else d // 2) and kc % 32 == 0
+    band = kc * sl * 4  # bytes of a bf16 chunk, hi then lo
+    rest = (128 // cols) * d * 2 + 2 * 64 * 64 * cols * 2 + cols * band + d * 4 + 2 * 64 * 8
     nst = min(8, (SMEM - rest - 16 * 8) // (64 * d))
     assert nst >= 2 and nst * 64 * d + rest + 16 * nst <= SMEM
-    assert (d // cols) % 8 == 0  # a warpgroup's columns: whole 8-column groups
+    assert (d // cols) % sl == 0  # a warpgroup's columns: whole slices
     if d <= 256:
         for rest in (64 * d * 4 + 64 * 4,  # projection
                      64 * d * 4 + 2 * 64 * 128 * 4 + d * 4 + 2 * 64 * 8 + 64 * 4):  # apply
             nst = min(8, (SMEM - rest - 16 * 8) // 32768)
             assert nst >= 2 and nst * 32768 + rest + 16 * nst <= SMEM
-        assert d * ic * 4 <= 2 * 64 * 128 * 4
+        kc32 = attn_cuda.heads_band_chunk(d, torch.float32)
+        assert 2 * (kc32 * sl32 * 4 * 2) <= 2 * 64 * 128 * 4 and (d // 2) % sl32 == 0
 
 
 def walk_stats_blob(blob, d, heads):
