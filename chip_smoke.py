@@ -400,8 +400,11 @@ SPLAT_NEED_BAND = 2.0 ** -12
 # shape 8 x 512 (d 128), and path 9's ico60 60 x 512: their first versions'
 # times (the FMA kernels, PERF.md), so that a redesign that loses to them
 # fails.
+# The head-generic stats (K'^T V on the tensor cores) at path 12's 2 heads
+# of 128 and fp32 32 heads of 8, 16 x 4,096: the FMA sum's times (PERF.md).
 STATS_GATE_MS = {"": 0.25, "_train": 0.15, "_d128": 0.12, "_f32": 0.7397,
-                 "_f32_d128": 0.0561, "_f32_robust60": 0.1181}
+                 "_f32_d128": 0.0561, "_f32_robust60": 0.1181,
+                 "_d256_h2": 0.2911, "_d256_h32_f32": 0.4078}
 # Apply at path 1's 16 x 4,096, d 256: above the runs of PRs 8-13
 # (0.3918-0.4418 ms), so that generalizing the kernel cannot slow it unseen.
 # The head-generic apply (attend on wgmma) at path 12's 2 heads of 128 and
@@ -555,7 +558,7 @@ def phase_build():
     f32_new = ("attn_stats_f32_kernel", "attn_apply_f32_kernel", "tail_f32_kernel",
                "pack_stats_f32_kernel", "pack_block_f32_kernel")
     # The head-generic pair (csrc/attn_heads.cu), both dtypes.
-    heads = ("heads_sum_kernel", "attn_stats_f32_reduce_kernel", "heads_proj_f32_kernel",
+    heads = ("heads_sum_mma_kernel", "attn_stats_f32_reduce_kernel", "heads_proj_f32_kernel",
              "attn_apply_heads_kernel", "attn_apply_heads_f32_kernel")
     for name in ("max_splat_kernel", "nn_exact_kernel") + f32_new + heads:
         hits = {f: v for f, v in spills.items() if name in f}
@@ -771,12 +774,14 @@ def check_attention(blk, m_bool, suffix="", x=None, dtype=None, rounds=TIME_ROUN
         + (f" (gate {gate} ms on the best)" if gate is not None else ""))
     hd = d // H
     # fp32: the kernel's operations, the projection's three TF32 passes on
-    # the tensor cores and K'^T V on fp32 FMA (its bound); beside it, the
-    # bound of the same products on fp32 FMA alone (logged).
+    # the tensor cores and K'^T V on fp32 FMA (the head-specific kernel's
+    # bound), or, head-generic, K'^T V as three TF32 passes too; beside it,
+    # the bound of the same products on fp32 FMA alone (logged).
     s_bytes = Bx * L * d * isz + Bx * L * 4 + 2 * d * d * isz + Bx * (H * hd * hd + d) * 4
     s_proj, s_kv = 2 * Bx * L * d * 2 * d, 2 * Bx * L * H * hd * hd
-    b_ms, b_by = bound(s_bytes, [(TF32_PASSES * s_proj, PEAK_TF32), (s_kv, PEAK_FP32)]
-                       if fp32 else [(s_proj + s_kv, peak)])
+    b_ms, b_by = bound(s_bytes, [(TF32_PASSES * (s_proj + s_kv), PEAK_TF32)] if fp32 and generic
+                       else [(TF32_PASSES * s_proj, PEAK_TF32), (s_kv, PEAK_FP32)] if fp32
+                       else [(s_proj + s_kv, peak)])
     if fp32:
         log(f"kernel attn_stats{kname}{suffix}: bound {b_ms:.4f} ms ({b_by}; 3xTF32), fp32 FMA "
             f"bound {bound(s_bytes, [(s_proj + s_kv, PEAK_FP32)])[0]:.4f} ms")

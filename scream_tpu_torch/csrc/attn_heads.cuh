@@ -28,8 +28,9 @@ namespace scream {
 namespace heads {
 
 constexpr int kChunk = 512;       // stats: rows of a partial sum (ops/attn_cuda.py HEADS_CHUNK)
-constexpr int kSub = 32;          // stats: rows of a shared-memory stage of the sum
-constexpr int kSumThreads = 256;  // stats: threads of a sum block, one KV block each
+constexpr int kSumRows = 32;      // stats: rows of a shared-memory stage of the sum
+constexpr int kSumStages = 3;     // stats: the sum's stages in flight
+constexpr int kSumWide = 128;     // stats: a bf16 sum block's columns at head dims of 128 up
 constexpr int kGroup = 64;        // stats workspace: columns of K' (and of V) a group
 constexpr int kSliceBf16 = 32;    // apply: columns of a bf16 attend product (attn_cuda.HEADS_SLICE)
 constexpr int kSliceF32 = 64;     // apply: columns of an fp32 attend product

@@ -40,10 +40,13 @@ d_model only (:func:`attn_stats_heads`, ``csrc/attn_heads.cu``;
 :func:`attn_apply_heads`, ``csrc/attn_heads_apply.cu`` and
 ``csrc/attn_heads_apply_f32.cu``): the stats project ``[k|v]`` on the
 head-specific kernels' wgmma pipelines in 64-column groups, whatever the
-head count, and sum each head's ``K'^T V`` on fp32 FMA per chunk of
-``HEADS_CHUNK`` rows in row order, then the chunks in chunk order (a CPU
-model of that order is ``tests/test_torch_port_heads_any.py``'s); apply
-forms the attend as ``Q' . blockdiag(KV)`` on the tensor cores, as the TPU
+head count, and sum ``K'^T V`` on the tensor cores (``mma.sync``; fp32 as
+split-TF32) per pair of column blocks that share a head (64 columns, 128 in
+bf16 from head dim 128) and chunk of ``HEADS_CHUNK`` rows, the rows in
+order, then the chunks in chunk order (CPU models of that order are
+``tests/test_torch_port_heads_any.py``'s and, for fp32,
+``tests/test_torch_port_heads_tc.py``'s); apply forms the attend as
+``Q' . blockdiag(KV)`` on the tensor cores, as the TPU
 kernel does: each ``HEADS_SLICE`` output columns against the band of KV
 rows of their heads (:func:`heads_band`), KV split bf16 hi + lo in bf16
 and split-TF32 in fp32, then runs the head-specific kernels' tail (a CPU
@@ -333,7 +336,9 @@ def attn_stats_heads(x, mask, Wk, Wv, *, num_heads):
     ``[Wk|Wv]`` packed at ``d / 64`` heads (:func:`pack_stats_weights`, its
     own call), ``csrc/attn.cu``'s projection into a bf16 ``K' | V``
     workspace; fp32 the pack and ``heads_proj_f32_kernel`` into an fp32 one;
-    then the partial sums per ``HEADS_CHUNK`` rows and their reduce.
+    then ``heads_sum_mma_kernel``, the partial ``K'^T V`` and ``K_sum`` on
+    the tensor cores per (pair of column blocks sharing a head, chunk of
+    ``HEADS_CHUNK`` rows, batch), and the reduce of the chunks in order.
     ``(KV (B, H, hd, hd), K_sum (B, d))`` fp32."""
     if not _build.route(x):
         return attn_stats_plain(x, mask, Wk, Wv, num_heads=num_heads)

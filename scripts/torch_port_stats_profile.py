@@ -23,8 +23,12 @@ the plain stats) at 16 x 4,096 (d 256) and 8 x 512 (d 128), and the bf16
 tail at d 512, 8 x 8,192 and d 256, 16 x 4,096 (``csrc/tail.cu``).
 ``--heads``: the head-generic pair (``csrc/attn_heads*.cu``) at the cells of
 ``chip_smoke.py`` path 12 (bf16 2 heads of 128 and 16 heads of 8 and 24, fp32
-32 heads of 8), stats and then apply fed the plain stats. It gates nothing:
-``chip_smoke.py`` holds the kernels to their plain versions.
+32 heads of 8), stats and then apply fed the plain stats. ``--heads-cells``:
+the head-generic stats alone at every cell they take (bf16 d 128-384, fp32 d
+128-256, each head count the head-specific kernels do not take) at
+``chip_smoke.py``'s shape for the width, one line a cell: digest and the best
+of 3 rounds of 10 calls. It gates nothing: ``chip_smoke.py`` holds the
+kernels to their plain versions.
 """
 
 import hashlib
@@ -169,8 +173,42 @@ def heads_cells():
         profile_call(label + "apply ", (B, S, d), call, digest)
 
 
+# chip_smoke.py CELL_SHAPES: (B, S) by width.
+CELL_SHAPES = {128: (8, 512), 256: (16, 4096), 384: (8, 4096)}
+
+
+def heads_stats_cells():
+    import torch
+
+    from scream_tpu_torch.ops import attn_cuda
+
+    for dt, widths in attn_cuda.HEADS_WIDTHS.items():
+        for d in widths:
+            for hd in range(1, d + 1):
+                heads = d // hd
+                if d % hd or attn_cuda.head_cell(d, heads, dt):
+                    continue
+                B, S = CELL_SHAPES[d]
+                x, m, W, _ = block_inputs(B, S, d, dt)
+                stats = lambda: attn_cuda.attn_stats(x, m, W[1], W[2], num_heads=heads)
+                KV, ks = stats()
+                digest = hashlib.sha256(KV.cpu().numpy().tobytes() + ks.cpu().numpy().tobytes())
+                rounds = []
+                for _ in range(3):
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    e0.record()
+                    for _ in range(10):
+                        stats()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    rounds.append(e0.elapsed_time(e1) / 10)
+                print(f"{str(dt)[6:]} d {d}, {heads} heads of {hd}, {B} x {S}: sha256 "
+                      f"{digest.hexdigest()[:16]} | {min(rounds):.4f} ms | "
+                      f"{torch.cuda.get_device_name(0)}", flush=True)
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a not in ("--f32", "--heads")]
+    args = [a for a in sys.argv[1:] if a not in ("--f32", "--heads", "--heads-cells")]
     root = os.path.abspath(args[0] if args else
                            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
@@ -185,6 +223,8 @@ def main():
         return f32_shapes()
     if "--heads" in sys.argv[1:]:
         return heads_cells()
+    if "--heads-cells" in sys.argv[1:]:
+        return heads_stats_cells()
     for B, S, d in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B * 100000 + S * 10 + d)
         x = torch.randn((B, S, d), generator=g, device="cuda").to(torch.bfloat16)

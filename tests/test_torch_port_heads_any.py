@@ -11,15 +11,20 @@ On the CPU, where the kernels cannot run:
   384, 2) and 3 (d 384, 128): 1e-5 of the largest value;
 * a numpy model of the kernels' arithmetic at those cells, held to the same
   Pallas kernels within the same 1e-5: the stats summed per chunk of
-  ``HEADS_CHUNK`` rows in row order, then the chunks in chunk order; apply's
+  ``HEADS_CHUNK`` rows in row order, a tensor-core step of rows at a time
+  (16 bf16, 8 fp32) rounded once into the fp32 accumulator, then the
+  chunks in chunk order (the fp32 split-TF32 passes are
+  ``test_torch_port_heads_tc.py``'s model); apply's
   attend as ``Q' . blockdiag(KV)`` over each slice's band of KV rows in
   split-TF32 (``test_torch_port_heads_tc.py``'s model), the normalizer one
   chain per head; and the stats model on bf16 inputs within
   the card's 5e-3 of the plain version, an all-masked batch exactly 0;
-* the sum kernel's work split restated from the source (each KV entry and
-  K_sum column written by one thread, from columns its block stages), at
-  every (d, head dim) of the pair, and each kernel's shared memory within
-  the card's 232,448 bytes;
+* the sum kernel's work split restated from the source (its items' pairs
+  of column blocks that share a head, each warp's n8 tiles; each KV entry
+  and K_sum column written once, by an item within one head band, from
+  the columns its block stages), at every (d, head dim) of the pair in
+  both dtypes, and each kernel's shared memory within the card's 232,448
+  bytes;
 * the stats blob at a head-generic cell walked back to Wk and Wv (the
   64-column groups ``[k_g | v_g]`` the projection reads), bf16 and fp32;
 * PointTransformer forwards at d 384 / 16 heads and d 256 / 2 heads from
@@ -139,9 +144,12 @@ def test_fused_block_and_plain_versions_match_pallas(pallas_blocks, d, heads):
 def model_stats(x, mask, Wk, Wv, heads, bf):
     """The head-generic stats in numpy: ``[k|v]`` rounded to bf16 (``bf``;
     else fp32), ``K' = elu1(k)`` rounded again, times the mask, ``V = v m``;
-    then per chunk of HEADS_CHUNK rows each head's K'^T V and K_sum added
-    row by row in fp32 (``heads_sum_kernel``), the chunks added in chunk
-    order (``attn_f32.cu``'s slot reduce, ``attn_stats_f32_reduce_kernel``)."""
+    then per chunk of HEADS_CHUNK rows (``heads_sum_mma_kernel``'s items)
+    each head's K'^T V and K_sum in row order, a tensor-core step of rows
+    at a time (m16n8k16 in bf16, m16n8k8 in fp32) summed exactly and added
+    into the fp32 accumulator with one rounding (K_sum: K' times a column
+    of ones), the chunks added in chunk order (``attn_f32.cu``'s slot
+    reduce, ``attn_stats_f32_reduce_kernel``)."""
     B, S, d = x.shape
     hd = d // heads
     r = bf16 if bf else (lambda a: np.asarray(a, np.float32))
@@ -150,14 +158,17 @@ def model_stats(x, mask, Wk, Wv, heads, bf):
     m = (bf16(mask) if bf else mask.astype(np.float32))[..., None]
     kp = (r(np.where(k > 0, k + 1, np.exp(k))) * m).reshape(B, S, heads, hd)
     vm = (v * m).reshape(B, S, heads, hd).astype(np.float32)
+    step = 16 if bf else 8
     KV = np.zeros((B, heads, hd, hd), np.float32)
     ks = np.zeros((B, heads, hd), np.float32)
     for c0 in range(0, S, attn_cuda.HEADS_CHUNK):
         part = np.zeros_like(KV)
         pks = np.zeros_like(ks)
-        for row in range(c0, min(S, c0 + attn_cuda.HEADS_CHUNK)):
-            part = part + kp[:, row, :, :, None] * vm[:, row, :, None, :]
-            pks = pks + kp[:, row]
+        for r0 in range(c0, min(S, c0 + attn_cuda.HEADS_CHUNK), step):
+            kk = kp[:, r0:r0 + step].astype(np.float64)  # rows past S: the workspace's zeros
+            vv = vm[:, r0:r0 + step].astype(np.float64)
+            part = (part + np.einsum("bshd,bshv->bhdv", kk, vv)).astype(np.float32)
+            pks = (pks + kk.sum(1)).astype(np.float32)
         KV, ks = KV + part, ks + pks
     return KV, ks.reshape(B, d)
 
@@ -232,10 +243,15 @@ def constant(name):
 
 def test_wrapper_constants_are_the_sources():
     """The chunk the wrappers and the model above sum in is the kernel's;
-    the workspace groups are the 64 columns the packs lay out; the apply's
-    slice and band steps are the attend's."""
+    the workspace groups are the 64 columns the packs lay out, the sum's
+    wide blocks two of them; a sum stage's rows are whole tensor-core steps
+    and divide the fp32 promotion chunk and the chunk; the apply's slice
+    and band steps are the attend's."""
     assert attn_cuda.HEADS_CHUNK == constant("kChunk")
-    assert constant("kGroup") == 64 and constant("kSumThreads") == 256
+    assert constant("kGroup") == 64 and constant("kSumWide") == 128
+    rows = constant("kSumRows")
+    assert rows % 16 == 0 and attn_cuda.F32_PROMOTE_K % rows == 0
+    assert attn_cuda.HEADS_CHUNK % rows == 0 and constant("kSumStages") >= 2
     # apply: the attend's slices and band steps (test_torch_port_heads_tc.py's model).
     assert attn_cuda.HEADS_SLICE == {torch.bfloat16: constant("kSliceBf16"),
                                      torch.float32: constant("kSliceF32")}
@@ -243,39 +259,91 @@ def test_wrapper_constants_are_the_sources():
                                          torch.float32: constant("kStepF32")}
 
 
+def sum_block(f32, hd):
+    """``attn_heads.cu:sum_block``: an item's block of K' (and V) columns."""
+    wide = constant("kSumWide")
+    return wide if not f32 and hd % wide == 0 else constant("kGroup")
+
+
+def sum_pairs(nb, w, hd):
+    """``attn_heads.cu:sum_pairs``: the pairs (a, c) of the nb blocks of w
+    columns whose K' (a) and V (c) columns share a head, in item order."""
+    return [(a, c) for a in range(nb) for c in range(nb)
+            if a * w // hd <= (c * w + w - 1) // hd and c * w // hd <= (a * w + w - 1) // hd]
+
+
+def staged_columns(w, esize):
+    """``heads_sum_mma_kernel``'s fetch (one stage): for each cp.async piece
+    i of 16 bytes, (half v, row r, staged element offset, block column):
+    piece u of the K' (v 0) or V (v 1) half of group q of row r, at element
+    (v kSumRows + r) (w + 8) + 64 q + u (16 / esize) of the stage."""
+    rows, group = constant("kSumRows"), constant("kGroup")
+    cpr, per = group * esize // 16, 16 // esize
+    out = []
+    for i in range(2 * rows * (w // group) * cpr):
+        u, v, q = i % cpr, i // cpr % 2, i // (2 * cpr) % (w // group)
+        r = i // (2 * cpr * (w // group))
+        out.append((v, r, (v * rows + r) * (w + 8) + q * group + u * per, q * group + u * per))
+    return out
+
+
 @pytest.mark.parametrize("d,hd", GENERIC)
 def test_sum_writes_each_output_once_from_staged_columns(d, hd):
-    """``heads_sum_kernel``: thread t of the batch's nt owns the TT x TT
-    block (c0, j0) of the (d, hd) view of KV (TT 8 where 8 divides hd, else
-    1), within one head; its block of 256 threads stages K' columns [ka, kb)
-    and V columns [va, vb) (TT 1: all), a whole number of 8-column units
-    within 2 d floats a row; every KV entry is written once, every K_sum
-    column once (by the threads with j0 = 0)."""
-    tt = 8 if hd % 8 == 0 else 1
-    jt, threads = hd // tt, constant("kSumThreads")
-    nt = d // tt * jt
-    kv, ksum = np.zeros((d, hd), np.int64), np.zeros(d, np.int64)
-    for t_first in range(0, nt, threads):
-        t_last = min(nt, t_first + threads) - 1
-        ka, kb, va, vb = 0, d, 0, d
-        if tt > 1:
-            ka, kb = t_first // jt * tt, t_last // jt * tt + tt
-            va, vb = ka // hd * hd, (kb - 1) // hd * hd + hd
-        assert (kb - ka) % 8 == 0 and (vb - va) % 8 == 0 and kb - ka + vb - va <= 2 * d
-        for t_ in range(t_first, t_last + 1):
-            c0, j0 = t_ // jt * tt, t_ % jt * tt
-            h = c0 // hd
-            assert (c0 + tt - 1) // hd == h and j0 + tt <= hd
-            assert ka <= c0 and c0 + tt <= kb and va <= h * hd + j0 and h * hd + j0 + tt <= vb
-            kv[c0:c0 + tt, j0:j0 + tt] += 1
-            if j0 == 0:
-                ksum[c0:c0 + tt] += 1
-    assert (kv == 1).all() and (ksum == 1).all()
+    """``heads_sum_mma_kernel``, in bf16 and (d <= 256) fp32: the items of a
+    (batch, chunk) are the pairs of blocks of ``sum_block`` columns whose K'
+    and V columns share a head; warp w of an item takes its K' block's
+    columns 16 w .. 16 w + 15 against the n8 tiles of its V block that share
+    a head with them and writes the entries of those tiles whose K' and V
+    columns lie in one head; every KV entry is written once, every K_sum
+    column once (by the items with equal blocks), and an item writes only
+    within the heads its K' block touches. A stage's cp.async pieces fill
+    each staged element of its K' and V rows once (rows w + 8 elements
+    apart, so that a fragment load's 8 rows fall in distinct banks), each
+    from the block's own column."""
+    for f32 in (False, True):
+        if f32 and d > 256:
+            continue
+        w = sum_block(f32, hd)
+        kv, ksum = np.zeros((d, hd), np.int64), np.zeros(d, np.int64)
+        pairs = sum_pairs(d // w, w, hd)
+        assert pairs and len(set(pairs)) == len(pairs)
+        for a, c in pairs:
+            k_heads = set(range(a * w // hd, (a * w + w - 1) // hd + 1))
+            written = 0
+            for warp in range(w // 16):
+                cm = a * w + 16 * warp
+                for j in range(w // 8):
+                    cn = c * w + 8 * j
+                    if not (cm // hd <= (cn + 7) // hd and cn // hd <= (cm + 15) // hd):
+                        continue
+                    for m in range(cm, cm + 16):
+                        for n in range(cn, cn + 8):
+                            if m // hd == n // hd:
+                                assert m // hd in k_heads
+                                kv[m, n - m // hd * hd] += 1
+                                written += 1
+                if a == c:
+                    ksum[cm:cm + 16] += 1
+            assert written > 0
+        assert (kv == 1).all() and (ksum == 1).all(), (f32, d, hd)
+        esize = 4 if f32 else 2
+        staged = staged_columns(w, esize)
+        rows = constant("kSumRows")
+        cover = np.zeros(2 * rows * (w + 8), np.int64)
+        for v, r, off, col in staged:
+            cover[off:off + 16 // esize] += 1
+            assert off == (v * rows + r) * (w + 8) + col and col + 16 // esize <= w
+        pad = np.arange(cover.size) % (w + 8) >= w
+        assert (cover[~pad] == 1).all() and (cover[pad] == 0).all()
+        assert ((w + 8) * esize) % 16 == 0 and ((w + 8) * esize // 4) % 32 in (4, 8)
 
 
 @pytest.mark.parametrize("d", [128, 256, 384])
 def test_kernel_layouts_fit_shared_memory(d):
-    """The sum block's stage (kSub rows of at most 2 d floats); the bf16
+    """The sum block's ring (kSumStages stages of kSumRows K' and V rows of
+    its block, w + 8 elements each) within the card's per-block limit, and
+    the blocks an SM is meant to hold (256 / w, at most 128 registers a
+    thread) within its 233,472 bytes with 1 KB each reserved; the bf16
     apply block (``tail::Layout<D, EXTRA>``: ring stages of 64 d bytes, the
     row tile, hidden chunks, the attend's band chunks (one of the two
     warpgroups' shared columns at d <= 256, d k-rows; one a warpgroup at d
@@ -285,8 +353,11 @@ def test_kernel_layouts_fit_shared_memory(d):
     projection block (ring of 32 KB stages, the 64-row x tile, mask) and
     the apply block with each warpgroup's band chunk (64 k-rows x 64
     columns, fp32 hi and lo) inside its half of the hidden buffers."""
-    sub, sl, sl32 = constant("kSub"), constant("kSliceBf16"), constant("kSliceF32")
-    assert sub * 2 * d * 4 <= SMEM
+    sl, sl32 = constant("kSliceBf16"), constant("kSliceF32")
+    stages, rows = constant("kSumStages"), constant("kSumRows")
+    for esize, w in ((2, 64), (2, 128), (4, 64)):
+        ring = stages * 2 * rows * (w + 8) * esize
+        assert ring <= SMEM and (256 // w) * (ring + 1024) <= 233472
     cols = 2 if d > 256 else 1
     kc = attn_cuda.heads_band_chunk(d, torch.bfloat16)
     assert kc == (d if cols == 1 else d // 2) and kc % 32 == 0

@@ -20,6 +20,14 @@
   at head dims that divide 64 (d 128 hd 8, d 256 hd 8), that straddle a
   slice edge (d 384 hd 3, 12, 24, 96) and from 128 up (d 256 hd 128, d 384
   hd 384);
+* a model of the fp32 head-generic stats (``csrc/attn_heads.cu``: the
+  projection on the 3xTF32 model, then ``heads_sum_mma_kernel``'s K'^T V and
+  K_sum per chunk of ``HEADS_CHUNK`` rows as split-TF32 on mma.sync, per k8
+  step the passes lo hi, hi lo, hi hi, promoted every ``F32_PROMOTE_K``
+  rows, the chunks added in order) held to the JAX package's Pallas stats
+  kernel in interpret mode at HIGHEST within a quarter of the fp32 stats
+  bar (2.5e-6), with round-to-nearest and with truncating adds, at the fp32
+  cells below over three chunks;
 * the staging restated from the source at every cell of
   ``attn_cuda.KERNEL_CELLS`` in both dtypes: each chunk written as the
   kernels' items write it and read back through the wgmma B layout holds
@@ -35,10 +43,12 @@ import torch
 from scream_tpu.ops import attn_pallas as jattn
 from scream_tpu_torch.ops import attn_cuda
 from scream_tpu_torch.ops.ffn import tail_plain
+from test_torch_port_fp32 import jax_stats
 from test_torch_port_tf32x3 import mm3, model_tail, round32
 
 BF, F32 = torch.bfloat16, torch.float32
 PALLAS_BAR, F32_APPLY_BAR, BF16_BAR, BF16_APPLY_BAR = 1e-5, 2e-5 / 4, 5e-3, 1e-2
+F32_STATS_BAR = 1e-5 / 4
 # (d_model, heads): head dim 8 at d 128 and 256, 3 / 12 / 24 / 96 at d 384,
 # 128 at d 256 and 384 at d 384.
 CELLS = [(128, 16), (256, 32), (384, 128), (384, 32), (384, 16), (384, 4), (256, 2), (384, 1)]
@@ -234,6 +244,74 @@ def test_bf16_model_meets_plain(d, heads):
                                        attn_eps=1e-6, ln_eps=1e-5, norm_dtype=F32)
     got = model_apply(xb, m, KV, ks, Wq, Wm, g1, b1, W1, W2, g2, b2, BF)
     assert rel(got.float().numpy(), plain.float().numpy(), rows=mask) <= BF16_APPLY_BAR
+
+
+# ---- the fp32 stats' K'^T V on the tensor cores ----
+
+def mm3_batched(A, B, mode):
+    """``test_torch_port_tf32x3.py``'s ``mm3`` over leading batch dims: ``A``
+    ``(..., M, K)``, ``B`` ``(..., K, N)``, K a multiple of 8; per k8 step
+    the passes lo(A) hi(B), hi(A) lo(B), hi(A) hi(B), each an exact sum of 8
+    products added into the fp32 chunk accumulator with one rounding
+    (``mode``), the chunk added into the fp32 master every
+    ``F32_PROMOTE_K`` k values and at the end."""
+    K = A.shape[-1]
+    (Ah, Al), (Bh, Bl) = (tuple(p.double() for p in attn_cuda.split_tf32(M)) for M in (A, B))
+    master = torch.zeros(A.shape[:-1] + B.shape[-1:])
+    chunk = torch.zeros_like(master)
+    for k0 in range(0, K, 8):
+        ks = slice(k0, k0 + 8)
+        for a, b in ((Al, Bh), (Ah, Bl), (Ah, Bh)):
+            chunk = round32(chunk.double() + a[..., ks] @ b[..., ks, :], mode)
+        if (k0 + 8) % attn_cuda.F32_PROMOTE_K == 0 or k0 + 8 == K:
+            master, chunk = master + chunk, torch.zeros_like(master)
+    return master
+
+
+def model_stats_f32(x, mask, Wk, Wv, heads, mode):
+    """The fp32 head-generic stats as the kernels form them: ``[k|v]`` on
+    the 3xTF32 model (``heads_proj_f32_kernel``, ``tf32_tile.cuh:project_kv``),
+    ``K' = elu1(k) m``, ``V = v m``; per chunk of ``HEADS_CHUNK`` rows each
+    head's K'^T V and K_sum (K' times a column of ones) on
+    :func:`mm3_batched` over the chunk's rows in order (``heads_sum_mma_kernel``:
+    rows past S are the workspace's zeros); the chunks added in chunk order
+    (the slot reduce)."""
+    B, S, d = x.shape
+    hd = d // heads
+    kv = mm3(x.reshape(B * S, d), torch.cat([Wk, Wv], 1), mode).reshape(B, S, 2 * d)
+    m = mask[..., None]
+    kp, vm = attn_cuda._elu1(kv[..., :d]) * m, kv[..., d:] * m
+    KV, ks = torch.zeros((B, heads, hd, hd)), torch.zeros((B, d))
+    for c0 in range(0, S, attn_cuda.HEADS_CHUNK):
+        c1 = min(S, c0 + attn_cuda.HEADS_CHUNK)
+        n = c1 - c0 + (-(c1 - c0) % 8)
+        kc, vc = (torch.nn.functional.pad(a[:, c0:c1], (0, 0, 0, n - (c1 - c0)))
+                  for a in (kp, vm))
+        A = kc.reshape(B, n, heads, hd).permute(0, 2, 3, 1)
+        KV = KV + mm3_batched(A, vc.reshape(B, n, heads, hd).permute(0, 2, 1, 3), mode)
+        ks = ks + mm3_batched(kc.transpose(1, 2), torch.ones((n, 1)), mode)[..., 0]
+    return KV, ks
+
+
+@pytest.mark.parametrize("d,heads", [(d, h) for d, h in CELLS if d <= 256])
+def test_fp32_stats_model_meets_pallas(d, heads):
+    """fp32, 2 x 1,100 rows (three chunks; the second batch's tail masked):
+    the model's KV (the diagonal blocks) and K_sum against the Pallas stats
+    kernel at HIGHEST within a quarter of the fp32 stats bar, with
+    round-to-nearest and with truncating adds."""
+    rng = np.random.default_rng(3 * d + heads)
+    B, S = 2, 1100
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    mask = rng.random((B, S)) > 0.2
+    mask[1, 700:] = False
+    Wk, Wv = ((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32) for _ in range(2))
+    full, ks_want = jax_stats(x, mask, Wk, Wv)
+    hd = d // heads
+    want = np.stack([full[:, h * hd:(h + 1) * hd, h * hd:(h + 1) * hd] for h in range(heads)], 1)
+    for mode in ("rn", "rz"):
+        KV, ks = model_stats_f32(t(x), t(mask).float(), t(Wk), t(Wv), heads, mode)
+        assert rel(KV.numpy(), want) <= F32_STATS_BAR, mode
+        assert rel(ks.numpy(), ks_want) <= F32_STATS_BAR, mode
 
 
 # ---- the staging, restated from csrc/attn_heads.cuh ----
